@@ -1,0 +1,80 @@
+"""Weight bridge: the JAX package's flax parameter tree -> this port's state_dict.
+
+The inverse of promptir_tpu/compat/torch_ckpt.py:convert_state_dict, written
+afresh (the port imports nothing of the JAX package). The flax tree holds
+numpy-convertible arrays with HWIO conv kernels, (in, out) dense kernels,
+(heads,) temperatures, (L, S, S, C) prompt banks, Sequential indices merged
+into names (`encoder_level1_0`) and no LayerNorm `body` wrapper. The target
+model's own state_dict keys say where each tensor goes, so names such as
+`down1_2`, which are not Sequential indices, are never split.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
+    """Where the flax tree keeps the tensor of torch state-dict `key`."""
+    parts = key.split(".")
+    merged: list = []
+    for i, p in enumerate(parts):
+        if p == "body" and not (i + 1 < len(parts) and parts[i + 1].isdigit()):
+            continue  # LayerNorm wrapper
+        if p.isdigit() and merged and i < len(parts) - 1:
+            merged[-1] = f"{merged[-1]}_{p}"  # Sequential index
+        else:
+            merged.append(p)
+    if merged[-1] == "weight" and ndim in (2, 4):
+        merged[-1] = "kernel"
+    return tuple(merged)
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _to_torch_layout(arr, key: str, shape) -> torch.Tensor:
+    a = np.asarray(arr, dtype=np.float32)
+    leaf = key.rsplit(".", 1)[-1]
+    if leaf == "weight" and a.ndim == 4:
+        a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    elif leaf == "weight" and a.ndim == 2:
+        a = a.T  # (in, out) -> (out, in)
+    elif leaf == "prompt_param":
+        a = a.transpose(0, 3, 1, 2)[None]  # (L, S, S, C) -> (1, L, C, S, S)
+    elif leaf == "temperature":
+        a = a.reshape(tuple(shape))
+    if a.shape != tuple(shape):
+        raise ValueError(f"{key}: flax shape gives {a.shape}, model wants "
+                         f"{tuple(shape)}")
+    return torch.from_numpy(np.array(a, copy=True, order="C"))
+
+
+def state_dict_from_flax(variables: Mapping[str, Any],
+                         model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """float32 state_dict for `model` from flax `variables` ({'params': ...}
+    or the params tree itself). Raises listing missing and unexpected paths."""
+    tree = variables.get("params", variables)
+    flat = dict(_flatten(tree))
+    out, missing = {}, []
+    for key, t in model.state_dict().items():
+        path = flax_path(key, t.dim())
+        if path not in flat:
+            missing.append("/".join(path))
+            continue
+        out[key] = _to_torch_layout(flat.pop(path), key, t.shape)
+    if missing or flat:
+        unexpected = sorted("/".join(p) for p in flat)
+        raise ValueError(
+            f"flax tree does not fit the model: missing ({len(missing)}) "
+            f"{missing[:8]}; unexpected ({len(unexpected)}) {unexpected[:8]}"
+        )
+    return out

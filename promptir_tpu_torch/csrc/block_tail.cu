@@ -1,0 +1,286 @@
+// TransformerBlock tail: x2 = x + W_proj (attn v); out = x2 + W2 (gelu(h1) * h2)
+// with [h1, h2] = dw3x3(W1 LN2(x2)).
+//
+// Replaces promptir_tpu/ops/pallas/block.py:158 fused_block_tail (body
+// _tail_kernel, sharing gdfn.py:403 ln_gdfn_stripe). This first form splits
+// the tail in two kernels at the hidden tensor:
+//   tail_a (pointwise): attn apply, out-projection, residual, LN2, W1 (C->2F);
+//          writes x2 and the hidden h, both in T;
+//   tail_b (spatial tile with a 1-pixel halo of h): depthwise 3x3, the exact
+//          erf gate, W2 (F->C) and the residual.
+// Against the single-pass TPU kernel the split writes h (2F values a pixel)
+// and x2 (C) and reads them back, h with its halo: about 2 * (2F + C) extra
+// values a pixel, some 12 times the size of x at F = 2.66 C.
+//
+// Bound on the H100. The three products cost Cd + C^2 + 3FC MACs a pixel
+// (about 9 C^2) against 3C stored values (v and x read, out written). In
+// bf16 at 989 TFLOP/s and 3.35 TB/s the minimal traffic is the bound at
+// C = 48 and the operations at C >= 96 (chip_smoke.py prints which for every
+// shape). This first form is bound by neither: its products are fp32 SIMT
+// FMAs from a plain shared-memory tile (common.cuh), not wgmma. tail_a keeps
+// av, x2 and LN2(x2) of its pixels in shared memory between the products.
+// tail_b computes each gated value on the fly as it stages it for W2, so the
+// gated tensor never reaches memory; it recomputes the gate once for each 64
+// output channels, which at C = 704 is 11 times.
+//
+// Dropped TPU workarounds: the W+2 / 128-lane padding, the rational erf
+// (erff here is exact to a few ulp), the hybrid-MXU depthwise split and the
+// w % 8 gates.
+#include "common.cuh"
+
+namespace {
+using namespace pk;
+
+struct TailArgs {
+  const void* v;      // (B, H, W, C) T
+  const void* x;      // (B, H, W, C) T
+  const float* attn;  // (B, heads, d, d) fp32
+  const void* wproj;  // (C, C) T (out, in)
+  const void* lnw;    // (C) T
+  const void* lnb;    // (C) T, unused when bias_free
+  const void* w1;     // (2F, C) T
+  const void* wdw;    // (2F, 9) T
+  const void* w2;     // (C, F) T
+  void* x2;           // (B, H, W, C) T
+  void* hid;          // (B, H, W, 2F) T
+  void* out;          // (B, H, W, C) T
+  int B, H, W, C, heads, F, bias_free;
+  float eps;
+};
+
+template <int MP>
+constexpr size_t tail_a_smem_floats(int C) {
+  return (size_t)2 * C * 16 * MP + 2 * kTileK * kLd + kThreads + 2 * 16 * MP;
+}
+
+// One block: PT = 16 * MP consecutive pixels of one image.
+template <class T, int MP>
+__global__ void __launch_bounds__(kThreads) tail_a_kernel(TailArgs a) {
+  constexpr int PT = 16 * MP;
+  constexpr int G = kThreads / PT;  // threads per pixel in the LN
+  extern __shared__ float4 smem4[];
+  const int C = a.C, d = C / a.heads, HW = a.H * a.W, F2 = 2 * a.F, b = blockIdx.y;
+  const long long pix0 = (long long)b * HW + (long long)blockIdx.x * PT;
+  const int np = min(PT, HW - (int)blockIdx.x * PT);
+  const T* v = static_cast<const T*>(a.v);
+  const T* x = static_cast<const T*>(a.x);
+  const T* wproj = static_cast<const T*>(a.wproj);
+  const T* lnw = static_cast<const T*>(a.lnw);
+  const T* lnb = static_cast<const T*>(a.lnb);
+  const T* w1 = static_cast<const T*>(a.w1);
+  T* x2g = static_cast<T*>(a.x2);
+  T* hid = static_cast<T*>(a.hid);
+
+  float* bufA = reinterpret_cast<float*>(smem4);  // C x PT: av, then LN2(x2)
+  float* bufB = bufA + C * PT;                    // C x PT: x2
+  float* As = bufB + C * PT;
+  float* Ws = As + kTileK * kLd;
+  float* red = Ws + kTileK * kLd;  // kThreads partials + PT means + PT rstds
+  const int ng = threadIdx.x & 15, pg = threadIdx.x >> 4;
+
+  // 1. av[p, h d + i] = sum_j attn[b, h, i, j] v[p, h d + j], rounded through T
+  for (int hh = 0; hh < a.heads; ++hh) {
+    const float* at = a.attn + (long long)(b * a.heads + hh) * d * d;
+    for (int n0 = 0; n0 < d; n0 += kTileN) {
+      float acc[MP][4];
+      gemm_tile<MP>(
+          d,
+          [&](int k, int p) -> float {
+            return p < np ? to_f(v[(pix0 + p) * C + hh * d + k]) : 0.f;
+          },
+          [&](int k, int n) -> float { return n0 + n < d ? at[(n0 + n) * d + k] : 0.f; }, As,
+          Ws, acc);
+#pragma unroll
+      for (int i = 0; i < MP; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + ng + 16 * j;
+          if (n < d) bufA[(hh * d + n) * PT + pg + 16 * i] = round_t<T>(acc[i][j]);
+        }
+    }
+  }
+  __syncthreads();
+
+  // 2. x2 = x + W_proj av, rounded through T; kept here and written out
+  for (int n0 = 0; n0 < C; n0 += kTileN) {
+    float acc[MP][4];
+    gemm_tile<MP>(
+        C, [&](int k, int p) -> float { return bufA[k * PT + p]; },
+        [&](int k, int n) -> float {
+          return n0 + n < C ? to_f(wproj[(long long)(n0 + n) * C + k]) : 0.f;
+        },
+        As, Ws, acc);
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = pg + 16 * i, n = n0 + ng + 16 * j;
+        if (n >= C) continue;
+        float val = 0.f;
+        if (p < np) {
+          val = round_t<T>(to_f(x[(pix0 + p) * C + n]) + acc[i][j]);
+          x2g[(pix0 + p) * C + n] = from_f<T>(val);
+        }
+        bufB[n * PT + p] = val;
+      }
+  }
+  __syncthreads();
+
+  // 3. LN2 over the C channels of each pixel (two-pass, fp32) -> bufA
+  {
+    const int p = threadIdx.x % PT, g = threadIdx.x / PT;
+    float s = 0.f;
+    for (int c = g; c < C; c += G) s += bufB[c * PT + p];
+    red[g * PT + p] = s;
+    __syncthreads();
+    if (g == 0) {
+      float t = 0.f;
+      for (int q = 0; q < G; ++q) t += red[q * PT + p];
+      red[kThreads + p] = t / C;
+    }
+    __syncthreads();
+    const float mean = red[kThreads + p];
+    float s2 = 0.f;
+    for (int c = g; c < C; c += G) {
+      const float t = bufB[c * PT + p] - mean;
+      s2 = fmaf(t, t, s2);
+    }
+    red[g * PT + p] = s2;
+    __syncthreads();
+    if (g == 0) {
+      float t = 0.f;
+      for (int q = 0; q < G; ++q) t += red[q * PT + p];
+      red[kThreads + PT + p] = 1.f / sqrtf(t / C + a.eps);
+    }
+    __syncthreads();
+    const float rstd = red[kThreads + PT + p];
+    for (int c = g; c < C; c += G) {
+      const float xv = bufB[c * PT + p];
+      const float y = a.bias_free ? xv * rstd * to_f(lnw[c])
+                                  : (xv - mean) * rstd * to_f(lnw[c]) + to_f(lnb[c]);
+      bufA[c * PT + p] = round_t<T>(y);
+    }
+    __syncthreads();
+  }
+
+  // 4. h = W1 LN2(x2) (2F channels), rounded to T
+  for (int n0 = 0; n0 < F2; n0 += kTileN) {
+    float acc[MP][4];
+    gemm_tile<MP>(
+        C, [&](int k, int p) -> float { return bufA[k * PT + p]; },
+        [&](int k, int n) -> float {
+          return n0 + n < F2 ? to_f(w1[(long long)(n0 + n) * C + k]) : 0.f;
+        },
+        As, Ws, acc);
+#pragma unroll
+    for (int i = 0; i < MP; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = pg + 16 * i, n = n0 + ng + 16 * j;
+        if (p < np && n < F2) hid[(pix0 + p) * F2 + n] = from_f<T>(acc[i][j]);
+      }
+  }
+}
+
+constexpr int kTH = 4, kTW = 16;  // tail_b spatial tile: 64 pixels
+
+// One block: a kTH x kTW tile of one image; all C output channels.
+template <class T>
+__global__ void __launch_bounds__(kThreads) tail_b_kernel(TailArgs a, int tiles_w) {
+  __shared__ float As[kTileK * kLd];
+  __shared__ float Ws[kTileK * kLd];
+  const int b = blockIdx.y, C = a.C, F = a.F, F2 = 2 * F, H = a.H, W = a.W;
+  const int ty0 = (blockIdx.x / tiles_w) * kTH, tx0 = (blockIdx.x % tiles_w) * kTW;
+  const T* hid = static_cast<const T*>(a.hid);
+  const T* wdw = static_cast<const T*>(a.wdw);
+  const T* w2 = static_cast<const T*>(a.w2);
+  const T* x2 = static_cast<const T*>(a.x2);
+  T* out = static_cast<T*>(a.out);
+  const int ng = threadIdx.x & 15, pg = threadIdx.x >> 4;
+
+  for (int n0 = 0; n0 < C; n0 += kTileN) {
+    float acc[4][4];
+    gemm_tile<4>(
+        F,
+        [&](int k, int p) -> float {
+          // gated value g[p, k] = gelu(dw(h)[k]) * dw(h)[F + k], zero-padded taps
+          const int gy = ty0 + p / kTW, gx = tx0 + p % kTW;
+          if (gy >= H || gx >= W) return 0.f;
+          float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int yy = gy + dy - 1;
+            if (yy < 0 || yy >= H) continue;
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const int xx = gx + dx - 1;
+              if (xx < 0 || xx >= W) continue;
+              const T* hp = hid + ((long long)(b * H + yy) * W + xx) * F2;
+              const int t = dy * 3 + dx;
+              s1 = fmaf(to_f(hp[k]), to_f(wdw[k * 9 + t]), s1);
+              s2 = fmaf(to_f(hp[F + k]), to_f(wdw[(F + k) * 9 + t]), s2);
+            }
+          }
+          return round_t<T>(gelu_erf(s1) * s2);
+        },
+        [&](int k, int n) -> float {
+          return n0 + n < C ? to_f(w2[(long long)(n0 + n) * F + k]) : 0.f;
+        },
+        As, Ws, acc);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = pg + 16 * i, gy = ty0 + p / kTW, gx = tx0 + p % kTW;
+      if (gy >= H || gx >= W) continue;
+      const long long base = ((long long)(b * H + gy) * W + gx) * C;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + ng + 16 * j;
+        if (n < C) out[base + n] = from_f<T>(to_f(x2[base + n]) + acc[i][j]);
+      }
+    }
+  }
+}
+
+template <class T, int MP>
+int launch(const TailArgs& a, cudaStream_t stream) {
+  constexpr int PT = 16 * MP;
+  const size_t smem = tail_a_smem_floats<MP>(a.C) * sizeof(float);
+  cudaError_t err = allow_smem(tail_a_kernel<T, MP>, smem);
+  if (err != cudaSuccess) return err;
+  const int HW = a.H * a.W;
+  tail_a_kernel<T, MP><<<dim3((HW + PT - 1) / PT, a.B), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int tiles_w = (a.W + kTW - 1) / kTW, tiles = ((a.H + kTH - 1) / kTH) * tiles_w;
+  tail_b_kernel<T><<<dim3(tiles, a.B), kThreads, 0, stream>>>(a, tiles_w);
+  return cudaGetLastError();
+}
+
+// tail_a's pixel tile: 64 pixels up to C = 256, else 32 (shared memory).
+int tail_mp(int C) { return C <= 256 ? 4 : 2; }
+
+}  // namespace
+
+// Shared-memory bytes of one tail_a block (the Python wrapper checks the fit).
+extern "C" long long block_tail_smem(int C) {
+  return (long long)(tail_mp(C) == 4 ? tail_a_smem_floats<4>(C) : tail_a_smem_floats<2>(C)) *
+         sizeof(float);
+}
+
+// Returns the CUDA error code of the two launches (0 on success).
+extern "C" int block_tail_launch(int dtype, const void* v, const void* x, const float* attn,
+                                 const void* wproj, const void* lnw, const void* lnb,
+                                 const void* w1, const void* wdw, const void* w2, void* x2,
+                                 void* hid, void* out, int B, int H, int W, int C, int heads,
+                                 int F, int bias_free, float eps, void* stream) {
+  TailArgs a;
+  a.v = v; a.x = x; a.attn = attn; a.wproj = wproj; a.lnw = lnw; a.lnb = lnb; a.w1 = w1;
+  a.wdw = wdw; a.w2 = w2; a.x2 = x2; a.hid = hid; a.out = out;
+  a.B = B; a.H = H; a.W = W; a.C = C; a.heads = heads; a.F = F; a.bias_free = bias_free;
+  a.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide = tail_mp(C) == 4;
+  if (dtype == kBF16) return wide ? launch<__nv_bfloat16, 4>(a, s) : launch<__nv_bfloat16, 2>(a, s);
+  if (dtype == kF32) return wide ? launch<float, 4>(a, s) : launch<float, 2>(a, s);
+  return cudaErrorInvalidValue;
+}

@@ -1,0 +1,47 @@
+"""Model registry of the port.
+
+Counterpart of promptir_tpu/models/__init__.py. Only the flagship
+`promptir` is ported so far; ROADMAP.md lists the other families.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+_REGISTRY: Dict[str, Callable[..., torch.nn.Module]] = {}
+
+
+def register_model(name: str):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def available_models():
+    return sorted(_REGISTRY)
+
+
+def create_model(name: str, *, device="cuda", dtype=torch.float32, **kwargs):
+    """Build model `name` on `device` (default the card) in `dtype`.
+
+    Raises when `device` is a CUDA device and no card is present: the port
+    never falls back to the CPU unless the caller asks for it.
+    """
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"model {name!r} is not ported yet (ported: {available_models()}); "
+            "see ROADMAP.md"
+        )
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass device='cpu' to run the plain versions"
+        )
+    return _REGISTRY[name](**kwargs).to(device=device, dtype=dtype).eval()
+
+
+from promptir_tpu_torch.models import promptir as _promptir  # noqa: E402,F401

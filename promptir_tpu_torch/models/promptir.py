@@ -1,0 +1,131 @@
+"""Canonical PromptIR: a 4-level Restormer U-Net with a degradation prompt bank.
+
+Counterpart of promptir_tpu/models/promptir.py (reference
+net/model.py:244-380), quirks included, so the reference's 548-tensor state
+dict loads with `load_state_dict(strict=True)`:
+  * asymmetric decoder: up4_3 = Upsample(4d) and reduce_chan_level3
+    (2d + 4d -> 4d);
+  * decoder level 1 runs at 2d channels with no reduce after up2_1;
+  * prompts (dims 64/128/320, length 5, sizes 64/32/16) join after the
+    latent and decoder levels 3 and 2 through a widened TransformerBlock
+    (heads[2] for all three) and a 1x1 reduce;
+  * the dead convs chnl_reduce{1,2,3} and reduce_noise_channel_{1,2,3};
+  * the global residual: output conv + input image.
+
+Activations are NCHW in channels_last memory, so the blocks' kernels see
+contiguous NHWC views. The level-1 decoder entry runs through the seam
+kernel: up2_1's conv, then pixel-shuffle and the skip concat in one pass.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from promptir_tpu_torch.models import register_model
+from promptir_tpu_torch.models.blocks import (
+    DeadConv,
+    TransformerBlock,
+    nchw,
+    nhwc,
+)
+from promptir_tpu_torch.ops.conv import Conv
+from promptir_tpu_torch.ops.cuda.seam import seam
+from promptir_tpu_torch.ops.embed import OverlapPatchEmbed
+from promptir_tpu_torch.ops.prompt import PromptGenBlock
+from promptir_tpu_torch.ops.resample import Downsample, FewChannelConv3, Upsample
+
+
+class PromptIR(nn.Module):
+    def __init__(self, inp_channels: int = 3, out_channels: int = 3,
+                 dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
+                 num_refinement_blocks: int = 4,
+                 heads: Sequence[int] = (1, 2, 4, 8), expansion: float = 2.66,
+                 bias_free_norm: bool = False):
+        super().__init__()
+        d, nb, hs = dim, num_blocks, heads
+
+        def stack(n, c, h):
+            return nn.Sequential(*[
+                TransformerBlock(c, h, expansion, bias_free_norm)
+                for _ in range(n)
+            ])
+
+        def block(c, h):
+            return TransformerBlock(c, h, expansion, bias_free_norm)
+
+        self.patch_embed = OverlapPatchEmbed(inp_channels, d)
+        # dead layers (checkpoint parity only)
+        self.chnl_reduce1 = DeadConv(64, 64)
+        self.chnl_reduce2 = DeadConv(128, 128)
+        self.chnl_reduce3 = DeadConv(320, 256)
+        self.reduce_noise_channel_1 = DeadConv(d + 64, d)
+        self.reduce_noise_channel_2 = DeadConv(2 * d + 128, 2 * d)
+        self.reduce_noise_channel_3 = DeadConv(4 * d + 256, 4 * d)
+
+        self.encoder_level1 = stack(nb[0], d, hs[0])
+        self.down1_2 = Downsample(d)
+        self.encoder_level2 = stack(nb[1], 2 * d, hs[1])
+        self.down2_3 = Downsample(2 * d)
+        self.encoder_level3 = stack(nb[2], 4 * d, hs[2])
+        self.down3_4 = Downsample(4 * d)
+        self.latent = stack(nb[3], 8 * d, hs[3])
+
+        self.prompt1 = PromptGenBlock(64, 5, 64, 2 * d)
+        self.prompt2 = PromptGenBlock(128, 5, 32, 4 * d)
+        self.prompt3 = PromptGenBlock(320, 5, 16, 8 * d)
+
+        self.noise_level3 = block(8 * d + 320, hs[2])
+        self.reduce_noise_level3 = Conv(8 * d + 320, 4 * d)
+        self.up4_3 = Upsample(4 * d)
+        self.reduce_chan_level3 = Conv(2 * d + 4 * d, 4 * d)
+        self.decoder_level3 = stack(nb[2], 4 * d, hs[2])
+
+        self.noise_level2 = block(4 * d + 128, hs[2])
+        self.reduce_noise_level2 = Conv(4 * d + 128, 4 * d)
+        self.up3_2 = Upsample(4 * d)
+        self.reduce_chan_level2 = Conv(4 * d, 2 * d)
+        self.decoder_level2 = stack(nb[1], 2 * d, hs[1])
+
+        self.noise_level1 = block(2 * d + 64, hs[2])
+        self.reduce_noise_level1 = Conv(2 * d + 64, 2 * d)
+        self.up2_1 = Upsample(2 * d)
+        self.decoder_level1 = stack(nb[0], 2 * d, hs[0])
+        self.refinement = stack(num_refinement_blocks, 2 * d, hs[0])
+        self.output = FewChannelConv3(2 * d, out_channels)
+
+    def forward(self, inp_img):
+        """inp_img: (B, 3, H, W) float, H and W multiples of 8. Returns the
+        restored image in float32."""
+        dt = self.output.weight.dtype
+        inp = inp_img.to(dt).contiguous(memory_format=torch.channels_last)
+        cat = torch.cat
+
+        enc1 = self.encoder_level1(self.patch_embed(inp))
+        enc2 = self.encoder_level2(self.down1_2(enc1))
+        enc3 = self.encoder_level3(self.down2_3(enc2))
+        x = self.latent(self.down3_4(enc3))
+
+        x = self.noise_level3(cat([x, self.prompt3(x)], 1))
+        x = self.reduce_noise_level3(x)
+        x = self.reduce_chan_level3(cat([self.up4_3(x), enc3], 1))
+        x = self.decoder_level3(x)
+
+        x = self.noise_level2(cat([x, self.prompt2(x)], 1))
+        x = self.reduce_noise_level2(x)
+        x = self.reduce_chan_level2(cat([self.up3_2(x), enc2], 1))
+        x = self.decoder_level2(x)
+
+        x = self.noise_level1(cat([x, self.prompt1(x)], 1))
+        x = self.reduce_noise_level1(x)
+        # up2_1's conv, then pixel-shuffle + skip concat in one seam pass
+        x = nchw(seam(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
+        x = self.refinement(self.decoder_level1(x))
+        return (self.output(x) + inp).float()
+
+
+@register_model("promptir")
+def _promptir(**kwargs) -> PromptIR:
+    return PromptIR(**kwargs)

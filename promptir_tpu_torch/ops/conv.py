@@ -1,0 +1,26 @@
+"""Convolutions with the reference's parameter names.
+
+Counterpart of promptir_tpu/ops/conv.py. `Conv` is `nn.Conv2d` with
+"same" padding for odd kernels and no bias by default, so its `weight` (and
+`bias`) load the reference's keys verbatim; torch's default initialization
+is the reference's. The plain convolutions of the model stay `F.conv2d`.
+"""
+
+from __future__ import annotations
+
+import torch.nn.functional as F
+from torch import nn
+
+
+class Conv(nn.Conv2d):
+    def __init__(self, cin: int, cout: int, k: int = 1, *, bias: bool = False,
+                 groups: int = 1):
+        super().__init__(cin, cout, k, padding=k // 2, bias=bias, groups=groups)
+
+
+def dwconv3x3_nhwc(h, taps):
+    """Depthwise 3x3 with zero padding of NHWC `h`; taps: (F, 9) or (F,1,3,3)."""
+    f = h.shape[-1]
+    y = F.conv2d(h.permute(0, 3, 1, 2), taps.reshape(f, 1, 3, 3), padding=1,
+                 groups=f)
+    return y.permute(0, 2, 3, 1)

@@ -1,0 +1,124 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface. The library lands in
+``promptir_tpu_torch/_build/`` under a name keyed by a hash of the sources and
+flags, so a changed source rebuilds and an unchanged one loads at once. No
+PyTorch header is compiled: the build takes seconds, where
+``torch.utils.cpp_extension.load`` takes minutes.
+
+Every C entry point returns ``cudaGetLastError()`` after its launches;
+:func:`check` raises on a non-zero code, because a refused launch never runs
+and ``torch.cuda.synchronize()`` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+BUILD_TIMEOUT_S = 600
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# what the last build printed (ptxas register and shared-memory use) and
+# how long it took; None when the library was already built
+build_log: str | None = None
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def library_path() -> pathlib.Path:
+    """Path of the library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libpromptir_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless the current library exists; return its path."""
+    global build_log, build_seconds
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       timeout=BUILD_TIMEOUT_S)
+    if r.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with code {r.returncode}:\n{r.stdout}\n{r.stderr}"
+        )
+    build_seconds = time.perf_counter() - t0
+    build_log = r.stdout + r.stderr
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+            _lib.pk_error_string.argtypes = [ctypes.c_int]
+            _lib.pk_error_string.restype = ctypes.c_char_p
+        return _lib
+
+
+def function(name: str, argtypes: list, restype=ctypes.c_int):
+    """A library function with its ctypes signature declared."""
+    fn = getattr(lib(), name)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
+def dtype_code(t) -> int:
+    """The kernels' dtype code of a tensor (0 fp32, 1 bf16); raises otherwise."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return codes[t.dtype]
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream on t's card, as the launchers take it."""
+    if t.device.index not in (None, 0):
+        raise NotImplementedError("the kernels launch on card 0 only")
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(code: int, what: str) -> None:
+    if code != 0:
+        msg = lib().pk_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

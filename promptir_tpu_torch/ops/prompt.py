@@ -1,0 +1,40 @@
+"""Prompt generation block: the degradation prompt bank of PromptIR.
+
+Counterpart of promptir_tpu/ops/prompt.py (reference
+net/model.py:218-235). softmax(Linear(GAP(x))) mixes a
+learned bank of `prompt_len` maps (uniform [0, 1) init); the mixture is
+resized bilinearly to the feature size and passed through a bias-free 3x3
+conv. The mixing and the resize run in float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from promptir_tpu_torch.ops.conv import Conv
+from promptir_tpu_torch.ops.resize import resize_bilinear
+
+
+class PromptGenBlock(nn.Module):
+    def __init__(self, prompt_dim: int = 128, prompt_len: int = 5,
+                 prompt_size: int = 96, lin_dim: int = 192,
+                 align_corners: bool = False):
+        super().__init__()
+        self.prompt_param = nn.Parameter(
+            torch.rand(1, prompt_len, prompt_dim, prompt_size, prompt_size)
+        )
+        self.linear_layer = nn.Linear(lin_dim, prompt_len)
+        self.conv3x3 = Conv(prompt_dim, prompt_dim, 3)
+        self.align_corners = align_corners
+
+    def forward(self, x):
+        h, w = x.shape[-2:]
+        emb = x.float().mean(dim=(-2, -1))
+        lin = self.linear_layer
+        weights = F.linear(emb, lin.weight.float(), lin.bias.float()).softmax(-1)
+        prompt = torch.einsum("bl,lchw->bchw", weights,
+                              self.prompt_param[0].float())
+        prompt = resize_bilinear(prompt, (h, w), self.align_corners)
+        return self.conv3x3(prompt.to(x.dtype))

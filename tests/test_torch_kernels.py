@@ -1,0 +1,186 @@
+"""The kernels' plain versions against the JAX package's functions.
+
+On the CPU every wrapper runs its kernel's plain version, so these tests
+hold the arithmetic that each CUDA kernel reproduces (and that chip_smoke.py
+compares it with on the card) against the JAX side on the same numpy inputs:
+  * mdta_stats + attn_from_stats against the Pallas `mdta_stats` in
+    interpret mode. The Pallas kernel rounds q and k to bf16 before the Gram
+    even in float32 (promptir_tpu/ops/pallas/mdta.py:107-113) and returns
+    attn in x's dtype; the port keeps them fp32, so attn is compared at 3e-4
+    (measured 3e-5), v tightly;
+  * block_tail against the Pallas `fused_block_tail` in interpret mode on
+    the same v and attn (its rational erf and single-pass LN variance agree
+    to ~1e-6);
+  * the whole block, stats -> softmax -> tail, tightly in float32 against
+    the unfused JAX composition xla_ln_gdfn(xla_ln_mdta(x))
+    (promptir_tpu/ops/pallas/autodiff.py:78,89);
+  * the seam against the Pallas `shuffle_concat_pad` in interpret mode after
+    unpadding, bit for bit.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from promptir_tpu.ops.pallas import block as jblock
+from promptir_tpu.ops.pallas import mdta as jmdta
+from promptir_tpu.ops.pallas import seam as jseam
+from promptir_tpu.ops.pallas.autodiff import xla_ln_gdfn, xla_ln_mdta
+from promptir_tpu_torch.ops.cuda import block, mdta, seam
+
+
+def block_weights(c, heads, seed):
+    """numpy weights in the JAX kernels' layout."""
+    rng = np.random.default_rng(seed)
+    f = int(c * 2.66)
+
+    def n(*s, sc=1.0):
+        return (rng.normal(size=s) * sc).astype(np.float32)
+
+    return dict(
+        ln1w=1 + n(c, sc=0.1), ln1b=n(c, sc=0.1), wqkv=n(c, 3 * c, sc=c ** -0.5),
+        wdwa=n(3, 3, 3 * c, sc=0.3), wproj=n(c, c, sc=c ** -0.5),
+        temp=np.float32(1) + n(heads, sc=0.2), ln2w=1 + n(c, sc=0.1),
+        ln2b=n(c, sc=0.1), w1=n(c, 2 * f, sc=c ** -0.5),
+        wdwf=n(3, 3, 2 * f, sc=0.3), w2=n(f, c, sc=f ** -0.5),
+    )
+
+
+def torch_weights(w):
+    """The same weights in the port's (torch conv) layout."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return dict(
+        ln1w=t(w["ln1w"]), ln1b=t(w["ln1b"]), wqkv=t(w["wqkv"].T),
+        wdwa=t(w["wdwa"].reshape(9, -1).T), wproj=t(w["wproj"].T),
+        temp=t(w["temp"].reshape(-1, 1, 1)), ln2w=t(w["ln2w"]),
+        ln2b=t(w["ln2b"]), w1=t(w["w1"].T), wdwf=t(w["wdwf"].reshape(9, -1).T),
+        w2=t(w["w2"].T),
+    )
+
+
+def port_stats(x, tw, heads, bias_free=False):
+    return mdta.mdta_stats(torch.from_numpy(x), tw["ln1w"], tw["ln1b"],
+                           tw["wqkv"], tw["wdwa"], heads, bias_free=bias_free)
+
+
+def port_tail(v, x, attn, tw, bias_free=False):
+    return block.block_tail(v, torch.from_numpy(x), attn, tw["wproj"],
+                            tw["ln2w"], tw["ln2b"], tw["w1"], tw["wdwf"],
+                            tw["w2"], bias_free=bias_free)
+
+
+def block_diag(attn, cp):
+    """(B, heads, d, d) -> the Pallas kernels' (B, cp, cp) block-diagonal."""
+    b, heads, d, _ = attn.shape
+    out = np.zeros((b, cp, cp), np.float32)
+    for h in range(heads):
+        out[:, h * d:(h + 1) * d, h * d:(h + 1) * d] = attn[:, h]
+    return out
+
+
+@pytest.mark.parametrize("c,heads,hw", [(48, 2, (8, 16)), (32, 1, (16, 8))])
+def test_mdta_stats_matches_pallas(c, heads, hw):
+    w = block_weights(c, heads, seed=c)
+    x = np.random.default_rng(1).normal(size=(2, *hw, c)).astype(np.float32)
+    v_j, attn_j = jmdta.mdta_stats(
+        jnp.asarray(x), w["ln1w"], w["ln1b"], w["wqkv"], w["wdwa"],
+        jnp.asarray(w["temp"]), heads, interpret=True,
+    )
+    tw = torch_weights(w)
+    v, stats = port_stats(x, tw, heads)
+    attn = mdta.attn_from_stats(stats, tw["temp"]).numpy()
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_j)[..., :c],
+                               rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(block_diag(attn, c),
+                               np.asarray(attn_j)[:, :c, :c], atol=3e-4)
+
+
+@pytest.mark.parametrize("bias_free", [False, True])
+def test_block_tail_matches_pallas(bias_free):
+    c, heads = 48, 2
+    w = block_weights(c, heads, seed=3)
+    x = np.random.default_rng(4).normal(size=(2, 8, 16, c)).astype(np.float32)
+    tw = torch_weights(w)
+    v, stats = port_stats(x, tw, heads, bias_free)
+    attn = mdta.attn_from_stats(stats, tw["temp"])
+    out = port_tail(v, x, attn, tw, bias_free)
+    cp = 128
+    v_p = np.pad(v.numpy(), ((0, 0), (0, 0), (0, 0), (0, cp - c)))
+    ref = jblock.fused_block_tail(
+        jnp.asarray(v_p), jnp.asarray(x), jnp.asarray(block_diag(attn.numpy(), cp)),
+        w["wproj"], w["ln2w"], None if bias_free else w["ln2b"], w["w1"],
+        w["wdwf"], w["w2"], bias_free=bias_free, interpret=True,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=5e-5,
+                               atol=5e-5)
+
+
+@pytest.mark.parametrize("c,heads,hw", [(48, 1, (9, 13)), (64, 4, (12, 20))])
+def test_block_path_matches_unfused_jax(c, heads, hw):
+    w = block_weights(c, heads, seed=5)
+    x = np.random.default_rng(6).normal(size=(2, *hw, c)).astype(np.float32)
+    ref = xla_ln_gdfn(
+        xla_ln_mdta(jnp.asarray(x), w["ln1w"], w["ln1b"], w["wqkv"], w["wdwa"],
+                    w["wproj"], jnp.asarray(w["temp"]), heads),
+        w["ln2w"], w["ln2b"], w["w1"], w["wdwf"], w["w2"],
+    )
+    tw = torch_weights(w)
+    v, stats = port_stats(x, tw, heads)
+    out = port_tail(v, x, mdta.attn_from_stats(stats, tw["temp"]), tw)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+def test_seam_matches_pallas_bit_exact(dtype):
+    b, hc, wc, c = 2, 4, 8, 48
+    rng = np.random.default_rng(7)
+    y = rng.normal(size=(b, hc, wc, 4 * c)).astype(np.float32)
+    skip = rng.normal(size=(b, 2 * hc, 2 * wc, c)).astype(np.float32)
+    # the Pallas kernel's layout: ij-major lanes padded to 256, padded skip
+    y_ij = y.reshape(b, hc, wc, c, 4).transpose(0, 1, 2, 4, 3)
+    yc = np.pad(y_ij.reshape(b, hc, wc, 4 * c), ((0, 0),) * 3 + ((0, 64),))
+    wp = 2 * wc + 2 + ((-(2 * wc + 2)) % 8)
+    skip_p = np.zeros((b, 2 * hc, wp, 128), np.float32)
+    skip_p[:, :, 1:1 + 2 * wc, :c] = skip
+    ref = jseam.shuffle_concat_pad(jnp.asarray(yc, dtype),
+                                   jnp.asarray(skip_p, dtype), c, interpret=True)
+    ref = np.asarray(ref.astype(jnp.float32))[:, :, 1:1 + 2 * wc, :2 * c]
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    out = seam.seam(torch.from_numpy(y).to(tdt), torch.from_numpy(skip).to(tdt))
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """A CPU tensor runs the plain version and counts no kernel launch."""
+    c, heads = 48, 2
+    tw = torch_weights(block_weights(c, heads, seed=8))
+    x = np.random.default_rng(9).normal(size=(1, 8, 8, c)).astype(np.float32)
+    counts = (mdta.mdta_stats.launches, block.block_tail.launches,
+              seam.seam.launches)
+    v, stats = port_stats(x, tw, heads)
+    v0, stats0 = mdta.mdta_stats_plain(
+        torch.from_numpy(x), tw["ln1w"], tw["ln1b"], tw["wqkv"], tw["wdwa"],
+        heads)
+    assert torch.equal(v, v0) and torch.equal(stats, stats0)
+    attn = mdta.attn_from_stats(stats, tw["temp"])
+    out = port_tail(v, x, attn, tw)
+    out0 = block.block_tail_plain(
+        v, torch.from_numpy(x), attn, tw["wproj"], tw["ln2w"], tw["ln2b"],
+        tw["w1"], tw["wdwf"], tw["w2"])
+    assert torch.equal(out, out0)
+    y = torch.randn(1, 2, 2, 4 * c)
+    assert torch.equal(seam.seam(y, torch.randn(1, 4, 4, c))[..., :c],
+                       seam.seam_plain(y, torch.zeros(1, 4, 4, c))[..., :c])
+    assert counts == (mdta.mdta_stats.launches, block.block_tail.launches,
+                      seam.seam.launches)
+
+
+def test_kernel_wrappers_reject_bad_shapes():
+    with pytest.raises(ValueError, match="multiple of 4"):
+        mdta.mdta_stats(torch.zeros(1, 4, 4, 6), torch.ones(6), torch.zeros(6),
+                        torch.zeros(18, 6), torch.zeros(18, 9), 1)
+    with pytest.raises(ValueError, match="do not fit"):
+        seam.seam(torch.zeros(1, 2, 2, 8), torch.zeros(1, 4, 5, 2))
