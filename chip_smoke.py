@@ -3,22 +3,25 @@
 
     python3 chip_smoke.py
 
-Phases, each printed with the seconds since start:
+Two main paths are driven: PromptIR (`promptir`) and the X-Restormer
+family's PromptXRestormer (`promptxrestormerir`, the reference's training
+config). Phases, each printed with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
-  2. one nvcc build of every kernel source, with ptxas register and shared
-     memory use;
+  2. the build of every kernel source (one nvcc per source, all started
+     together), with ptxas register and shared memory use;
   3. each kernel against its plain PyTorch version on the card, at every
-     shape a batch-4 forward of the serving run's 256x256 and 256x192
-     buckets gives it, in float32 (TF32 off) and bfloat16; the seam
-     bit-exact;
-  4. the reference PromptIR's own 64 px output (tests/goldens/
-     promptir_full.npz) reproduced in float32 through the kernels;
-  5. full-width, full-depth PromptIR (random weights from a seed, bf16)
-     serving eight requests through the port's engine, with the kernels'
-     launch counts read around that run;
+     shape a batch-4 forward of either model at the serving run's 256x256
+     and 256x192 buckets gives it, in float32 (TF32 off) and bfloat16; the
+     seam bit-exact;
+  4. the reference's own 64 px outputs reproduced in float32 through the
+     kernels: full-depth PromptIR (tests/goldens/promptir_full.npz) and
+     one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz);
+  5. each model at full width (random weights from a seed, bf16) serving
+     eight requests through the port's engine, with the kernels' launch
+     counts set to 0 just before each run and read just after;
   6. each kernel timed with CUDA events beside its plain version, the one
      PyTorch call that computes the same function where there is one, and
-     its bound.
+     its bound, at every shape of a 256x256 forward of each model.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 Imports torch, numpy, the standard library and promptir_tpu_torch only.
@@ -61,6 +64,40 @@ def block_shapes(h, w):
     ]
 
 
+def xr_block_shapes(h, w):
+    """(H, W, C, heads) of the 31 X-blocks of an h x w promptxrestormerir
+    forward (training config: one channel head, so d = C), with how many
+    blocks run at each; each X-block runs mdta_stats, block_tail and
+    ln_gdfn once."""
+    return [
+        ((h, w, 48, 1), 2),                  # encoder_level1
+        ((h // 2, w // 2, 96, 1), 8),        # encoder_level2, decoder_level2
+        ((h // 4, w // 4, 192, 1), 8),       # encoder_level3, decoder_level3
+        ((h // 8, w // 8, 384, 1), 4),       # latent
+        ((h // 8, w // 8, 704, 1), 1),       # prompt3
+        ((h // 4, w // 4, 320, 1), 1),       # prompt2
+        ((h // 2, w // 2, 160, 1), 1),       # prompt1
+        ((h, w, 96, 1), 6),                  # decoder_level1, refinement
+    ]
+
+
+# the reference's training config of promptxrestormerir
+# (tests/goldens/sd_keys_promptxrestormerir.json)
+XR_TRAIN = dict(num_blocks=(2, 4, 4, 4), num_refinement_blocks=4,
+                channel_heads=(1, 1, 1, 1), spatial_heads=(1, 2, 4, 8))
+KERNELS = ("mdta_stats", "block_tail", "ln_gdfn", "seam")
+PATHS = {
+    # name: (model kwargs, launches of stats/tail/ln_gdfn/seam per forward)
+    "promptir": ({}, [47, 47, 0, 1]),
+    "promptxrestormerir": (XR_TRAIN, [31, 31, 31, 0]),
+}
+GOLDENS = {
+    # file: (model, kwargs, launches per forward)
+    "promptir_full.npz": ("promptir", {}, [47, 47, 0, 1]),
+    "prompt_xrestormer_small.npz": (
+        "promptxrestormerir",
+        dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1), [11, 11, 11, 0]),
+}
 BATCH = 4
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 GOLDEN_TOL = 2e-4
@@ -90,9 +127,9 @@ def import_port():
 
     if pathlib.Path(promptir_tpu_torch.__file__).resolve().parent.parent != ROOT:
         fail("promptir_tpu_torch does not come from this checkout")
-    from promptir_tpu_torch.ops.cuda import block, build, mdta, seam
+    from promptir_tpu_torch.ops.cuda import block, build, gdfn, mdta, seam
 
-    return promptir_tpu_torch, build, mdta, block, seam
+    return promptir_tpu_torch, build, mdta, block, gdfn, seam
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -129,6 +166,10 @@ def run_tail(fn, a, v, attn):
               a["wdwf"], a["w2"])
 
 
+def run_ln_gdfn(fn, a):
+    return fn(a["x"], a["ln2w"], a["ln2b"], a["w1"], a["wdwf"], a["w2"])
+
+
 def seam_inputs(h, w, dtype, gen):
     """up2_1's conv output (B, h/2, w/2, 192) and the enc1 skip (B, h, w, 48)."""
     y = torch.randn(BATCH, h // 2, w // 2, 192, generator=gen,
@@ -139,14 +180,24 @@ def seam_inputs(h, w, dtype, gen):
 
 # ------------------------------------------------------------ phase 3
 
-def check_kernels(mdta, block, seam):
+def check_kernels(mdta, block, gdfn, seam):
     gen = torch.Generator(device="cuda").manual_seed(0)
     # per kernel and dtype: [max |kernel - plain|, that over max |plain|]
     worst = {k: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
-             for k in ("mdta_stats", "block_tail", "seam")}
+             for k in KERNELS}
+
+    def record(name, dtype, shape, e, r):
+        if r > TOL[dtype]:
+            fail(f"{name} disagrees with its plain version at {shape} "
+                 f"{dtype}: {r:.2e} > {TOL[dtype]} of max |plain|")
+        w = worst[name][dtype]
+        w[0], w[1] = max(w[0], e), max(w[1], r)
+
     for dtype, (bh, bw) in [(d, b) for d in (torch.float32, torch.bfloat16)
                             for b in BUCKETS]:
-        for shape, _ in block_shapes(bh, bw):
+        shapes = [(s, False) for s, _ in block_shapes(bh, bw)]
+        shapes += [(s, True) for s, _ in xr_block_shapes(bh, bw)]
+        for shape, xr in shapes:
             a = block_inputs(shape, dtype, gen)
             v, st = run_stats(mdta.mdta_stats, a)
             v0, st0 = run_stats(mdta.mdta_stats_plain, a)
@@ -158,18 +209,24 @@ def check_kernels(mdta, block, seam):
             out0 = run_tail(block.block_tail_plain, a, v0, attn)
             torch.cuda.synchronize()
             et, rtl = rel_err(out, out0)
-            say(f"check {str(dtype)[6:]:8s} B{BATCH} {shape}: mdta_stats v "
-                f"{ev:.2e} (rel {rv:.2e}) stats {es:.2e} (rel {rs:.2e}); "
-                f"block_tail {et:.2e} (rel {rtl:.2e})")
-            if max(rv, rs) > TOL[dtype] or rtl > TOL[dtype]:
-                fail(f"kernel disagrees with its plain version at {shape} "
-                     f"{dtype} (tolerance {TOL[dtype]} of max |plain|)")
-            if not (torch.isfinite(out).all() and torch.isfinite(v).all()):
+            msg = (f"check {str(dtype)[6:]:8s} B{BATCH} {shape}: mdta_stats v "
+                   f"{ev:.2e} (rel {rv:.2e}) stats {es:.2e} (rel {rs:.2e}); "
+                   f"block_tail {et:.2e} (rel {rtl:.2e})")
+            finite = [out, v]
+            if xr:
+                g = run_ln_gdfn(gdfn.ln_gdfn, a)
+                g0 = run_ln_gdfn(gdfn.ln_gdfn_plain, a)
+                torch.cuda.synchronize()
+                eg, rg = rel_err(g, g0)
+                msg += f"; ln_gdfn {eg:.2e} (rel {rg:.2e})"
+                record("ln_gdfn", dtype, shape, eg, rg)
+                finite.append(g)
+            say(msg)
+            record("mdta_stats", dtype, shape, ev, rv)
+            record("mdta_stats", dtype, shape, es, rs)
+            record("block_tail", dtype, shape, et, rtl)
+            if not all(torch.isfinite(t).all() for t in finite):
                 fail(f"non-finite kernel output at {shape} {dtype}")
-            for name, e, r in (("mdta_stats", ev, rv), ("mdta_stats", es, rs),
-                               ("block_tail", et, rtl)):
-                w = worst[name][dtype]
-                w[0], w[1] = max(w[0], e), max(w[1], r)
         y, skip = seam_inputs(bh, bw, dtype, gen)
         out = seam.seam(y, skip)
         torch.cuda.synchronize()
@@ -182,11 +239,12 @@ def check_kernels(mdta, block, seam):
 
 # ------------------------------------------------------------ phase 4
 
-def check_golden(port, counters):
-    data = np.load(ROOT / "tests" / "goldens" / "promptir_full.npz")
+def check_golden(port, counters, file):
+    name, kwargs, want = GOLDENS[file]
+    data = np.load(ROOT / "tests" / "goldens" / file)
     sd = {k[4:]: torch.from_numpy(data[k].astype(np.float32))
           for k in data.files if k.startswith("sd::")}
-    model = port.create_model("promptir", device="cuda")
+    model = port.create_model(name, device="cuda", **kwargs)
     model.load_state_dict(sd, strict=True)
     x = torch.from_numpy(data["x"]).cuda()
     before = counters()
@@ -195,11 +253,11 @@ def check_golden(port, counters):
     torch.cuda.synchronize()
     ran = [a - b for a, b in zip(counters(), before)]
     err = (y.cpu() - torch.from_numpy(data["y"])).abs().max().item()
-    say(f"golden promptir_full (548 tensors, {tuple(x.shape)}, fp32, TF32 "
-        f"off): max |err| {err:.3e} (tolerance {GOLDEN_TOL}); launches "
-        f"stats/tail/seam {ran}")
-    if ran != [47, 47, 1]:
-        fail(f"golden forward did not run through the kernels: {ran}")
+    say(f"golden {file} ({name}, {len(sd)} tensors, {tuple(x.shape)}, fp32, "
+        f"TF32 off): max |err| {err:.3e} (tolerance {GOLDEN_TOL}); launches "
+        f"stats/tail/ln_gdfn/seam {ran}")
+    if ran != want:
+        fail(f"golden forward did not run through the kernels: {ran} != {want}")
     if not err <= GOLDEN_TOL:
         fail(f"golden output off by {err:.3e} > {GOLDEN_TOL}")
     del model
@@ -208,15 +266,21 @@ def check_golden(port, counters):
 
 # ------------------------------------------------------------ phase 5
 
-def serve(port, counters, reset, card):
+def serve(port, counters, reset, card, name):
+    from promptir_tpu_torch.eval.padding import pad_bases
     from promptir_tpu_torch.serve.engine import InferenceEngine
 
+    kwargs, per_forward = PATHS[name]
     torch.manual_seed(0)
-    model = port.create_model("promptir", device="cuda", dtype=torch.bfloat16)
+    model = port.create_model(name, device="cuda", dtype=torch.bfloat16,
+                              **kwargs)
+    n_params = sum(p.numel() for p in model.parameters())
+    base = pad_bases(name)[0]
     rng = np.random.default_rng(0)
     sizes = [(256, 256)] * 6 + [(250, 190)] * 2
     imgs = [rng.random((h, w, 3), dtype=np.float32) for h, w in sizes]
-    eng = InferenceEngine(model, max_batch=4, pad_base=8, batch_timeout_ms=50)
+    eng = InferenceEngine(model, max_batch=4, pad_base=base,
+                          batch_timeout_ms=50)
     try:
         # warm-up: one forward per bucket (cuDNN plans, allocator)
         for f in [eng.submit(imgs[0]), eng.submit(imgs[-1])]:
@@ -245,11 +309,23 @@ def serve(port, counters, reset, card):
     lat = sorted(done[i] - t for i, (_, t) in enumerate(futs))
     p50 = float(np.median(lat))
     ips = len(imgs) / (t_end - t_start)
-    say(f"serve: full-depth promptir bf16, 8 requests (6x 256x256, 2x "
-        f"250x190) in {batches} batches of max 4; p50 latency {p50 * 1e3:.1f}"
-        f" ms, {ips:.2f} images/s on {card}; launches stats/tail/seam {ran}")
-    if ran != [47 * batches, 47 * batches, batches]:
-        fail(f"serving launches {ran} != 47/47/1 per forward x {batches}")
+    say(f"serve: full-width {name} ({n_params} params) bf16, pad_base {base}, "
+        f"8 requests (6x 256x256, 2x 250x190) in {batches} batches of max 4; "
+        f"p50 latency {p50 * 1e3:.1f} ms, {ips:.2f} images/s on {card}; "
+        f"launches stats/tail/ln_gdfn/seam {ran}")
+    want = [n * batches for n in per_forward]
+    if ran != want:
+        fail(f"serving launches {ran} != {per_forward} per forward x {batches}")
+    # one forward of a full 256x256 batch alone, against which phase 6's
+    # per-forward kernel sums are read
+    x = torch.from_numpy(np.stack(imgs[:4])).cuda().permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        fwd = time_ms(lambda: model(x), reps=5, warmup=1)
+    reset()  # the timing launches are not the main path's
+    say(f"forward: {name} bf16 B4 256x256 alone {fwd:.1f} ms (CUDA events, "
+        "median of 5)")
+    del model, eng
+    torch.cuda.empty_cache()
     return ran
 
 
@@ -284,45 +360,73 @@ def block_work(shape, nbytes):
     return (st_ops, st_bytes), (tl_ops, tl_bytes)
 
 
+def gdfn_work(shape, nbytes):
+    """(operations, bytes) of ln_gdfn at one shape: the JAX kernel's cost
+    estimate (promptir_tpu/ops/pallas/gdfn.py:584) for the operations; x
+    read, out written and each weight read once for the bytes."""
+    h, w, c, _ = shape
+    f, px = int(c * 2.66), BATCH * h * w
+    ops = 2 * px * (c * 2 * f + f * c) + 18 * px * 2 * f
+    return ops, nbytes * (2 * px * c + 2 * c + 2 * f * c + 18 * f + f * c)
+
+
 def bound_ms(ops, nbytes, dtype) -> tuple[float, str]:
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-def time_kernels(mdta, block, seam, reset):
+def time_kernels(mdta, block, gdfn, seam, reset):
+    """Per path and kernel, the time of one batch-4 256x256 bf16 forward,
+    summed over the path's launches at each shape."""
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
-    tot = {k: dict(ms=0.0, plain_ms=0.0, ops=0, bytes=0)
-           for k in ("mdta_stats", "block_tail")}
-    for shape, n in block_shapes(*BUCKETS[0]):
-        a = block_inputs(shape, dtype, gen)
-        v, st = run_stats(mdta.mdta_stats, a)
-        attn = mdta.attn_from_stats(st, a["temp"])
-        times = {
-            "mdta_stats": (time_ms(lambda: run_stats(mdta.mdta_stats, a)),
-                           time_ms(lambda: run_stats(mdta.mdta_stats_plain, a))),
-            "block_tail": (time_ms(lambda: run_tail(block.block_tail, a, v, attn)),
-                           time_ms(lambda: run_tail(block.block_tail_plain, a, v,
-                                                    attn))),
-        }
-        work = dict(zip(("mdta_stats", "block_tail"), block_work(shape, 2)))
-        for k, (ms, pms) in times.items():
-            b, by = bound_ms(*work[k], dtype)
-            say(f"time {k:10s} B{BATCH} {shape} bf16: {ms:.3f} ms (plain "
-                f"{pms:.3f} ms, bound {b:.4f} ms by {by}) x{n} per forward")
-            tot[k]["ms"] += n * ms
-            tot[k]["plain_ms"] += n * pms
-            tot[k]["ops"] += n * work[k][0]
-            tot[k]["bytes"] += n * work[k][1]
-    split = sum(n * BATCH * h * w * 2 * (2 * int(c * 2.66) + c) * 2
-                for (h, w, c, _), n in block_shapes(*BUCKETS[0]))
-    say(f"block_tail split at the hidden tensor: h and x2 written and read "
-        f"back add {split / 1e9:.2f} GB per forward "
-        f"({split / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
+    paths = {"promptir": block_shapes(*BUCKETS[0]),
+             "promptxrestormerir": xr_block_shapes(*BUCKETS[0])}
+    tot = {path: {} for path in paths}
+    for path, shapes in paths.items():
+        for shape, n in shapes:
+            a = block_inputs(shape, dtype, gen)
+            v, st = run_stats(mdta.mdta_stats, a)
+            attn = mdta.attn_from_stats(st, a["temp"])
+            times = {
+                "mdta_stats": (
+                    time_ms(lambda: run_stats(mdta.mdta_stats, a)),
+                    time_ms(lambda: run_stats(mdta.mdta_stats_plain, a))),
+                "block_tail": (
+                    time_ms(lambda: run_tail(block.block_tail, a, v, attn)),
+                    time_ms(lambda: run_tail(block.block_tail_plain, a, v, attn))),
+            }
+            work = dict(zip(("mdta_stats", "block_tail"), block_work(shape, 2)))
+            if path == "promptxrestormerir":
+                times["ln_gdfn"] = (
+                    time_ms(lambda: run_ln_gdfn(gdfn.ln_gdfn, a)),
+                    time_ms(lambda: run_ln_gdfn(gdfn.ln_gdfn_plain, a)))
+                work["ln_gdfn"] = gdfn_work(shape, 2)
+            for k, (ms, pms) in times.items():
+                b, by = bound_ms(*work[k], dtype)
+                say(f"time {k:10s} B{BATCH} {shape} bf16: {ms:.3f} ms (plain "
+                    f"{pms:.3f} ms, bound {b:.4f} ms by {by}) x{n} per "
+                    f"{path} forward")
+                t = tot[path].setdefault(k, dict(ms=0.0, plain_ms=0.0, ops=0,
+                                                 bytes=0, library_ms=None))
+                t["ms"] += n * ms
+                t["plain_ms"] += n * pms
+                t["ops"] += n * work[k][0]
+                t["bytes"] += n * work[k][1]
+        # the split tails write the hidden tensor (and block_tail x2) and
+        # read them back: traffic the one-pass TPU kernels do not have
+        split = 0
+        for (h, w, c, _), n in shapes:
+            px, f2 = BATCH * h * w, 2 * int(c * 2.66)
+            split += n * px * 2 * (f2 + c) * 2
+            if path == "promptxrestormerir":
+                split += n * px * 2 * f2 * 2
+        say(f"{path}: the split tails write and read back {split / 1e9:.2f} GB "
+            f"per forward ({split / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
     y, skip = seam_inputs(*BUCKETS[0], dtype, gen)
     yc = y.permute(0, 3, 1, 2)  # NCHW views (channels_last) for the library call
     sc = skip.permute(0, 3, 1, 2)
-    seam_rec = dict(
+    tot["promptir"]["seam"] = dict(
         ms=time_ms(lambda: seam.seam(y, skip)),
         plain_ms=time_ms(lambda: seam.seam_plain(y, skip)),
         library_ms=time_ms(lambda: torch.cat([F.pixel_shuffle(yc, 2), sc], 1)),
@@ -330,15 +434,30 @@ def time_kernels(mdta, block, seam, reset):
     )
     reset()  # the timing launches are not the main path's
     recs = {}
-    for k, t in list(tot.items()) + [("seam", seam_rec)]:
-        b, by = bound_ms(t["ops"], t["bytes"], dtype)
-        recs[k] = dict(ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=b,
-                       bound_by=by, library_ms=t.get("library_ms"))
-        lib = t.get("library_ms")
-        say(f"time {k:10s} per forward (B{BATCH} 256x256 bf16): {t['ms']:.3f} ms"
-            f", plain {t['plain_ms']:.3f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound {b:.4f} ms "
-            f"by {by}")
+    for k in KERNELS:
+        by_path = {}
+        for path in paths:
+            t = tot[path].get(k)
+            if t is None:
+                continue
+            b, by = bound_ms(t["ops"], t["bytes"], dtype)
+            by_path[path] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                                 bound_ms=b, bound_by=by,
+                                 library_ms=t["library_ms"])
+            lib = t["library_ms"]
+            say(f"time {k:10s} per {path} forward (B{BATCH} 256x256 bf16): "
+                f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+                f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound {b:.4f} "
+                f"ms by {by}")
+        ops = sum(tot[p][k]["ops"] for p in by_path)
+        nbytes = sum(tot[p][k]["bytes"] for p in by_path)
+        b, by = bound_ms(ops, nbytes, dtype)
+        libs = [r["library_ms"] for r in by_path.values()]
+        recs[k] = dict(
+            ms=sum(r["ms"] for r in by_path.values()),
+            plain_ms=sum(r["plain_ms"] for r in by_path.values()),
+            bound_ms=b, bound_by=by,
+            library_ms=None if None in libs else sum(libs), by_path=by_path)
     return recs
 
 
@@ -348,9 +467,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         raise SystemExit(3)
-    port, build, mdta, block, seam = import_port()
-    if not (ROOT / "tests" / "goldens" / "promptir_full.npz").exists():
-        fail("tests/goldens/promptir_full.npz is missing")
+    port, build, mdta, block, gdfn, seam = import_port()
+    for file in GOLDENS:
+        if not (ROOT / "tests" / "goldens" / file).exists():
+            fail(f"tests/goldens/{file} is missing")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -361,13 +481,13 @@ def main() -> None:
 
     so = build.build()
     say(f"build: {so.name} in {build.build_seconds or 0.0:.1f} s (one nvcc "
-        "call over csrc/*.cu)")
+        "per csrc/*.cu, side by side, then one link)")
     for line in (build.build_log or "").splitlines():
         if re.search(r"Compiling entry|registers|spill", line):
             print("    " + line.strip(), flush=True)
     build.lib()
 
-    kernels = (mdta.mdta_stats, block.block_tail, seam.seam)
+    kernels = (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam)
 
     def counters():
         return [k.launches for k in kernels]
@@ -376,31 +496,40 @@ def main() -> None:
         for k in kernels:
             k.launches = 0
 
-    worst = check_kernels(mdta, block, seam)
-    check_golden(port, counters)
-    reset()
-    launches = serve(port, counters, reset, card)
-    recs = time_kernels(mdta, block, seam, reset)
+    worst = check_kernels(mdta, block, gdfn, seam)
+    for file in GOLDENS:
+        check_golden(port, counters, file)
+    launches = {}
+    for path in PATHS:
+        reset()
+        launches[path] = serve(port, counters, reset, card, path)
+    recs = time_kernels(mdta, block, gdfn, seam, reset)
 
     replaces = {
         "mdta_stats": ("promptir_tpu_torch/csrc/mdta_stats.cu",
                        "promptir_tpu/ops/pallas/mdta.py:317"),
         "block_tail": ("promptir_tpu_torch/csrc/block_tail.cu",
                        "promptir_tpu/ops/pallas/block.py:158"),
+        "ln_gdfn": ("promptir_tpu_torch/csrc/ln_gdfn.cu",
+                    "promptir_tpu/ops/pallas/gdfn.py:536"),
         "seam": ("promptir_tpu_torch/csrc/seam.cu",
                  "promptir_tpu/ops/pallas/seam.py:222"),
     }
     out = []
-    for (name, (src, rep)), n in zip(replaces.items(), launches):
+    for i, (name, (src, rep)) in enumerate(replaces.items()):
         r = recs[name]
+        by_path = {p: dict(r["by_path"].get(p, {}), launches=launches[p][i])
+                   for p in PATHS}
         out.append(dict(
-            name=name, route="cuda", source=src, replaces=rep, launches=n,
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=sum(launches[p][i] for p in PATHS),
             max_abs_err=worst[name][torch.float32][0],
             max_rel_err=worst[name][torch.float32][1],
             max_abs_err_bf16=worst[name][torch.bfloat16][0],
             max_rel_err_bf16=worst[name][torch.bfloat16][1],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+            by_path=by_path,
         ))
     say(f"done in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)

@@ -7,7 +7,9 @@
 //   tail_a (pointwise): attn apply, out-projection, residual, LN2, W1 (C->2F);
 //          writes x2 and the hidden h, both in T;
 //   tail_b (spatial tile with a 1-pixel halo of h): depthwise 3x3, the exact
-//          erf gate, W2 (F->C) and the residual.
+//          erf gate, W2 (F->C) and the residual x2. This is gdfn_out of
+//          gdfn.cuh, which ln_gdfn.cu shares, as it shares steps 3-4 of
+//          tail_a (ln_tile, project_in).
 // Against the single-pass TPU kernel the split writes h (2F values a pixel)
 // and x2 (C) and reads them back, h with its halo: about 2 * (2F + C) extra
 // values a pixel, some 12 times the size of x at F = 2.66 C.
@@ -26,7 +28,7 @@
 // Dropped TPU workarounds: the W+2 / 128-lane padding, the rational erf
 // (erff here is exact to a few ulp), the hybrid-MXU depthwise split and the
 // w % 8 gates.
-#include "common.cuh"
+#include "gdfn.cuh"
 
 namespace {
 using namespace pk;
@@ -57,7 +59,6 @@ constexpr size_t tail_a_smem_floats(int C) {
 template <class T, int MP>
 __global__ void __launch_bounds__(kThreads) tail_a_kernel(TailArgs a) {
   constexpr int PT = 16 * MP;
-  constexpr int G = kThreads / PT;  // threads per pixel in the LN
   extern __shared__ float4 smem4[];
   const int C = a.C, d = C / a.heads, HW = a.H * a.W, F2 = 2 * a.F, b = blockIdx.y;
   const long long pix0 = (long long)b * HW + (long long)blockIdx.x * PT;
@@ -127,118 +128,10 @@ __global__ void __launch_bounds__(kThreads) tail_a_kernel(TailArgs a) {
   __syncthreads();
 
   // 3. LN2 over the C channels of each pixel (two-pass, fp32) -> bufA
-  {
-    const int p = threadIdx.x % PT, g = threadIdx.x / PT;
-    float s = 0.f;
-    for (int c = g; c < C; c += G) s += bufB[c * PT + p];
-    red[g * PT + p] = s;
-    __syncthreads();
-    if (g == 0) {
-      float t = 0.f;
-      for (int q = 0; q < G; ++q) t += red[q * PT + p];
-      red[kThreads + p] = t / C;
-    }
-    __syncthreads();
-    const float mean = red[kThreads + p];
-    float s2 = 0.f;
-    for (int c = g; c < C; c += G) {
-      const float t = bufB[c * PT + p] - mean;
-      s2 = fmaf(t, t, s2);
-    }
-    red[g * PT + p] = s2;
-    __syncthreads();
-    if (g == 0) {
-      float t = 0.f;
-      for (int q = 0; q < G; ++q) t += red[q * PT + p];
-      red[kThreads + PT + p] = 1.f / sqrtf(t / C + a.eps);
-    }
-    __syncthreads();
-    const float rstd = red[kThreads + PT + p];
-    for (int c = g; c < C; c += G) {
-      const float xv = bufB[c * PT + p];
-      const float y = a.bias_free ? xv * rstd * to_f(lnw[c])
-                                  : (xv - mean) * rstd * to_f(lnw[c]) + to_f(lnb[c]);
-      bufA[c * PT + p] = round_t<T>(y);
-    }
-    __syncthreads();
-  }
+  ln_tile<T, PT>(bufB, bufA, red, C, lnw, lnb, a.bias_free, a.eps);
 
   // 4. h = W1 LN2(x2) (2F channels), rounded to T
-  for (int n0 = 0; n0 < F2; n0 += kTileN) {
-    float acc[MP][4];
-    gemm_tile<MP>(
-        C, [&](int k, int p) -> float { return bufA[k * PT + p]; },
-        [&](int k, int n) -> float {
-          return n0 + n < F2 ? to_f(w1[(long long)(n0 + n) * C + k]) : 0.f;
-        },
-        As, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < MP; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = pg + 16 * i, n = n0 + ng + 16 * j;
-        if (p < np && n < F2) hid[(pix0 + p) * F2 + n] = from_f<T>(acc[i][j]);
-      }
-  }
-}
-
-constexpr int kTH = 4, kTW = 16;  // tail_b spatial tile: 64 pixels
-
-// One block: a kTH x kTW tile of one image; all C output channels.
-template <class T>
-__global__ void __launch_bounds__(kThreads) tail_b_kernel(TailArgs a, int tiles_w) {
-  __shared__ float As[kTileK * kLd];
-  __shared__ float Ws[kTileK * kLd];
-  const int b = blockIdx.y, C = a.C, F = a.F, F2 = 2 * F, H = a.H, W = a.W;
-  const int ty0 = (blockIdx.x / tiles_w) * kTH, tx0 = (blockIdx.x % tiles_w) * kTW;
-  const T* hid = static_cast<const T*>(a.hid);
-  const T* wdw = static_cast<const T*>(a.wdw);
-  const T* w2 = static_cast<const T*>(a.w2);
-  const T* x2 = static_cast<const T*>(a.x2);
-  T* out = static_cast<T*>(a.out);
-  const int ng = threadIdx.x & 15, pg = threadIdx.x >> 4;
-
-  for (int n0 = 0; n0 < C; n0 += kTileN) {
-    float acc[4][4];
-    gemm_tile<4>(
-        F,
-        [&](int k, int p) -> float {
-          // gated value g[p, k] = gelu(dw(h)[k]) * dw(h)[F + k], zero-padded taps
-          const int gy = ty0 + p / kTW, gx = tx0 + p % kTW;
-          if (gy >= H || gx >= W) return 0.f;
-          float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            const int yy = gy + dy - 1;
-            if (yy < 0 || yy >= H) continue;
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx) {
-              const int xx = gx + dx - 1;
-              if (xx < 0 || xx >= W) continue;
-              const T* hp = hid + ((long long)(b * H + yy) * W + xx) * F2;
-              const int t = dy * 3 + dx;
-              s1 = fmaf(to_f(hp[k]), to_f(wdw[k * 9 + t]), s1);
-              s2 = fmaf(to_f(hp[F + k]), to_f(wdw[(F + k) * 9 + t]), s2);
-            }
-          }
-          return round_t<T>(gelu_erf(s1) * s2);
-        },
-        [&](int k, int n) -> float {
-          return n0 + n < C ? to_f(w2[(long long)(n0 + n) * F + k]) : 0.f;
-        },
-        As, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg + 16 * i, gy = ty0 + p / kTW, gx = tx0 + p % kTW;
-      if (gy >= H || gx >= W) continue;
-      const long long base = ((long long)(b * H + gy) * W + gx) * C;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + ng + 16 * j;
-        if (n < C) out[base + n] = from_f<T>(to_f(x2[base + n]) + acc[i][j]);
-      }
-    }
-  }
+  project_in<T, MP>(bufA, w1, hid, pix0, np, C, F2, As, Ws);
 }
 
 template <class T, int MP>
@@ -251,9 +144,10 @@ int launch(const TailArgs& a, cudaStream_t stream) {
   tail_a_kernel<T, MP><<<dim3((HW + PT - 1) / PT, a.B), kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int tiles_w = (a.W + kTW - 1) / kTW, tiles = ((a.H + kTH - 1) / kTH) * tiles_w;
-  tail_b_kernel<T><<<dim3(tiles, a.B), kThreads, 0, stream>>>(a, tiles_w);
-  return cudaGetLastError();
+  GdfnOutArgs g;  // tail_b: the residual is x2
+  g.hid = a.hid; g.wdw = a.wdw; g.w2 = a.w2; g.res = a.x2; g.out = a.out;
+  g.B = a.B; g.H = a.H; g.W = a.W; g.C = a.C; g.F = a.F;
+  return launch_gdfn_out<T>(g, stream);
 }
 
 // tail_a's pixel tile: 64 pixels up to C = 256, else 32 (shared memory).

@@ -21,7 +21,10 @@
 // work stays one pass over all 3C rows. q and k stay in shared memory and
 // never reach device memory. Each block recomputes LN and qkv on a 1-pixel
 // halo for the depthwise taps (overhead (th+2)(tw+2)/(th tw), 1.3x at the
-// 14 x 14 tile of the d = 48 stacks).
+// 14 x 14 tile of the d = 48 stacks, 2x at the 4 x 6 tile that one-head
+// widths above 352 take). The tile shrinks with d (ops/cuda/mdta.py:
+// stats_tile) so that q and k fit; the partial-Gram buffer grows as
+// tiles * d^2: 381 MB at B = 4, 32 x 32 pixels, d = 704.
 //
 // Dropped TPU workarounds: the W+2 / 128-lane padding, the packed-qk lanes,
 // the w % 8 gates and the bf16 rounding of q and k before the Gram (q and k
@@ -216,26 +219,21 @@ int launch(const StatsArgs& a, float* stats, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// Shared-memory bytes of one stats block (the Python wrapper checks the fit).
-extern "C" long long mdta_stats_smem(int C, int heads, int th, int tw) {
-  const int d = C / heads, ph = (th + 2) * (tw + 2), pi = th * tw;
-  return (long long)(pi * 2 * d + ph * kTileN + 2 * kTileK * kLd + 2 * ph) * 4 + ph * 4;
-}
-
-// Returns the CUDA error code of the launches (0 on success).
+// Returns the CUDA error code of the launches (0 on success). `smem` is the
+// block's shared-memory bytes, computed by ops/cuda/mdta.py:stats_smem for the
+// layout that stats_kernel carves (the wrapper checks the fit).
 extern "C" int mdta_stats_launch(int dtype, const void* x, const void* lnw, const void* lnb,
                                  const void* wqkv, const void* wdw, void* v, float* part,
                                  float* stats, int B, int H, int W, int C, int heads, int th,
-                                 int tw, int bias_free, float eps, void* stream) {
+                                 int tw, int bias_free, float eps, long long smem, void* stream) {
   StatsArgs a;
   a.x = x; a.lnw = lnw; a.lnb = lnb; a.wqkv = wqkv; a.wdw = wdw; a.v = v; a.part = part;
   a.B = B; a.H = H; a.W = W; a.C = C; a.heads = heads; a.th = th; a.tw = tw;
   a.tiles_w = (W + tw - 1) / tw;
   a.tiles = ((H + th - 1) / th) * a.tiles_w;
   a.bias_free = bias_free; a.eps = eps;
-  const size_t smem = (size_t)mdta_stats_smem(C, heads, th, tw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16) return launch<__nv_bfloat16>(a, stats, smem, s);
-  if (dtype == kF32) return launch<float>(a, stats, smem, s);
+  if (dtype == kBF16) return launch<__nv_bfloat16>(a, stats, (size_t)smem, s);
+  if (dtype == kF32) return launch<float>(a, stats, (size_t)smem, s);
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 """Model registry of the port.
 
-Counterpart of promptir_tpu/models/__init__.py. Only the flagship
-`promptir` is ported so far; ROADMAP.md lists the other families.
+Counterpart of promptir_tpu/models/__init__.py. Ported so far: the flagship
+`promptir` and the X-Restormer family's `xrestormerir` and
+`promptxrestormerir`; ROADMAP.md lists the other families.
 """
 
 from __future__ import annotations
@@ -45,3 +46,5 @@ def create_model(name: str, *, device="cuda", dtype=torch.float32, **kwargs):
 
 
 from promptir_tpu_torch.models import promptir as _promptir  # noqa: E402,F401
+from promptir_tpu_torch.models import xrestormer as _xrestormer  # noqa: E402,F401
+from promptir_tpu_torch.models import prompt_xrestormer as _pxr  # noqa: E402,F401

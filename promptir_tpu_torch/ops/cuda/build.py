@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+Every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own ``nvcc`` process,
+all started together, and one more ``nvcc`` links the objects into one shared
 library with a plain C interface. The library lands in
 ``promptir_tpu_torch/_build/`` under a name keyed by a hash of the sources and
 flags, so a changed source rebuilds and an unchanged one loads at once. No
@@ -30,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILD_TIMEOUT_S = 600
 
@@ -61,6 +62,27 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libpromptir_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list) -> list:
+    """Run the commands side by side; raise on the first that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = []
+    for cmd, p in zip(cmds, procs):
+        try:
+            out, _ = p.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+        if p.returncode != 0:
+            for q in procs:
+                q.kill()
+            raise RuntimeError(
+                f"nvcc failed with code {p.returncode}: {' '.join(cmd)}\n{out}")
+        outs.append(out)
+    return outs
+
+
 def build() -> pathlib.Path:
     """Compile the kernels unless the current library exists; return its path."""
     global build_log, build_seconds
@@ -68,18 +90,19 @@ def build() -> pathlib.Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True,
-                       timeout=BUILD_TIMEOUT_S)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {r.returncode}:\n{r.stdout}\n{r.stderr}"
-        )
+    logs = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                 for src, o in zip(srcs, objs)])
+    logs += _run([[_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                   "-o", str(tmp), *map(str, objs)]])
     build_seconds = time.perf_counter() - t0
-    build_log = r.stdout + r.stderr
+    build_log = "".join(logs)
+    for o in objs:
+        o.unlink()
     os.replace(tmp, so)
     return so
 

@@ -25,6 +25,8 @@ from promptir_tpu_torch.ops.cuda import build
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may opt in to
+GEMM_STAGE_FLOATS = 2 * 32 * 65  # gemm_tile's two kTileK x kLd staging tiles
+QKV_CHUNK = 64  # qkv rows of one product pass (kTileN)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,36 +35,52 @@ _I = ctypes.c_int
 def stats_tile(d: int) -> tuple[int, int]:
     """Interior (rows, cols) of one stats block's tile for head width d:
     large for the d = 48 stacks, smaller where the fp32 q and k of the tile
-    would outgrow shared memory."""
+    would outgrow shared memory (4 x 6 = 24 pixels above d = 352: at the
+    one-head d = 704 block their 24 * 1408 fp32 take 135 KB)."""
     if d <= 64:
         return 14, 14
     if d <= 96:
         return 6, 14
-    return 6, 6
+    if d <= 352:
+        return 6, 6
+    return 4, 6
+
+
+def stats_smem(c: int, num_heads: int) -> int:
+    """Shared-memory bytes of one stats block; csrc/mdta_stats.cu carves its
+    dynamic shared memory in this order: q and k of the interior pixels
+    (pi x 2d fp32), the qkv chunk of the halo pixels (ph x 64 fp32), the
+    two product staging tiles, the halo's LN mean and rstd (fp32) and its
+    flat pixel indices (int32)."""
+    d = c // num_heads
+    th, tw = stats_tile(d)
+    ph, pi = (th + 2) * (tw + 2), th * tw
+    return (pi * 2 * d + ph * QKV_CHUNK + GEMM_STAGE_FLOATS + 2 * ph) * 4 + ph * 4
 
 
 def _launch(x, lnw, lnb, wqkv, wdw, num_heads, bias_free, eps):
     b, h, w, c = x.shape
     d = c // num_heads
     th, tw = stats_tile(d)
-    smem = build.function("mdta_stats_smem", [_I, _I, _I, _I], ctypes.c_longlong)(
-        c, num_heads, th, tw)
+    smem = stats_smem(c, num_heads)
     if smem > SMEM_LIMIT:
         raise ValueError(f"mdta_stats: C={c}, heads={num_heads} needs {smem} "
                          f"bytes of shared memory (> {SMEM_LIMIT})")
     tiles = -(-h // th) * -(-w // tw)
     n = d * d + 2 * d
     v = torch.empty_like(x)
+    # partial Grams and norms of every tile: 381 MB at B = 4, (32, 32, 704),
+    # one head (48 tiles of 4 x 6 pixels)
     part = torch.empty((b, num_heads, tiles, n), device=x.device,
                        dtype=torch.float32)
     stats = torch.empty((b, num_heads, n), device=x.device, dtype=torch.float32)
     fn = build.function("mdta_stats_launch",
                         [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8
-                        + [ctypes.c_float, _P])
+                        + [ctypes.c_float, ctypes.c_longlong, _P])
     code = fn(build.dtype_code(x), x.data_ptr(), lnw.data_ptr(),
               None if lnb is None else lnb.data_ptr(), wqkv.data_ptr(),
               wdw.data_ptr(), v.data_ptr(), part.data_ptr(), stats.data_ptr(),
-              b, h, w, c, num_heads, th, tw, int(bias_free), eps,
+              b, h, w, c, num_heads, th, tw, int(bias_free), eps, smem,
               build.stream_of(x))
     build.check(code, "mdta_stats")
     return v, stats

@@ -40,6 +40,8 @@ def test_jax_initialised_reduced_promptir_loads_strict():
     ("down1_2.body.0.weight", 4, ("down1_2", "body_0", "kernel")),
     ("prompt1.linear_layer.weight", 2, ("prompt1", "linear_layer", "kernel")),
     ("latent.3.attn.temperature", 3, ("latent_3", "attn", "temperature")),
+    ("prompt3.attn.spatial_attn.rel_pos_emb.rel_height", 2,
+     ("prompt3", "attn", "spatial_attn", "rel_pos_emb", "rel_height")),
 ])
 def test_flax_path(key, ndim, path):
     assert flax_path(key, ndim) == path

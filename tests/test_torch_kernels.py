@@ -80,7 +80,8 @@ def block_diag(attn, cp):
     return out
 
 
-@pytest.mark.parametrize("c,heads,hw", [(48, 2, (8, 16)), (32, 1, (16, 8))])
+@pytest.mark.parametrize("c,heads,hw", [(48, 2, (8, 16)), (32, 1, (16, 8)),
+                                        (160, 1, (8, 16))])
 def test_mdta_stats_matches_pallas(c, heads, hw):
     w = block_weights(c, heads, seed=c)
     x = np.random.default_rng(1).normal(size=(2, *hw, c)).astype(np.float32)
@@ -184,3 +185,35 @@ def test_kernel_wrappers_reject_bad_shapes():
                         torch.zeros(18, 6), torch.zeros(18, 9), 1)
     with pytest.raises(ValueError, match="do not fit"):
         seam.seam(torch.zeros(1, 2, 2, 8), torch.zeros(1, 4, 5, 2))
+
+
+def test_stats_tile_fits_every_served_width():
+    """Every (C, heads) that the forwards of promptir and of the training
+    config of promptxrestormerir give mdta_stats, and every width that
+    reaches ln_gdfn, fits one block's shared memory with the tile the
+    wrappers pick (one-head widths reach d = 704 at prompt3)."""
+    from promptir_tpu_torch import create_model
+    from promptir_tpu_torch.ops.attention import MDTA
+    from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn_smem
+    from promptir_tpu_torch.ops.gdfn import GDFN
+
+    models = [
+        create_model("promptir", device="cpu"),
+        create_model("promptxrestormerir", device="cpu", num_blocks=(2, 4, 4, 4),
+                     num_refinement_blocks=4, channel_heads=(1, 1, 1, 1),
+                     spatial_heads=(1, 2, 4, 8)),
+    ]
+    stats, ffn = set(), set()
+    for m in models:
+        for mod in m.modules():
+            if isinstance(mod, MDTA):
+                stats.add((mod.qkv.weight.shape[1], mod.num_heads))
+            elif isinstance(mod, GDFN):
+                ffn.add(mod.project_out.weight.shape[0])
+    assert (704, 1) in stats and (704, 4) in stats and 704 in ffn
+    for c, heads in sorted(stats):
+        smem = mdta.stats_smem(c, heads)
+        assert smem <= mdta.SMEM_LIMIT, (c, heads, mdta.stats_tile(c // heads), smem)
+    for c in sorted(ffn):
+        assert ln_gdfn_smem(c) <= mdta.SMEM_LIMIT, c
+    assert mdta.stats_tile(704) == (4, 6)

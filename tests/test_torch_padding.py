@@ -6,6 +6,7 @@ import pytest
 import torch
 
 from promptir_tpu.eval import padding as jpad
+from promptir_tpu.parallel.spatial import pad_bases as jax_pad_bases
 from promptir_tpu_torch.eval import padding
 
 
@@ -19,3 +20,13 @@ def test_padding_matches_jax(hw, base):
         t = padding.pad_to_multiple_reflect(torch.from_numpy(x), base)
         np.testing.assert_array_equal(t.numpy(), ref)
         np.testing.assert_array_equal(padding.crop(t, *hw).numpy(), x)
+
+
+@pytest.mark.parametrize("name", ["promptir", "xrestormerir", "promptxrestormerir"])
+def test_pad_bases_match_jax_on_one_chip(name):
+    assert padding.pad_bases(name) == jax_pad_bases(name, 1)
+
+
+def test_pad_bases_of_an_unported_model_raise():
+    with pytest.raises(KeyError, match="ROADMAP.md"):
+        padding.pad_bases("promptuformerir")
