@@ -3,25 +3,38 @@
 
     python3 chip_smoke.py
 
-Two main paths are driven: PromptIR (`promptir`) and the X-Restormer
-family's PromptXRestormer (`promptxrestormerir`, the reference's training
-config). Phases, each printed with the seconds since start:
+Three main paths are driven: serving PromptIR (`promptir`) and the
+X-Restormer family's PromptXRestormer (`promptxrestormerir`, the
+reference's training config), and training PromptIR. Phases, each printed
+with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
      together), with ptxas register and shared memory use;
-  3. each kernel against its plain PyTorch version on the card, at every
-     shape a batch-4 forward of either model at the serving run's 256x256
-     and 256x192 buckets gives it, in float32 (TF32 off) and bfloat16; the
-     seam bit-exact;
+  3. each kernel against its plain PyTorch version on the card, in float32
+     (TF32 off) and bfloat16: at every shape a batch-4 forward of either
+     model at the serving run's 256x256 and 256x192 buckets gives it, and
+     at every shape of the training step (batch 6 at 128x128); the seam
+     bit-exact; and the stats pass's partial-Gram buffer at two sizes;
   4. the reference's own 64 px outputs reproduced in float32 through the
      kernels: full-depth PromptIR (tests/goldens/promptir_full.npz) and
-     one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz);
+     one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz),
+     with TF32 off (as the engine and trainer run float32) and, printed
+     only, with PyTorch's defaults;
   5. each model at full width (random weights from a seed, bf16) serving
      eight requests through the port's engine, with the kernels' launch
      counts set to 0 just before each run and read just after;
-  6. each kernel timed with CUDA events beside its plain version, the one
+  6. a reduced PromptIR's training gradients through the kernels against
+     the same step through the plain versions, on the card;
+  7. full-depth PromptIR training: AdamW steps on one fixed batch of six
+     128x128 synthetic patches in float32 (TF32 off) and in bf16 compute
+     with float32 weights; launches per step, the loss, step time and peak
+     memory;
+  8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
+     depth for 3 epochs on 48 images: the held-out PSNR must rise;
+  9. each kernel timed with CUDA events beside its plain version, the one
      PyTorch call that computes the same function where there is one, and
-     its bound, at every shape of a 256x256 forward of each model.
+     its bound, at every shape of a 256x256 serving forward of each model
+     and of the training forward.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 Imports torch, numpy, the standard library and promptir_tpu_torch only.
@@ -29,12 +42,16 @@ Imports torch, numpy, the standard library and promptir_tpu_torch only.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -85,22 +102,34 @@ def xr_block_shapes(h, w):
 # (tests/goldens/sd_keys_promptxrestormerir.json)
 XR_TRAIN = dict(num_blocks=(2, 4, 4, 4), num_refinement_blocks=4,
                 channel_heads=(1, 1, 1, 1), spatial_heads=(1, 2, 4, 8))
-KERNELS = ("mdta_stats", "block_tail", "ln_gdfn", "seam")
+KERNELS = ("mdta_stats", "block_tail", "ln_gdfn", "seam", "ln_mdta")
 PATHS = {
-    # name: (model kwargs, launches of stats/tail/ln_gdfn/seam per forward)
-    "promptir": ({}, [47, 47, 0, 1]),
-    "promptxrestormerir": (XR_TRAIN, [31, 31, 31, 0]),
+    # name: (model kwargs, launches of stats/tail/ln_gdfn/seam/ln_mdta per
+    # serving forward)
+    "promptir": ({}, [47, 47, 0, 1, 0]),
+    "promptxrestormerir": (XR_TRAIN, [31, 31, 31, 0, 0]),
 }
 GOLDENS = {
     # file: (model, kwargs, launches per forward)
-    "promptir_full.npz": ("promptir", {}, [47, 47, 0, 1]),
+    "promptir_full.npz": ("promptir", {}, [47, 47, 0, 1, 0]),
     "prompt_xrestormer_small.npz": (
         "promptxrestormerir",
-        dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1), [11, 11, 11, 0]),
+        dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1),
+        [11, 11, 11, 0, 0]),
 }
 BATCH = 4
+# the training step: the reference's per-GPU batch and patch size
+# (promptir_tpu/config.py: TrainConfig.batch_size, DataConfig.patch_size)
+TRAIN_BATCH, TRAIN_HW = 6, (128, 128)
+TRAIN_PER_STEP = [47, 0, 47, 1, 47]  # launches of one step's forward
+TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # per dtype; the warm-up steps are untimed
+REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
+DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 GOLDEN_TOL = 2e-4
+# kernel-route gradients against plain-route gradients, float32 (TF32 off):
+# max |difference| over max |plain| of each parameter's gradient
+GRAD_TOL = 1e-3
 
 
 def say(msg: str) -> None:
@@ -139,7 +168,7 @@ def rel_err(a, b) -> tuple[float, float]:
     return err, err / max(b.abs().max().item(), 1e-30)
 
 
-def block_inputs(shape, dtype, gen):
+def block_inputs(shape, dtype, gen, batch=BATCH):
     h, w, c, heads = shape
     f = int(c * 2.66)
 
@@ -147,7 +176,7 @@ def block_inputs(shape, dtype, gen):
         return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dtype)
 
     return dict(
-        x=r(BATCH, h, w, c), ln1w=1 + r(c, scale=0.1), ln1b=r(c, scale=0.1),
+        x=r(batch, h, w, c), ln1w=1 + r(c, scale=0.1), ln1b=r(c, scale=0.1),
         wqkv=r(3 * c, c, scale=c ** -0.5), wdw=r(3 * c, 9, scale=0.3),
         temp=1 + r(heads, 1, 1, scale=0.2).float(),
         wproj=r(c, c, scale=c ** -0.5), ln2w=1 + r(c, scale=0.1),
@@ -170,12 +199,37 @@ def run_ln_gdfn(fn, a):
     return fn(a["x"], a["ln2w"], a["ln2b"], a["w1"], a["wdwf"], a["w2"])
 
 
-def seam_inputs(h, w, dtype, gen):
+def run_apply(fn, a, v, attn):
+    return fn(v, a["x"], attn, a["wproj"])
+
+
+def seam_inputs(h, w, dtype, gen, batch=BATCH):
     """up2_1's conv output (B, h/2, w/2, 192) and the enc1 skip (B, h, w, 48)."""
-    y = torch.randn(BATCH, h // 2, w // 2, 192, generator=gen,
+    y = torch.randn(batch, h // 2, w // 2, 192, generator=gen,
                     device="cuda").to(dtype)
-    skip = torch.randn(BATCH, h, w, 48, generator=gen, device="cuda").to(dtype)
+    skip = torch.randn(batch, h, w, 48, generator=gen, device="cuda").to(dtype)
     return y, skip
+
+
+def checked_shapes():
+    """(dtype, shapes, seam size) of the kernel checks in the order their
+    inputs are drawn: the serving buckets first, in the order of earlier
+    runs (so their inputs repeat), then the training step's shapes. A shape
+    is (shape, batch, kernels checked)."""
+    out = []
+    serving = ("mdta_stats", "block_tail")
+    for dtype in (torch.float32, torch.bfloat16):
+        for bh, bw in BUCKETS:
+            shapes = [(s, BATCH, serving + ("ln_mdta",))
+                      for s, _ in block_shapes(bh, bw)]
+            shapes += [(s, BATCH, serving + ("ln_gdfn",))
+                       for s, _ in xr_block_shapes(bh, bw)]
+            out.append((dtype, shapes, (bh, bw, BATCH)))
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = [(s, TRAIN_BATCH, ("mdta_stats", "ln_mdta", "ln_gdfn"))
+                  for s, _ in block_shapes(*TRAIN_HW)]
+        out.append((dtype, shapes, (*TRAIN_HW, TRAIN_BATCH)))
+    return out
 
 
 # ------------------------------------------------------------ phase 3
@@ -193,53 +247,63 @@ def check_kernels(mdta, block, gdfn, seam):
         w = worst[name][dtype]
         w[0], w[1] = max(w[0], e), max(w[1], r)
 
-    for dtype, (bh, bw) in [(d, b) for d in (torch.float32, torch.bfloat16)
-                            for b in BUCKETS]:
-        shapes = [(s, False) for s, _ in block_shapes(bh, bw)]
-        shapes += [(s, True) for s, _ in xr_block_shapes(bh, bw)]
-        for shape, xr in shapes:
-            a = block_inputs(shape, dtype, gen)
+    for dtype, shapes, (sh, sw, sb) in checked_shapes():
+        for shape, batch, kinds in shapes:
+            a = block_inputs(shape, dtype, gen, batch)
             v, st = run_stats(mdta.mdta_stats, a)
             v0, st0 = run_stats(mdta.mdta_stats_plain, a)
             torch.cuda.synchronize()
             ev, rv = rel_err(v, v0)
             es, rs = rel_err(st, st0)
-            attn = mdta.attn_from_stats(st0, a["temp"])
-            out = run_tail(block.block_tail, a, v0, attn)
-            out0 = run_tail(block.block_tail_plain, a, v0, attn)
-            torch.cuda.synchronize()
-            et, rtl = rel_err(out, out0)
-            msg = (f"check {str(dtype)[6:]:8s} B{BATCH} {shape}: mdta_stats v "
-                   f"{ev:.2e} (rel {rv:.2e}) stats {es:.2e} (rel {rs:.2e}); "
-                   f"block_tail {et:.2e} (rel {rtl:.2e})")
-            finite = [out, v]
-            if xr:
-                g = run_ln_gdfn(gdfn.ln_gdfn, a)
-                g0 = run_ln_gdfn(gdfn.ln_gdfn_plain, a)
-                torch.cuda.synchronize()
-                eg, rg = rel_err(g, g0)
-                msg += f"; ln_gdfn {eg:.2e} (rel {rg:.2e})"
-                record("ln_gdfn", dtype, shape, eg, rg)
-                finite.append(g)
-            say(msg)
             record("mdta_stats", dtype, shape, ev, rv)
             record("mdta_stats", dtype, shape, es, rs)
-            record("block_tail", dtype, shape, et, rtl)
-            if not all(torch.isfinite(t).all() for t in finite):
+            msg = (f"check {str(dtype)[6:]:8s} B{batch} {shape}: mdta_stats v "
+                   f"{ev:.2e} (rel {rv:.2e}) stats {es:.2e} (rel {rs:.2e})")
+            attn = mdta.attn_from_stats(st0, a["temp"])
+            outs = [v]
+            pairs = {
+                "block_tail": lambda: (run_tail(block.block_tail, a, v0, attn),
+                                       run_tail(block.block_tail_plain, a, v0, attn)),
+                "ln_mdta": lambda: (run_apply(mdta.mdta_apply, a, v0, attn),
+                                    run_apply(mdta.mdta_apply_plain, a, v0, attn)),
+                "ln_gdfn": lambda: (run_ln_gdfn(gdfn.ln_gdfn, a),
+                                    run_ln_gdfn(gdfn.ln_gdfn_plain, a)),
+            }
+            for k in kinds[1:]:
+                out, out0 = pairs[k]()
+                torch.cuda.synchronize()
+                e, r = rel_err(out, out0)
+                record(k, dtype, shape, e, r)
+                msg += f"; {k} {e:.2e} (rel {r:.2e})"
+                outs.append(out)
+            say(msg)
+            if not all(torch.isfinite(t).all() for t in outs):
                 fail(f"non-finite kernel output at {shape} {dtype}")
-        y, skip = seam_inputs(bh, bw, dtype, gen)
+        y, skip = seam_inputs(sh, sw, dtype, gen, sb)
         out = seam.seam(y, skip)
         torch.cuda.synchronize()
         if not torch.equal(out, seam.seam_plain(y, skip)):
             fail(f"seam is not bit-exact in {dtype}")
         say(f"check {str(dtype)[6:]:8s} seam {tuple(y.shape)} + "
             f"{tuple(skip.shape)}: bit-exact")
+    # the stats pass's partial Grams: one slot a tile before, capped slots now
+    for b, h, w, c, heads in [(4, 32, 32, 704, 1), (4, 128, 128, 704, 4),
+                              (4, 128, 128, 704, 1)]:
+        d = c // heads
+        th, tw = mdta.stats_tile(d)
+        per_tile = 4 * b * heads * -(-h // th) * -(-w // tw) * (d * d + 2 * d)
+        say(f"mdta_stats partial-Gram buffer at B{b} ({h}, {w}, {c}, {heads}): "
+            f"{mdta.stats_partial_bytes(b, h, w, c, heads)} bytes with "
+            f"{mdta.stats_slots(b, h, w, c, heads)} slots an image and head "
+            f"(one slot a tile: {per_tile} bytes)")
     return worst
 
 
 # ------------------------------------------------------------ phase 4
 
 def check_golden(port, counters, file):
+    from promptir_tpu_torch.precision import exact_float32
+
     name, kwargs, want = GOLDENS[file]
     data = np.load(ROOT / "tests" / "goldens" / file)
     sd = {k[4:]: torch.from_numpy(data[k].astype(np.float32))
@@ -247,15 +311,22 @@ def check_golden(port, counters, file):
     model = port.create_model(name, device="cuda", **kwargs)
     model.load_state_dict(sd, strict=True)
     x = torch.from_numpy(data["x"]).cuda()
+    ref = torch.from_numpy(data["y"])
     before = counters()
-    with torch.inference_mode():
+    with torch.inference_mode(), exact_float32(torch.float32):
         y = model(x)
     torch.cuda.synchronize()
     ran = [a - b for a, b in zip(counters(), before)]
-    err = (y.cpu() - torch.from_numpy(data["y"])).abs().max().item()
+    err = (y.cpu() - ref).abs().max().item()
+    # the same forward with PyTorch's defaults (cuDNN's float32 convolutions
+    # in TF32): printed, not gated; the engine and trainer turn TF32 off
+    with torch.inference_mode():
+        err_tf32 = (model(x).cpu() - ref).abs().max().item()
     say(f"golden {file} ({name}, {len(sd)} tensors, {tuple(x.shape)}, fp32, "
         f"TF32 off): max |err| {err:.3e} (tolerance {GOLDEN_TOL}); launches "
-        f"stats/tail/ln_gdfn/seam {ran}")
+        f"stats/tail/ln_gdfn/seam/ln_mdta {ran}; with PyTorch's TF32 defaults "
+        f"(cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}) max |err| "
+        f"{err_tf32:.3e}")
     if ran != want:
         fail(f"golden forward did not run through the kernels: {ran} != {want}")
     if not err <= GOLDEN_TOL:
@@ -312,7 +383,7 @@ def serve(port, counters, reset, card, name):
     say(f"serve: full-width {name} ({n_params} params) bf16, pad_base {base}, "
         f"8 requests (6x 256x256, 2x 250x190) in {batches} batches of max 4; "
         f"p50 latency {p50 * 1e3:.1f} ms, {ips:.2f} images/s on {card}; "
-        f"launches stats/tail/ln_gdfn/seam {ran}")
+        f"launches stats/tail/ln_gdfn/seam/ln_mdta {ran}")
     want = [n * batches for n in per_forward]
     if ran != want:
         fail(f"serving launches {ran} != {per_forward} per forward x {batches}")
@@ -331,6 +402,150 @@ def serve(port, counters, reset, card, name):
 
 # ------------------------------------------------------------ phase 6
 
+@contextlib.contextmanager
+def plain_route():
+    """The training forward with each kernel's autograd Function swapped for
+    its plain composition (ops/autodiff.py): the reference route of the
+    gradient check. Restored on exit."""
+    from promptir_tpu_torch.models import blocks
+    from promptir_tpu_torch.models import promptir as promptir_model
+    from promptir_tpu_torch.ops import autodiff
+    from promptir_tpu_torch.ops.cuda.seam import seam_plain
+
+    with mock.patch.object(blocks, "LnMdta", SimpleNamespace(apply=autodiff.plain_ln_mdta)), \
+            mock.patch.object(blocks, "LnGdfn", SimpleNamespace(apply=autodiff.plain_ln_gdfn)), \
+            mock.patch.object(promptir_model, "Seam", SimpleNamespace(apply=seam_plain)):
+        yield
+
+
+def check_grads(port, counters, reset):
+    """One reduced PromptIR step's gradients through the kernels against the
+    same step through the plain versions, float32 with TF32 off."""
+    from promptir_tpu_torch.precision import exact_float32
+    from promptir_tpu_torch.train.losses import l1_loss
+
+    torch.manual_seed(0)
+    model = port.create_model("promptir", device="cuda", train=True, **REDUCED)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.rand(2, 3, 64, 96, generator=gen, device="cuda")
+    y = torch.rand(2, 3, 64, 96, generator=gen, device="cuda")
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        before = counters()
+        with exact_float32(torch.float32):
+            loss = l1_loss(model(x), y)
+            loss.backward()
+        torch.cuda.synchronize()
+        ran = [a - b for a, b in zip(counters(), before)]
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()
+                             if p.grad is not None}, ran
+
+    loss_k, g_k, ran_k = grads()
+    with plain_route():
+        loss_p, g_p, ran_p = grads()
+    reset()  # a comparison, not the main path
+    if sorted(g_k) != sorted(g_p):
+        fail("the two routes give gradients to different parameters")
+    worst = max(((g_k[n] - g_p[n]).abs().max().item()
+                 / max(g_p[n].abs().max().item(), 1e-30), n) for n in g_p)
+    say(f"gradients: reduced promptir (2, 3, 64, 96) fp32 TF32 off, {len(g_p)} "
+        f"parameters: loss {loss_k:.7f} through the kernels, {loss_p:.7f} "
+        f"plain; worst gradient |kernel - plain| / max |plain| {worst[0]:.2e} "
+        f"({worst[1]}; tolerance {GRAD_TOL}); launches "
+        f"stats/tail/ln_gdfn/seam/ln_mdta {ran_k} and plain {ran_p}")
+    if ran_k != [11, 0, 11, 1, 11] or any(ran_p):
+        fail(f"the gradient check's routes launched {ran_k} and {ran_p}")
+    if not worst[0] <= GRAD_TOL:
+        fail(f"kernel-route gradient of {worst[1]} off by {worst[0]:.2e}")
+
+
+# ------------------------------------------------------------ phase 7
+
+def train(port, counters, reset, card):
+    """Full-depth PromptIR: AdamW steps on one fixed batch of six 128x128
+    synthetic patches, float32 (TF32 off) and bf16 compute with float32
+    weights. Returns the launches over the whole run."""
+    from promptir_tpu_torch.data.loader import TrainLoader
+    from promptir_tpu_torch.data.synthetic import SyntheticTrainDataset
+    from promptir_tpu_torch.train.state import TrainState, make_optimizer
+    from promptir_tpu_torch.train.step import make_train_step
+
+    ds = SyntheticTrainDataset(n=TRAIN_BATCH, patch_size=TRAIN_HW[0])
+    batch = next(TrainLoader(ds, batch_size=TRAIN_BATCH, shuffle=False,
+                             num_workers=2, pin_memory=True).epoch(0))
+    reset()
+    total = [0] * len(KERNELS)
+    for dtype in (torch.float32, torch.bfloat16):
+        torch.manual_seed(0)
+        model = port.create_model("promptir", device="cuda", dtype=dtype,
+                                  train=True)
+        n_params = sum(p.numel() for p in model.parameters())
+        st = TrainState(model, make_optimizer(model.parameters()))
+        step = make_train_step(model)
+        losses, times = [], []
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_WARMUP:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            before = counters()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            metrics = step(st, batch)
+            t1.record()
+            torch.cuda.synchronize()
+            ran = [a - b for a, b in zip(counters(), before)]
+            if ran != TRAIN_PER_STEP:
+                fail(f"training step {i} ({dtype}) launched {ran} != "
+                     f"{TRAIN_PER_STEP}")
+            total = [a + b for a, b in zip(total, ran)]
+            losses.append(metrics["train_loss"].item())
+            if i >= TRAIN_WARMUP:
+                times.append(t0.elapsed_time(t1))
+        peak = torch.cuda.max_memory_allocated()
+        ms = float(np.median(times))
+        say(f"train: full-depth promptir ({n_params} params, fp32 weights) "
+            f"{str(dtype)[6:]} compute, AdamW lr 2e-4, B{TRAIN_BATCH} "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]} on one fixed batch: loss "
+            f"{', '.join(f'{v:.5f}' for v in losses)}; step {ms:.1f} ms "
+            f"(median of {len(times)} after {TRAIN_WARMUP} warm-up, CUDA "
+            f"events), {TRAIN_BATCH * 1e3 / ms:.2f} images/s, peak memory "
+            f"{peak / 2**30:.2f} GiB on {card}; launches "
+            f"stats/tail/ln_gdfn/seam/ln_mdta per step {TRAIN_PER_STEP}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"training loss did not fall on a fixed batch: {losses}")
+        del model, st, step
+        torch.cuda.empty_cache()
+    if total != counters():
+        fail(f"launches outside the training steps: {counters()} != {total}")
+    return total
+
+
+# ------------------------------------------------------------ phase 8
+
+def demo():
+    """cli/train_demo.py at reduced depth, bf16."""
+    from promptir_tpu_torch.cli import train_demo
+
+    out = ROOT / "logs" / "chip_smoke_demo"
+    shutil.rmtree(out, ignore_errors=True)
+    args = [f"--{k}={v}" for k, v in DEMO.items()]
+    try:
+        res = train_demo.main(args + ["--dtype=bfloat16", f"--ckpt_dir={out / 'ckpt'}",
+                                      f"--log_dir={out}"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    say(f"demo: reduced promptir (2, 3, 3, 4) + 2 refinement, bf16, {' '.join(args)}: "
+        f"held-out sigma=25 PSNR "
+        f"{res['psnr_before']:.2f} -> {res['psnr_after']:.2f} dB (noisy input "
+        f"{res['psnr_noisy']:.2f} dB) in {res['seconds']:.1f} s")
+    if not res["psnr_after"] > res["psnr_before"]:
+        fail("the demo's held-out PSNR did not rise")
+    return res
+
+
+# ------------------------------------------------------------ phase 9
+
 def time_ms(fn, reps=20, warmup=3) -> float:
     """Median of `reps` CUDA-event timings of fn() (after a warm-up)."""
     for _ in range(warmup):
@@ -345,29 +560,73 @@ def time_ms(fn, reps=20, warmup=3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
 
 
-def block_work(shape, nbytes):
+def block_work(shape, nbytes, batch=BATCH):
     """(operations, bytes) of the stats and tail functions at one shape:
     each input read once, each output written once."""
     h, w, c, heads = shape
-    d, f, px = c // heads, int(c * 2.66), BATCH * h * w
+    d, f, px = c // heads, int(c * 2.66), batch * h * w
     st_ops = 2 * px * (3 * c * c + 27 * c + d * c + 2 * c) + 8 * px * c
     st_bytes = nbytes * (2 * px * c + 3 * c * c + 27 * c + 2 * c) \
-        + 4 * BATCH * heads * (d * d + 2 * d)
+        + 4 * batch * heads * (d * d + 2 * d)
     tl_ops = 2 * px * (d * c + c * c + 2 * f * c + 18 * f + f * c) \
         + px * (8 * c + 10 * f)
     tl_bytes = nbytes * (3 * px * c + c * c + 2 * c + 2 * f * c + 18 * f
-                         + f * c) + 4 * BATCH * heads * d * d
+                         + f * c) + 4 * batch * heads * d * d
     return (st_ops, st_bytes), (tl_ops, tl_bytes)
 
 
-def gdfn_work(shape, nbytes):
+def gdfn_work(shape, nbytes, batch=BATCH):
     """(operations, bytes) of ln_gdfn at one shape: the JAX kernel's cost
     estimate (promptir_tpu/ops/pallas/gdfn.py:584) for the operations; x
     read, out written and each weight read once for the bytes."""
     h, w, c, _ = shape
-    f, px = int(c * 2.66), BATCH * h * w
+    f, px = int(c * 2.66), batch * h * w
     ops = 2 * px * (c * 2 * f + f * c) + 18 * px * 2 * f
     return ops, nbytes * (2 * px * c + 2 * c + 2 * f * c + 18 * f + f * c)
+
+
+def apply_work(shape, nbytes, batch=BATCH):
+    """(operations, bytes) of the apply kernel (ln_mdta) at one shape: attn v
+    and the projection, 2dC + 2C^2 operations a pixel, and the residual; v
+    and x read, x2 written, W_proj and the fp32 attention read once."""
+    h, w, c, heads = shape
+    d, px = c // heads, batch * h * w
+    ops = 2 * px * (d * c + c * c) + px * c
+    return ops, nbytes * (3 * px * c + c * c) + 4 * batch * heads * d * d
+
+
+def chain_pairs(h, w):
+    """(H, W, C, heads) of the consecutive block pairs inside the block
+    stacks of an h x w promptir forward, with how many: the pairs a chained
+    route would run through the unported megablock kernel."""
+    return [
+        ((h, w, 48, 1), 3),                  # encoder_level1
+        ((h // 2, w // 2, 96, 2), 10),       # encoder_level2, decoder_level2
+        ((h // 4, w // 4, 192, 4), 10),      # encoder_level3, decoder_level3
+        ((h // 8, w // 8, 384, 8), 7),       # latent
+        ((h, w, 96, 1), 6),                  # decoder_level1, refinement
+    ]
+
+
+def megablock_bound(dtype=torch.bfloat16):
+    """The bound of promptir_tpu/ops/pallas/megablock.py:165
+    fused_tail_stats_padded (not ported) over one batch-4 256x256 promptir
+    forward: block n's tail and block n+1's stats pass, where n's output
+    feeds n+1 without being read back (one px * C read less than the two
+    functions apart)."""
+    ops = nbytes = pairs = 0
+    for shape, n in chain_pairs(*BUCKETS[0]):
+        (so, sb), (to, tb) = block_work(shape, 2)
+        h, w, c, _ = shape
+        ops += n * (so + to)
+        nbytes += n * (sb + tb - 2 * BATCH * h * w * c)
+        pairs += n
+    b, by = bound_ms(ops, nbytes, dtype)
+    say(f"bound of fused_tail_stats_padded (megablock.py:165, not ported) "
+        f"over the {pairs} block pairs of a promptir B{BATCH} 256x256 bf16 "
+        f"forward: {b:.4f} ms by {by} ({ops / 1e12:.3f} T operations, "
+        f"{nbytes / 1e9:.3f} GB)")
+    return b
 
 
 def bound_ms(ops, nbytes, dtype) -> tuple[float, str]:
@@ -376,35 +635,43 @@ def bound_ms(ops, nbytes, dtype) -> tuple[float, str]:
 
 
 def time_kernels(mdta, block, gdfn, seam, reset):
-    """Per path and kernel, the time of one batch-4 256x256 bf16 forward,
-    summed over the path's launches at each shape."""
+    """Per path and kernel, the time of one bf16 forward of the path, summed
+    over its launches at each shape: serving promptir and promptxrestormerir
+    (batch 4, 256x256) and the training forward (batch 6, 128x128)."""
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
-    paths = {"promptir": block_shapes(*BUCKETS[0]),
-             "promptxrestormerir": xr_block_shapes(*BUCKETS[0])}
+    paths = {
+        # path: (shapes with their block counts, batch, kernels timed)
+        "promptir": (block_shapes(*BUCKETS[0]), BATCH, ("mdta_stats", "block_tail")),
+        "promptxrestormerir": (xr_block_shapes(*BUCKETS[0]), BATCH,
+                               ("mdta_stats", "block_tail", "ln_gdfn")),
+        "train": (block_shapes(*TRAIN_HW), TRAIN_BATCH,
+                  ("mdta_stats", "ln_mdta", "ln_gdfn")),
+    }
     tot = {path: {} for path in paths}
-    for path, shapes in paths.items():
+    for path, (shapes, batch, kernels) in paths.items():
         for shape, n in shapes:
-            a = block_inputs(shape, dtype, gen)
+            a = block_inputs(shape, dtype, gen, batch)
             v, st = run_stats(mdta.mdta_stats, a)
             attn = mdta.attn_from_stats(st, a["temp"])
-            times = {
-                "mdta_stats": (
-                    time_ms(lambda: run_stats(mdta.mdta_stats, a)),
-                    time_ms(lambda: run_stats(mdta.mdta_stats_plain, a))),
-                "block_tail": (
-                    time_ms(lambda: run_tail(block.block_tail, a, v, attn)),
-                    time_ms(lambda: run_tail(block.block_tail_plain, a, v, attn))),
+            fns = {
+                "mdta_stats": (lambda: run_stats(mdta.mdta_stats, a),
+                               lambda: run_stats(mdta.mdta_stats_plain, a)),
+                "block_tail": (lambda: run_tail(block.block_tail, a, v, attn),
+                               lambda: run_tail(block.block_tail_plain, a, v, attn)),
+                "ln_mdta": (lambda: run_apply(mdta.mdta_apply, a, v, attn),
+                            lambda: run_apply(mdta.mdta_apply_plain, a, v, attn)),
+                "ln_gdfn": (lambda: run_ln_gdfn(gdfn.ln_gdfn, a),
+                            lambda: run_ln_gdfn(gdfn.ln_gdfn_plain, a)),
             }
-            work = dict(zip(("mdta_stats", "block_tail"), block_work(shape, 2)))
-            if path == "promptxrestormerir":
-                times["ln_gdfn"] = (
-                    time_ms(lambda: run_ln_gdfn(gdfn.ln_gdfn, a)),
-                    time_ms(lambda: run_ln_gdfn(gdfn.ln_gdfn_plain, a)))
-                work["ln_gdfn"] = gdfn_work(shape, 2)
-            for k, (ms, pms) in times.items():
+            stats_w, tail_w = block_work(shape, 2, batch)
+            work = {"mdta_stats": stats_w, "block_tail": tail_w,
+                    "ln_mdta": apply_work(shape, 2, batch),
+                    "ln_gdfn": gdfn_work(shape, 2, batch)}
+            for k in kernels:
+                ms, pms = time_ms(fns[k][0]), time_ms(fns[k][1])
                 b, by = bound_ms(*work[k], dtype)
-                say(f"time {k:10s} B{BATCH} {shape} bf16: {ms:.3f} ms (plain "
+                say(f"time {k:10s} B{batch} {shape} bf16: {ms:.3f} ms (plain "
                     f"{pms:.3f} ms, bound {b:.4f} ms by {by}) x{n} per "
                     f"{path} forward")
                 t = tot[path].setdefault(k, dict(ms=0.0, plain_ms=0.0, ops=0,
@@ -413,25 +680,30 @@ def time_kernels(mdta, block, gdfn, seam, reset):
                 t["plain_ms"] += n * pms
                 t["ops"] += n * work[k][0]
                 t["bytes"] += n * work[k][1]
+        if path == "train":
+            continue
         # the split tails write the hidden tensor (and block_tail x2) and
         # read them back: traffic the one-pass TPU kernels do not have
         split = 0
         for (h, w, c, _), n in shapes:
-            px, f2 = BATCH * h * w, 2 * int(c * 2.66)
+            px, f2 = batch * h * w, 2 * int(c * 2.66)
             split += n * px * 2 * (f2 + c) * 2
             if path == "promptxrestormerir":
                 split += n * px * 2 * f2 * 2
         say(f"{path}: the split tails write and read back {split / 1e9:.2f} GB "
             f"per forward ({split / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
-    y, skip = seam_inputs(*BUCKETS[0], dtype, gen)
-    yc = y.permute(0, 3, 1, 2)  # NCHW views (channels_last) for the library call
-    sc = skip.permute(0, 3, 1, 2)
-    tot["promptir"]["seam"] = dict(
-        ms=time_ms(lambda: seam.seam(y, skip)),
-        plain_ms=time_ms(lambda: seam.seam_plain(y, skip)),
-        library_ms=time_ms(lambda: torch.cat([F.pixel_shuffle(yc, 2), sc], 1)),
-        ops=0, bytes=2 * (y.numel() + skip.numel() + 2 * skip.numel()),
-    )
+    for path, batch, hw in [("promptir", BATCH, BUCKETS[0]),
+                            ("train", TRAIN_BATCH, TRAIN_HW)]:
+        y, skip = seam_inputs(*hw, dtype, gen, batch)
+        yc = y.permute(0, 3, 1, 2)  # NCHW views (channels_last) for the library call
+        sc = skip.permute(0, 3, 1, 2)
+        tot[path]["seam"] = dict(
+            ms=time_ms(lambda: seam.seam(y, skip)),
+            plain_ms=time_ms(lambda: seam.seam_plain(y, skip)),
+            library_ms=time_ms(lambda: torch.cat([F.pixel_shuffle(yc, 2), sc], 1)),
+            ops=0, bytes=2 * (y.numel() + skip.numel() + 2 * skip.numel()),
+        )
+    megablock_bound()
     reset()  # the timing launches are not the main path's
     recs = {}
     for k in KERNELS:
@@ -445,7 +717,8 @@ def time_kernels(mdta, block, gdfn, seam, reset):
                                  bound_ms=b, bound_by=by,
                                  library_ms=t["library_ms"])
             lib = t["library_ms"]
-            say(f"time {k:10s} per {path} forward (B{BATCH} 256x256 bf16): "
+            batch = paths[path][1]
+            say(f"time {k:10s} per {path} forward (B{batch} bf16): "
                 f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
                 f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound {b:.4f} "
                 f"ms by {by}")
@@ -468,11 +741,11 @@ def main() -> None:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         raise SystemExit(3)
     port, build, mdta, block, gdfn, seam = import_port()
+    from promptir_tpu_torch.precision import exact_float32
+
     for file in GOLDENS:
         if not (ROOT / "tests" / "goldens" / file).exists():
             fail(f"tests/goldens/{file} is missing")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     card = card_line()
     print(card, flush=True)
@@ -487,7 +760,9 @@ def main() -> None:
             print("    " + line.strip(), flush=True)
     build.lib()
 
-    kernels = (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam)
+    # in KERNELS' order
+    kernels = (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam,
+               mdta.ln_mdta)
 
     def counters():
         return [k.launches for k in kernels]
@@ -496,13 +771,18 @@ def main() -> None:
         for k in kernels:
             k.launches = 0
 
-    worst = check_kernels(mdta, block, gdfn, seam)
+    with exact_float32(torch.float32):
+        worst = check_kernels(mdta, block, gdfn, seam)
     for file in GOLDENS:
         check_golden(port, counters, file)
     launches = {}
     for path in PATHS:
         reset()
         launches[path] = serve(port, counters, reset, card, path)
+    check_grads(port, counters, reset)
+    launches["train"] = train(port, counters, reset, card)
+    demo()
+    reset()
     recs = time_kernels(mdta, block, gdfn, seam, reset)
 
     replaces = {
@@ -514,15 +794,18 @@ def main() -> None:
                     "promptir_tpu/ops/pallas/gdfn.py:536"),
         "seam": ("promptir_tpu_torch/csrc/seam.cu",
                  "promptir_tpu/ops/pallas/seam.py:222"),
+        "ln_mdta": ("promptir_tpu_torch/csrc/ln_mdta.cu",
+                    "promptir_tpu/ops/pallas/mdta.py:252"),
     }
     out = []
-    for i, (name, (src, rep)) in enumerate(replaces.items()):
+    for i, name in enumerate(KERNELS):
+        src, rep = replaces[name]
         r = recs[name]
         by_path = {p: dict(r["by_path"].get(p, {}), launches=launches[p][i])
-                   for p in PATHS}
+                   for p in launches}
         out.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
-            launches=sum(launches[p][i] for p in PATHS),
+            launches=sum(launches[p][i] for p in launches),
             max_abs_err=worst[name][torch.float32][0],
             max_rel_err=worst[name][torch.float32][1],
             max_abs_err_bf16=worst[name][torch.bfloat16][0],
@@ -531,6 +814,8 @@ def main() -> None:
             bound_by=r["bound_by"], library_ms=r["library_ms"],
             by_path=by_path,
         ))
+        if out[-1]["launches"] == 0:
+            fail(f"{name} was launched no time on the main paths")
     say(f"done in {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

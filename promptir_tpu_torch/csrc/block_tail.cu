@@ -5,7 +5,8 @@
 // _tail_kernel, sharing gdfn.py:403 ln_gdfn_stripe). This first form splits
 // the tail in two kernels at the hidden tensor:
 //   tail_a (pointwise): attn apply, out-projection, residual, LN2, W1 (C->2F);
-//          writes x2 and the hidden h, both in T;
+//          writes x2 and the hidden h, both in T. Its first two steps are
+//          attn_apply_project of mdta_apply.cuh, which ln_mdta.cu runs alone;
 //   tail_b (spatial tile with a 1-pixel halo of h): depthwise 3x3, the exact
 //          erf gate, W2 (F->C) and the residual x2. This is gdfn_out of
 //          gdfn.cuh, which ln_gdfn.cu shares, as it shares steps 3-4 of
@@ -29,6 +30,7 @@
 // (erff here is exact to a few ulp), the hybrid-MXU depthwise split and the
 // w % 8 gates.
 #include "gdfn.cuh"
+#include "mdta_apply.cuh"
 
 namespace {
 using namespace pk;
@@ -60,7 +62,7 @@ template <class T, int MP>
 __global__ void __launch_bounds__(kThreads) tail_a_kernel(TailArgs a) {
   constexpr int PT = 16 * MP;
   extern __shared__ float4 smem4[];
-  const int C = a.C, d = C / a.heads, HW = a.H * a.W, F2 = 2 * a.F, b = blockIdx.y;
+  const int C = a.C, HW = a.H * a.W, F2 = 2 * a.F, b = blockIdx.y;
   const long long pix0 = (long long)b * HW + (long long)blockIdx.x * PT;
   const int np = min(PT, HW - (int)blockIdx.x * PT);
   const T* v = static_cast<const T*>(a.v);
@@ -77,55 +79,10 @@ __global__ void __launch_bounds__(kThreads) tail_a_kernel(TailArgs a) {
   float* As = bufB + C * PT;
   float* Ws = As + kTileK * kLd;
   float* red = Ws + kTileK * kLd;  // kThreads partials + PT means + PT rstds
-  const int ng = threadIdx.x & 15, pg = threadIdx.x >> 4;
 
-  // 1. av[p, h d + i] = sum_j attn[b, h, i, j] v[p, h d + j], rounded through T
-  for (int hh = 0; hh < a.heads; ++hh) {
-    const float* at = a.attn + (long long)(b * a.heads + hh) * d * d;
-    for (int n0 = 0; n0 < d; n0 += kTileN) {
-      float acc[MP][4];
-      gemm_tile<MP>(
-          d,
-          [&](int k, int p) -> float {
-            return p < np ? to_f(v[(pix0 + p) * C + hh * d + k]) : 0.f;
-          },
-          [&](int k, int n) -> float { return n0 + n < d ? at[(n0 + n) * d + k] : 0.f; }, As,
-          Ws, acc);
-#pragma unroll
-      for (int i = 0; i < MP; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = n0 + ng + 16 * j;
-          if (n < d) bufA[(hh * d + n) * PT + pg + 16 * i] = round_t<T>(acc[i][j]);
-        }
-    }
-  }
-  __syncthreads();
-
-  // 2. x2 = x + W_proj av, rounded through T; kept here and written out
-  for (int n0 = 0; n0 < C; n0 += kTileN) {
-    float acc[MP][4];
-    gemm_tile<MP>(
-        C, [&](int k, int p) -> float { return bufA[k * PT + p]; },
-        [&](int k, int n) -> float {
-          return n0 + n < C ? to_f(wproj[(long long)(n0 + n) * C + k]) : 0.f;
-        },
-        As, Ws, acc);
-#pragma unroll
-    for (int i = 0; i < MP; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int p = pg + 16 * i, n = n0 + ng + 16 * j;
-        if (n >= C) continue;
-        float val = 0.f;
-        if (p < np) {
-          val = round_t<T>(to_f(x[(pix0 + p) * C + n]) + acc[i][j]);
-          x2g[(pix0 + p) * C + n] = from_f<T>(val);
-        }
-        bufB[n * PT + p] = val;
-      }
-  }
-  __syncthreads();
+  // 1-2. av = attn v, then x2 = x + W_proj av: written out and kept in bufB
+  attn_apply_project<T, MP, true>(v, x, a.attn, wproj, x2g, b, C, a.heads, pix0, np, bufA,
+                                  bufB, As, Ws);
 
   // 3. LN2 over the C channels of each pixel (two-pass, fp32) -> bufA
   ln_tile<T, PT>(bufB, bufA, red, C, lnw, lnb, a.bias_free, a.eps);

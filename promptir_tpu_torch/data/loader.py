@@ -1,0 +1,115 @@
+"""Host-side batch loader: a threaded producer of pinned tensors.
+
+Counterpart of promptir_tpu/data/loader.py, which double-buffers batches
+onto the TPU. Here worker threads decode and degrade the samples, a
+producer thread stacks them into CPU tensors (in pinned memory when the
+caller trains on the card, so the copy to the card can run asynchronously)
+and keeps PREFETCH batches ahead of the training loop.
+
+Determinism: the sample order of an epoch is a shuffle seeded by
+(seed, epoch) and every noise draw derives from (seed, epoch, index), as in
+the JAX loader, so the same seed gives the same batches in both packages.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+import torch
+
+PREFETCH = 2  # batches made ahead of the training loop
+
+class TrainLoader:
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        seed: int = 0,
+        shuffle: bool = True,
+        num_workers: int = 4,
+        pin_memory: bool = False,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.shuffle = shuffle
+        self.num_workers = num_workers
+        self.pin_memory = pin_memory
+
+    def __len__(self) -> int:
+        """Full batches of an epoch; the last partial one is dropped."""
+        return len(self.dataset) // self.batch_size
+
+    def order(self, epoch: int) -> np.ndarray:
+        """The sample order of `epoch` (loader.py:52)."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng((self.seed, epoch)).shuffle(order)
+        return order
+
+    def epoch(self, epoch: int) -> Iterator[dict]:
+        """Yield batches {de_type (B,) int32, degraded and clean (B, H, W, 3)
+        float32} of CPU tensors for one epoch."""
+        order = self.order(epoch)
+        nb = len(self)
+
+        def make_batch(b: int) -> dict:
+            idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+            de, deg, cln = [], [], []
+            for i in idxs:
+                rng = np.random.default_rng((self.seed, epoch, int(i)))
+                d, x, y = self.dataset.get(int(i), rng)
+                de.append(d)
+                deg.append(x)
+                cln.append(y)
+            batch = {
+                "de_type": torch.from_numpy(np.asarray(de, np.int32)),
+                "degraded": torch.from_numpy(np.stack(deg)),
+                "clean": torch.from_numpy(np.stack(cln)),
+            }
+            if self.pin_memory:
+                batch = {k: v.pin_memory() for k, v in batch.items()}
+            return batch
+
+        q: queue.Queue = queue.Queue(maxsize=PREFETCH)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # gives up once the consumer has stopped, so the thread ends
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    futures = [pool.submit(make_batch, b) for b in range(nb)]
+                    for f in futures:
+                        if not put(f.result()):
+                            for g in futures:
+                                g.cancel()
+                            return
+                put(None)
+            except BaseException as e:  # handed to the consumer, which raises it
+                put(e)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()

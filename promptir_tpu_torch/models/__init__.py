@@ -26,8 +26,14 @@ def available_models():
     return sorted(_REGISTRY)
 
 
-def create_model(name: str, *, device="cuda", dtype=torch.float32, **kwargs):
-    """Build model `name` on `device` (default the card) in `dtype`.
+def create_model(name: str, *, device="cuda", dtype=torch.float32,
+                 train: bool = False, **kwargs):
+    """Build model `name` on `device` (default the card) computing in `dtype`.
+
+    For serving (`train=False`) the weights are stored in `dtype` and the
+    model is in eval mode. For training the weights stay float32 (the
+    optimizer's master weights) and the forward computes in `dtype`, as the
+    JAX models do with `dtype=bfloat16`; the model is in train mode.
 
     Raises when `device` is a CUDA device and no card is present: the port
     never falls back to the CPU unless the caller asks for it.
@@ -42,7 +48,12 @@ def create_model(name: str, *, device="cuda", dtype=torch.float32, **kwargs):
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the plain versions"
         )
-    return _REGISTRY[name](**kwargs).to(device=device, dtype=dtype).eval()
+    model = _REGISTRY[name](**kwargs)
+    if not train:
+        return model.to(device=device, dtype=dtype).eval()
+    model = model.to(device=device, dtype=torch.float32).train()
+    model.compute_dtype = dtype
+    return model
 
 
 from promptir_tpu_torch.models import promptir as _promptir  # noqa: E402,F401

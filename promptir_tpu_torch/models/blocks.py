@@ -3,27 +3,47 @@
 Counterpart of promptir_tpu/models/blocks.py. A block computes
   x2 = x + MDTA(LN1(x));  out = x2 + GDFN(LN2(x2)).
 `block_forward` replaces the JAX package's `fused_block_apply` and
-`apply_block_stack`: every block runs the stats pass, the tiny softmax and
-the tail on NHWC views of its channels_last input. It takes the block's
-four modules explicitly, so the X-Restormer block's channel half (norm1,
-channel_attn, norm2, channel_ffn) runs through it too. `gdfn_forward`
-replaces `fused_gdfn_apply` (blocks.py:188): x + GDFN(LN(x)) through the
-LN+GDFN kernel. A tensor on the card always goes through the kernels; a
-tensor on the CPU through their plain versions. There is no fit gate and
-no fallback on the card.
+`apply_block_stack`, on NHWC views of a channels_last input. It takes the
+block's four modules explicitly, so the X-Restormer block's channel half
+(norm1, channel_attn, norm2, channel_ffn) runs through it too. It has two
+routes, chosen by what the caller asks of autograd:
+  * inference (no gradient recorded): the stats kernel, the tiny softmax and
+    the block tail, the whole-block route (`ln_block`, autodiff.py:286);
+  * training (autograd records, and the input or a weight of the block
+    requires grad): the per-branch route of blocks.py:174-185, `LnMdta`
+    (stats, softmax, the apply kernel) then `LnGdfn`. Each saves only its
+    input and weights and recomputes its branch in the backward, so x2 is
+    the saved boundary between the two branches' backward passes and no
+    backward recompute spans the whole block.
+The JAX package picks between its routes by whether a stripe fits VMEM
+(autodiff.py:256 block_fits). A Hopper block has no VMEM budget to copy;
+the port picks by mode, and never falls back.
+`gdfn_forward` replaces `fused_gdfn_apply` (blocks.py:188): x + GDFN(LN(x))
+through the LN+GDFN kernel, under `LnGdfn` when autograd records.
+Weights are cast to the activations' dtype at use, so a model with float32
+weights can compute in bfloat16. A tensor on the card always goes through
+the kernels; a tensor on the CPU through their plain versions.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from promptir_tpu_torch.ops.attention import MDTA
+from promptir_tpu_torch.ops.autodiff import LnGdfn, LnMdta
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.cuda.block import block_tail
 from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn
 from promptir_tpu_torch.ops.cuda.mdta import attn_from_stats, mdta_stats
 from promptir_tpu_torch.ops.gdfn import GDFN
 from promptir_tpu_torch.ops.norm import LayerNorm
+
+
+def records_grad(*tensors) -> bool:
+    """True when autograd records and one of the tensors requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def nhwc(x):
@@ -36,30 +56,37 @@ def nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
+def _cast(dt, *ws):
+    return [None if t is None else t.to(dt) for t in ws]
+
+
 def block_forward(norm1: LayerNorm, attn: MDTA, norm2: LayerNorm, ffn: GDFN,
                   xh):
-    """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)) on NHWC `xh`:
-    stats kernel -> attn_from_stats -> tail."""
-    v, stats = mdta_stats(
-        xh, norm1.body.weight, norm1.body.bias, attn.qkv.weight,
-        attn.qkv_dwconv.weight, attn.num_heads, bias_free=norm1.bias_free,
-        eps=norm1.eps,
-    )
+    """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)) on NHWC `xh`."""
+    wa = (norm1.body.weight, norm1.body.bias, attn.qkv.weight,
+          attn.qkv_dwconv.weight, attn.project_out.weight)
+    wf = (norm2.body.weight, norm2.body.bias, ffn.project_in.weight,
+          ffn.dwconv.weight, ffn.project_out.weight)
+    if records_grad(xh, *wa, attn.temperature, *wf):
+        x2 = LnMdta.apply(xh, *wa, attn.temperature, attn.num_heads,
+                          norm1.bias_free, norm1.eps)
+        return LnGdfn.apply(x2, *wf, norm2.bias_free, norm2.eps)
+    lnw, lnb, wqkv, wdw, wproj = _cast(xh.dtype, *wa)
+    v, stats = mdta_stats(xh, lnw, lnb, wqkv, wdw, attn.num_heads,
+                          bias_free=norm1.bias_free, eps=norm1.eps)
     a = attn_from_stats(stats, attn.temperature)
-    return block_tail(
-        v, xh, a, attn.project_out.weight, norm2.body.weight, norm2.body.bias,
-        ffn.project_in.weight, ffn.dwconv.weight, ffn.project_out.weight,
-        bias_free=norm2.bias_free, eps=norm2.eps,
-    )
+    return block_tail(v, xh, a, wproj, *_cast(xh.dtype, *wf),
+                      bias_free=norm2.bias_free, eps=norm2.eps)
 
 
 def gdfn_forward(norm: LayerNorm, ffn: GDFN, xh):
     """x + GDFN(LN(x)) on NHWC `xh` through the LN+GDFN kernel."""
-    return ln_gdfn(
-        xh, norm.body.weight, norm.body.bias, ffn.project_in.weight,
-        ffn.dwconv.weight, ffn.project_out.weight, bias_free=norm.bias_free,
-        eps=norm.eps,
-    )
+    ws = (norm.body.weight, norm.body.bias, ffn.project_in.weight,
+          ffn.dwconv.weight, ffn.project_out.weight)
+    if records_grad(xh, *ws):
+        return LnGdfn.apply(xh, *ws, norm.bias_free, norm.eps)
+    return ln_gdfn(xh, *_cast(xh.dtype, *ws), bias_free=norm.bias_free,
+                   eps=norm.eps)
 
 
 class TransformerBlock(nn.Module):

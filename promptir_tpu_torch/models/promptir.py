@@ -14,7 +14,12 @@ dict loads with `load_state_dict(strict=True)`:
 
 Activations are NCHW in channels_last memory, so the blocks' kernels see
 contiguous NHWC views. The level-1 decoder entry runs through the seam
-kernel: up2_1's conv, then pixel-shuffle and the skip concat in one pass.
+kernel (under `Seam`, which carries its gradient): up2_1's conv, then
+pixel-shuffle and the skip concat in one pass.
+
+The forward computes in the model's `compute_dtype` when it has one (a
+model for training: float32 weights, bfloat16 activations, as the JAX
+model with `dtype=bfloat16`; precision.py), else in the weights' dtype.
 """
 
 from __future__ import annotations
@@ -31,11 +36,12 @@ from promptir_tpu_torch.models.blocks import (
     nchw,
     nhwc,
 )
+from promptir_tpu_torch.ops.autodiff import Seam
 from promptir_tpu_torch.ops.conv import Conv
-from promptir_tpu_torch.ops.cuda.seam import seam
 from promptir_tpu_torch.ops.embed import OverlapPatchEmbed
 from promptir_tpu_torch.ops.prompt import PromptGenBlock
 from promptir_tpu_torch.ops.resample import Downsample, FewChannelConv3, Upsample
+from promptir_tpu_torch.precision import compute_dtype
 
 
 class PromptIR(nn.Module):
@@ -99,7 +105,7 @@ class PromptIR(nn.Module):
     def forward(self, inp_img):
         """inp_img: (B, 3, H, W) float, H and W multiples of 8. Returns the
         restored image in float32."""
-        dt = self.output.weight.dtype
+        dt = compute_dtype(self)
         inp = inp_img.to(dt).contiguous(memory_format=torch.channels_last)
         cat = torch.cat
 
@@ -121,7 +127,7 @@ class PromptIR(nn.Module):
         x = self.noise_level1(cat([x, self.prompt1(x)], 1))
         x = self.reduce_noise_level1(x)
         # up2_1's conv, then pixel-shuffle + skip concat in one seam pass
-        x = nchw(seam(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
+        x = nchw(Seam.apply(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
         x = self.refinement(self.decoder_level1(x))
         return (self.output(x) + inp).float()
 

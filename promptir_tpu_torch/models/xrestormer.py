@@ -37,6 +37,7 @@ from promptir_tpu_torch.ops.gdfn import GDFN
 from promptir_tpu_torch.ops.norm import LayerNorm, layernorm_nhwc
 from promptir_tpu_torch.ops.ocab import OCAB
 from promptir_tpu_torch.ops.resample import Downsample, FewChannelConv3, Upsample
+from promptir_tpu_torch.precision import compute_dtype
 
 
 class XTransformerBlock(nn.Module):
@@ -127,7 +128,7 @@ class XRestormer(nn.Module):
         if h % m or w % m:
             raise ValueError(f"{type(self).__name__}: H and W must be multiples "
                              f"of {m} (8x8 windows at 1/8 scale), got {h}x{w}")
-        dt = self.output.weight.dtype
+        dt = compute_dtype(self)
         inp = inp_img.to(dt).contiguous(memory_format=torch.channels_last)
         cat = torch.cat
 

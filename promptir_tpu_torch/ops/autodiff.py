@@ -1,0 +1,147 @@
+"""Autograd for the kernels of the training path.
+
+Counterpart of promptir_tpu/ops/pallas/autodiff.py. The kernels are
+forward-only. Each Function below runs its kernel in the forward (for a CPU
+tensor, the kernel's plain version) and saves only its inputs and weights.
+Its backward recomputes the plain composition from those under
+`torch.enable_grad()` and differentiates it with `torch.autograd.grad`, so
+the gradients are those of the unfused composition, as `jax.vjp` of the XLA
+composition gives them in the JAX package:
+  * `LnMdta`: x + MDTA(LN(x)) through ops/cuda/mdta.py:ln_mdta; backward
+    through `plain_ln_mdta` (xla_ln_mdta, autodiff.py:89);
+  * `LnGdfn`: x + GDFN(LN(x)) through ops/cuda/gdfn.py:ln_gdfn; backward
+    through `plain_ln_gdfn` (xla_ln_gdfn, autodiff.py:78);
+  * `Seam`: the decoder level-1 seam through ops/cuda/seam.py:seam; backward
+    through `seam_plain` (_xla_seam, seam.py:137), i.e. the inverse data
+    movement.
+
+The compositions run the depthwise 3x3 as a grouped `F.conv2d`, not as nine
+shifted multiply-adds: differentiating the shifted form costs some 27
+passes over the hidden tensor (autodiff.py:56-76).
+
+Mixed precision: a weight that arrives in float32 while x is bfloat16 is
+cast to x's dtype inside the forward and inside the recomputed composition,
+so its gradient returns in float32.
+
+The JAX package ties each block's saved inputs to the incoming cotangent
+with an optimization barrier (`_serialize_on`), so that XLA does not hoist
+every block's recompute ahead of the backward chain. Eager autograd has no
+such reordering and needs no barrier: it runs the block backwards one after
+the other, each recompute when its cotangent arrives.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from promptir_tpu_torch.ops.conv import dwconv3x3_nhwc
+from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn
+from promptir_tpu_torch.ops.cuda.mdta import ln_mdta
+from promptir_tpu_torch.ops.cuda.seam import seam, seam_plain
+from promptir_tpu_torch.ops.norm import layernorm_nhwc
+
+
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+def plain_ln_mdta(x, lnw, lnb, wqkv, wdw, wproj, temp, num_heads: int,
+                  bias_free: bool = False, eps: float = 1e-5):
+    """Unfused x + MDTA(LN(x)) on NHWC `x`, with the rounding points of the
+    JAX composition: L2 norms, Gram and softmax in float32, the normalized
+    q and k, attn and attn v in x's dtype."""
+    b, h, w, c = x.shape
+    d = c // num_heads
+    dt = x.dtype
+    y = layernorm_nhwc(x, lnw, lnb, bias_free=bias_free, eps=eps)
+    qkv = y @ wqkv.to(dt).reshape(3 * c, c).t()
+    qkv = dwconv3x3_nhwc(qkv, wdw.to(dt))
+    q, k, v = (t.reshape(b, h * w, num_heads, d) for t in qkv.split(c, dim=-1))
+
+    def l2norm(t):
+        sq = t.float().square().sum(1, keepdim=True)
+        return t * torch.rsqrt(sq.clamp_min(1e-24)).to(dt)
+
+    attn = torch.einsum("bshi,bshj->bhij", l2norm(q).float(), l2norm(k).float())
+    attn = attn * temp.float().reshape(1, num_heads, 1, 1)
+    attn = attn.softmax(dim=-1).to(dt)
+    o = torch.einsum("bhij,bshj->bshi", attn.float(), v.float()).to(dt)
+    return x + o.reshape(b, h, w, c) @ wproj.to(dt).reshape(c, c).t()
+
+
+def plain_ln_gdfn(x, lnw, lnb, w1, wdw, w2, bias_free: bool = False,
+                  eps: float = 1e-5):
+    """Unfused x + GDFN(LN(x)) on NHWC `x`, every step in x's dtype."""
+    c = x.shape[-1]
+    f = w2.reshape(c, -1).shape[1]
+    dt = x.dtype
+    y = layernorm_nhwc(x, lnw, lnb, bias_free=bias_free, eps=eps)
+    hid = y @ w1.to(dt).reshape(2 * f, c).t()
+    g1, g2 = dwconv3x3_nhwc(hid, wdw.to(dt)).split(f, dim=-1)
+    return x + (F.gelu(g1) * g2) @ w2.to(dt).reshape(c, f).t()
+
+
+def _recompute_grads(ctx, fn, grad_out, *config):
+    """Gradients of fn(*saved, *config) for the inputs that need them."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[:len(saved)]
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip(saved, need)]
+        out = fn(*ins, *config)
+        wrt = [t for t, n in zip(ins, need) if n]
+        grads = iter(torch.autograd.grad(out, wrt, grad_out.to(out.dtype)))
+    return [next(grads) if n else None for n in need]
+
+
+class LnMdta(torch.autograd.Function):
+    """x + MDTA(LN(x)): the stats and apply kernels forward, the plain
+    composition's gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, lnw, lnb, wqkv, wdw, wproj, temp, num_heads,
+                bias_free, eps):
+        ctx.config = (num_heads, bias_free, eps)
+        ctx.save_for_backward(x, lnw, lnb, wqkv, wdw, wproj, temp)
+        dt = x.dtype
+        return ln_mdta(x, lnw.to(dt), _cast(lnb, dt), wqkv.to(dt), wdw.to(dt),
+                       wproj.to(dt), temp, num_heads, bias_free=bias_free,
+                       eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _recompute_grads(ctx, plain_ln_mdta, g, *ctx.config)
+        return (*grads, None, None, None)
+
+
+class LnGdfn(torch.autograd.Function):
+    """x + GDFN(LN(x)): the LN+GDFN kernels forward, the plain composition's
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, lnw, lnb, w1, wdw, w2, bias_free, eps):
+        ctx.config = (bias_free, eps)
+        ctx.save_for_backward(x, lnw, lnb, w1, wdw, w2)
+        dt = x.dtype
+        return ln_gdfn(x, lnw.to(dt), _cast(lnb, dt), w1.to(dt), wdw.to(dt),
+                       w2.to(dt), bias_free=bias_free, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _recompute_grads(ctx, plain_ln_gdfn, g, *ctx.config)
+        return (*grads, None, None)
+
+
+class Seam(torch.autograd.Function):
+    """[pixel_shuffle(y) | skip]: the seam kernel forward, the inverse data
+    movement (the gradient of `seam_plain`) backward."""
+
+    @staticmethod
+    def forward(ctx, y, skip):
+        ctx.save_for_backward(y, skip)
+        return seam(y, skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(_recompute_grads(ctx, seam_plain, g))

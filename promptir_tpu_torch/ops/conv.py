@@ -17,6 +17,13 @@ class Conv(nn.Conv2d):
                  groups: int = 1):
         super().__init__(cin, cout, k, padding=k // 2, bias=bias, groups=groups)
 
+    def forward(self, x):
+        """The convolution in x's dtype: the float32 weights of a model that
+        computes in bfloat16 are cast at use, as a flax module with
+        `dtype=bfloat16` casts its float32 params (a no-op when they match)."""
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), b)
+
 
 def dwconv3x3_nhwc(h, taps):
     """Depthwise 3x3 with zero padding of NHWC `h`; taps: (F, 9) or (F,1,3,3)."""

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from promptir_tpu_torch.ops.conv import dwconv3x3_nhwc
 from promptir_tpu_torch.ops.cuda import build
-from promptir_tpu_torch.ops.cuda.mdta import SMEM_LIMIT
+from promptir_tpu_torch.ops.cuda.mdta import SMEM_LIMIT, mdta_apply_plain
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
 
 _P = ctypes.c_void_p
@@ -41,12 +41,13 @@ def _launch(v, x, attn, wproj, lnw, lnb, w1, wdw, w2, bias_free, eps):
     out = torch.empty_like(x)
     fn = build.function("block_tail_launch",
                         [_I] + [_P] * 12 + [_I] * 7 + [ctypes.c_float, _P])
-    code = fn(build.dtype_code(x), v.data_ptr(), x.data_ptr(), attn.data_ptr(),
-              wproj.data_ptr(), lnw.data_ptr(),
-              None if lnb is None else lnb.data_ptr(), w1.data_ptr(),
-              wdw.data_ptr(), w2.data_ptr(), x2.data_ptr(), hid.data_ptr(),
-              out.data_ptr(), b, h, w, c, heads, f, int(bias_free), eps,
-              build.stream_of(x))
+    with build.on_card_of(x):
+        code = fn(build.dtype_code(x), v.data_ptr(), x.data_ptr(),
+                  attn.data_ptr(), wproj.data_ptr(), lnw.data_ptr(),
+                  None if lnb is None else lnb.data_ptr(), w1.data_ptr(),
+                  wdw.data_ptr(), w2.data_ptr(), x2.data_ptr(), hid.data_ptr(),
+                  out.data_ptr(), b, h, w, c, heads, f, int(bias_free), eps,
+                  build.stream_of(x))
     build.check(code, "block_tail")
     return out
 
@@ -93,17 +94,14 @@ def block_tail_plain(v, x, attn, w_proj, ln_w, ln_b, w1, w_dw, w2, *,
                      bias_free: bool = False, eps: float = 1e-5):
     """The same function in plain PyTorch (fp32 arithmetic, the kernels'
     rounding points)."""
-    b, h, w, c = x.shape
-    heads, d = attn.shape[1], attn.shape[2]
+    c = x.shape[-1]
     f = w2.shape[1]
     dt = x.dtype
 
     def rt(t):
         return t.to(dt).float()
 
-    vh = v.float().reshape(b, h * w, heads, d)
-    av = rt(torch.einsum("bhij,bphj->bphi", attn.float(), vh).reshape(b, h, w, c))
-    x2 = rt(x.float() + av @ w_proj.reshape(c, c).float().t())
+    x2 = mdta_apply_plain(v, x, attn, w_proj).float()
     y2 = rt(layernorm_nhwc(x2, ln_w, ln_b, bias_free=bias_free, eps=eps))
     hid = rt(y2 @ w1.reshape(2 * f, c).float().t())
     g1, g2 = dwconv3x3_nhwc(hid, w_dw.reshape(2 * f, 9).float()).split(f, dim=-1)

@@ -136,9 +136,14 @@ def dtype_code(t) -> int:
 
 def stream_of(t) -> int:
     """The current CUDA stream on t's card, as the launchers take it."""
-    if t.device.index not in (None, 0):
-        raise NotImplementedError("the kernels launch on card 0 only")
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_card_of(t):
+    """Context that makes t's card the current device around a launch: the
+    launchers start their kernels, and set their shared-memory limit
+    (common.cuh:allow_smem), on the current device."""
+    return torch.cuda.device(t.device)
 
 
 def check(code: int, what: str) -> None:

@@ -48,10 +48,12 @@ def _launch(x, lnw, lnb, w1, wdw, w2, bias_free, eps):
     fn = build.function("ln_gdfn_launch",
                         [_I] + [_P] * 8 + [_I] * 6
                         + [ctypes.c_float, ctypes.c_longlong, _P])
-    code = fn(build.dtype_code(x), x.data_ptr(), lnw.data_ptr(),
-              None if lnb is None else lnb.data_ptr(), w1.data_ptr(),
-              wdw.data_ptr(), w2.data_ptr(), hid.data_ptr(), out.data_ptr(),
-              b, h, w, c, f, int(bias_free), eps, smem, build.stream_of(x))
+    with build.on_card_of(x):
+        code = fn(build.dtype_code(x), x.data_ptr(), lnw.data_ptr(),
+                  None if lnb is None else lnb.data_ptr(), w1.data_ptr(),
+                  wdw.data_ptr(), w2.data_ptr(), hid.data_ptr(),
+                  out.data_ptr(), b, h, w, c, f, int(bias_free), eps, smem,
+                  build.stream_of(x))
     build.check(code, "ln_gdfn")
     return out
 

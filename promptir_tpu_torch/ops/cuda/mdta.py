@@ -1,4 +1,4 @@
-"""MDTA statistics pass (kernel 1 of a TransformerBlock) and its softmax.
+"""MDTA: the statistics pass, its softmax, and the apply pass.
 
 `mdta_stats` replaces promptir_tpu/ops/pallas/mdta.py:317 mdta_stats:
 LN1 -> 1x1 qkv -> depthwise 3x3 of an NHWC input, writing v and the
@@ -7,9 +7,15 @@ never reach memory. The kernel is csrc/mdta_stats.cu. `attn_from_stats`
 (promptir_tpu/ops/pallas/mdta.py:211) is the tiny softmax over those
 statistics and stays plain PyTorch.
 
-Rounding points, shared by the kernel and the plain version: LN1's output
+`ln_mdta` replaces promptir_tpu/ops/pallas/mdta.py:252 fused_ln_mdta,
+x + MDTA(LN(x)): the stats kernel, the softmax, then `mdta_apply`, whose
+kernel (csrc/ln_mdta.cu) computes x2 = x + W_proj (attn v) and counts its
+launches in `ln_mdta.launches`.
+
+Rounding points, shared by the kernels and the plain versions: LN1's output
 is rounded to x's dtype; qkv and the taps stay fp32; v is rounded to x's
-dtype; the Gram and norms are fp32 sums. In float32 this is the unfused
+dtype; the Gram and norms are fp32 sums; attn v is rounded to x's dtype and
+the projection is an fp32 product. In float32 this is the unfused
 composition exactly.
 """
 
@@ -27,6 +33,11 @@ from promptir_tpu_torch.ops.norm import layernorm_nhwc
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may opt in to
 GEMM_STAGE_FLOATS = 2 * 32 * 65  # gemm_tile's two kTileK x kLd staging tiles
 QKV_CHUNK = 64  # qkv rows of one product pass (kTileN)
+# The stats pass's slots (see stats_slots): at least STATS_BLOCKS blocks over
+# all images and heads (two per SM of the H100's 132), and more, up to one a
+# tile, while their partial Grams fit STATS_BUDGET bytes.
+STATS_BLOCKS = 264
+STATS_BUDGET = 128 << 20
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +69,28 @@ def stats_smem(c: int, num_heads: int) -> int:
     return (pi * 2 * d + ph * QKV_CHUNK + GEMM_STAGE_FLOATS + 2 * ph) * 4 + ph * 4
 
 
+def stats_slots(b: int, h: int, w: int, c: int, num_heads: int) -> int:
+    """Slots of one (image, head): the stats blocks of it, each summing the
+    tiles slot, slot + nslots, ... into its own partial Gram. One a tile
+    while the partial Grams fit STATS_BUDGET (every narrow head), else
+    enough for about STATS_BLOCKS blocks: the buffer is at most
+    max(STATS_BUDGET, (STATS_BLOCKS + b * heads) slots) and does not grow
+    with the image."""
+    d = c // num_heads
+    th, tw = stats_tile(d)
+    tiles = -(-h // th) * -(-w // tw)
+    per_slot = 4 * b * num_heads * (d * d + 2 * d)
+    return min(tiles, max(-(-STATS_BLOCKS // (b * num_heads)),
+                          STATS_BUDGET // per_slot))
+
+
+def stats_partial_bytes(b: int, h: int, w: int, c: int, num_heads: int) -> int:
+    """Bytes of the kernel's partial-Gram buffer (B, heads, nslots, d^2 + 2d)
+    fp32 for an input of (b, h, w, c)."""
+    d = c // num_heads
+    return 4 * b * num_heads * stats_slots(b, h, w, c, num_heads) * (d * d + 2 * d)
+
+
 def _launch(x, lnw, lnb, wqkv, wdw, num_heads, bias_free, eps):
     b, h, w, c = x.shape
     d = c // num_heads
@@ -66,22 +99,21 @@ def _launch(x, lnw, lnb, wqkv, wdw, num_heads, bias_free, eps):
     if smem > SMEM_LIMIT:
         raise ValueError(f"mdta_stats: C={c}, heads={num_heads} needs {smem} "
                          f"bytes of shared memory (> {SMEM_LIMIT})")
-    tiles = -(-h // th) * -(-w // tw)
+    nslots = stats_slots(b, h, w, c, num_heads)
     n = d * d + 2 * d
     v = torch.empty_like(x)
-    # partial Grams and norms of every tile: 381 MB at B = 4, (32, 32, 704),
-    # one head (48 tiles of 4 x 6 pixels)
-    part = torch.empty((b, num_heads, tiles, n), device=x.device,
+    part = torch.empty((b, num_heads, nslots, n), device=x.device,
                        dtype=torch.float32)
     stats = torch.empty((b, num_heads, n), device=x.device, dtype=torch.float32)
     fn = build.function("mdta_stats_launch",
-                        [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 8
+                        [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9
                         + [ctypes.c_float, ctypes.c_longlong, _P])
-    code = fn(build.dtype_code(x), x.data_ptr(), lnw.data_ptr(),
-              None if lnb is None else lnb.data_ptr(), wqkv.data_ptr(),
-              wdw.data_ptr(), v.data_ptr(), part.data_ptr(), stats.data_ptr(),
-              b, h, w, c, num_heads, th, tw, int(bias_free), eps, smem,
-              build.stream_of(x))
+    with build.on_card_of(x):
+        code = fn(build.dtype_code(x), x.data_ptr(), lnw.data_ptr(),
+                  None if lnb is None else lnb.data_ptr(), wqkv.data_ptr(),
+                  wdw.data_ptr(), v.data_ptr(), part.data_ptr(),
+                  stats.data_ptr(), b, h, w, c, num_heads, th, tw, nslots,
+                  int(bias_free), eps, smem, build.stream_of(x))
     build.check(code, "mdta_stats")
     return v, stats
 
@@ -149,3 +181,85 @@ def attn_from_stats(stats, temperature):
     logits = gram / (nq[..., :, None] * nk[..., None, :])
     logits = logits * temperature.float().reshape(1, heads, 1, 1)
     return logits.softmax(dim=-1)
+
+
+def apply_mp(c: int) -> int:
+    """16-pixel groups of one apply block's tile: 64 pixels up to C = 256,
+    else 32 (more blocks for the narrow deep levels), as block_tail's
+    tail_a."""
+    return 4 if c <= 256 else 2
+
+
+def ln_mdta_smem(c: int) -> int:
+    """Shared-memory bytes of one apply block: attn v of its pixels (C x 16
+    mp fp32) and the product staging tiles (csrc/ln_mdta.cu)."""
+    return (c * 16 * apply_mp(c) + GEMM_STAGE_FLOATS) * 4
+
+
+def mdta_apply(v, x, attn, w_proj):
+    """x2 = x + W_proj (attn v) on NHWC tensors: the apply kernel alone.
+
+    v, x: (B, H, W, C); attn: (B, heads, d, d) float32 from
+    `attn_from_stats`; w_proj: (C, C[,1,1]). Returns (B, H, W, C) in x's
+    dtype. A launch counts in `ln_mdta.launches`.
+    """
+    b, h, w, c = x.shape
+    wproj = w_proj.reshape(c, c)
+    if x.device.type == "cpu":
+        return mdta_apply_plain(v, x, attn, wproj)
+    heads = attn.shape[1]
+    if (v.shape != x.shape or attn.dtype != torch.float32
+            or attn.shape != (b, heads, c // heads, c // heads)):
+        raise ValueError("mdta_apply: v must match x and attn be (B, heads, "
+                         "d, d) float32")
+    for t in (v, wproj):
+        if t.device != x.device or t.dtype != x.dtype:
+            raise TypeError("mdta_apply: v and w_proj must match x's device "
+                            "and dtype")
+    if attn.device != x.device:
+        raise TypeError("mdta_apply: attn must be on x's device")
+    smem = ln_mdta_smem(c)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"mdta_apply: C={c} needs {smem} bytes of shared "
+                         f"memory (> {SMEM_LIMIT})")
+    v, x, attn, wproj = (t.contiguous() for t in (v, x, attn, wproj))
+    x2 = torch.empty_like(x)
+    fn = build.function("ln_mdta_launch", [_I] + [_P] * 5 + [_I] * 6
+                        + [ctypes.c_longlong, _P])
+    with build.on_card_of(x):
+        code = fn(build.dtype_code(x), v.data_ptr(), x.data_ptr(),
+                  attn.data_ptr(), wproj.data_ptr(), x2.data_ptr(), b, h, w,
+                  c, heads, apply_mp(c), smem, build.stream_of(x))
+    build.check(code, "ln_mdta")
+    ln_mdta.launches += 1
+    return x2
+
+
+def mdta_apply_plain(v, x, attn, w_proj):
+    """The same function in plain PyTorch (fp32 arithmetic, the kernel's
+    rounding points)."""
+    b, h, w, c = x.shape
+    heads, d = attn.shape[1], attn.shape[2]
+    dt = x.dtype
+    vh = v.float().reshape(b, h * w, heads, d)
+    av = torch.einsum("bhij,bphj->bphi", attn.float(), vh).reshape(b, h, w, c)
+    av = av.to(dt).float()
+    return (x.float() + av @ w_proj.reshape(c, c).float().t()).to(dt)
+
+
+def ln_mdta(x, ln_w, ln_b, w_qkv, w_dw, w_proj, temperature, num_heads: int,
+            *, bias_free: bool = False, eps: float = 1e-5):
+    """x + MDTA(LN(x)) on NHWC `x` (B, H, W, C), float32 or bfloat16: the
+    stats pass, the softmax, the apply pass.
+
+    ln_w, ln_b: (C,) (ln_b unused when bias_free); w_qkv: (3C, C[,1,1]);
+    w_dw: (3C, 1, 3, 3) or (3C, 9); w_proj: (C, C[,1,1]); temperature:
+    (heads[, 1, 1]). Weights in x's dtype (the temperature in any). On the
+    CPU each pass runs its plain version.
+    """
+    v, stats = mdta_stats(x, ln_w, ln_b, w_qkv, w_dw, num_heads,
+                          bias_free=bias_free, eps=eps)
+    return mdta_apply(v, x, attn_from_stats(stats, temperature), w_proj)
+
+
+ln_mdta.launches = 0

@@ -34,8 +34,9 @@ def seam(y, skip):
     out = torch.empty((b, 2 * hc, 2 * wc, 2 * c), device=y.device,
                       dtype=y.dtype)
     fn = build.function("seam_launch", [_I, _P, _P, _P] + [_I] * 4 + [_P])
-    code = fn(build.dtype_code(y), y.data_ptr(), skip.data_ptr(),
-              out.data_ptr(), b, 2 * hc, 2 * wc, c, build.stream_of(y))
+    with build.on_card_of(y):
+        code = fn(build.dtype_code(y), y.data_ptr(), skip.data_ptr(),
+                  out.data_ptr(), b, 2 * hc, 2 * wc, c, build.stream_of(y))
     build.check(code, "seam")
     seam.launches += 1
     return out

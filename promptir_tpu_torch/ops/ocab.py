@@ -93,7 +93,7 @@ class OCAB(nn.Module):
         nwin = nh * nw
         dt = x.dtype
 
-        qkv = F.linear(x, self.qkv.weight.reshape(3 * inner, c))
+        qkv = F.linear(x, self.qkv.weight.reshape(3 * inner, c).to(dt))
         qs, ks, vs = qkv.split(inner, dim=-1)
         qs = qs.reshape(b, nh, win, nw, win, inner).permute(0, 1, 3, 2, 4, 5)
         # channel = head * d + c (the reference's '(head c)')
@@ -109,4 +109,4 @@ class OCAB(nn.Module):
         out = torch.einsum("bwhqk,bwkhd->bwqhd", attn.float(), vs.float()).to(dt)
         out = out.reshape(b, nh, nw, win, win, inner).permute(0, 1, 3, 2, 4, 5)
         out = out.reshape(b, h, w, inner)
-        return F.linear(out, self.project_out.weight.reshape(c, inner))
+        return F.linear(out, self.project_out.weight.reshape(c, inner).to(dt))

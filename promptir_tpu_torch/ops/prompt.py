@@ -4,7 +4,10 @@ Counterpart of promptir_tpu/ops/prompt.py (reference
 net/model.py:218-235). softmax(Linear(GAP(x))) mixes a
 learned bank of `prompt_len` maps (uniform [0, 1) init); the mixture is
 resized bilinearly to the feature size and passed through a bias-free 3x3
-conv. The mixing and the resize run in float32.
+conv. Rounding points as the JAX module's (promptir_tpu/ops/prompt.py:36-38,
+63-67): the GAP (an fp32 mean) and the Linear in x's dtype, the softmax
+and the mix in float32, the mix rounded to x's dtype before the resize,
+which computes in float32 and rounds again.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ class PromptGenBlock(nn.Module):
 
     def forward(self, x):
         h, w = x.shape[-2:]
-        emb = x.float().mean(dim=(-2, -1))
+        dt = x.dtype
+        emb = x.float().mean(dim=(-2, -1)).to(dt)
         lin = self.linear_layer
-        weights = F.linear(emb, lin.weight.float(), lin.bias.float()).softmax(-1)
+        logits = F.linear(emb, lin.weight.to(dt), lin.bias.to(dt))
+        weights = logits.float().softmax(-1)
         prompt = torch.einsum("bl,lchw->bchw", weights,
-                              self.prompt_param[0].float())
-        prompt = resize_bilinear(prompt, (h, w), self.align_corners)
-        return self.conv3x3(prompt.to(x.dtype))
+                              self.prompt_param[0].float()).to(dt)
+        prompt = resize_bilinear(prompt.float(), (h, w), self.align_corners)
+        return self.conv3x3(prompt.to(dt))

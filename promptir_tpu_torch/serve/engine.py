@@ -11,6 +11,7 @@ group:
     in flight; a request that waited longer than `request_timeout_s` before
     the worker took it fails with `RequestTimeout`;
   * the output is clipped to [0, 1];
+  * a float32 model runs with TF32 off (precision.py);
   * `close()` stops taking requests, lets the worker finish what it holds,
     joins it with a time limit and fails whatever it never reached. The
     worker is a daemon thread, so a wedged forward cannot keep the process
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from promptir_tpu_torch.eval.padding import target_size
+from promptir_tpu_torch.precision import compute_dtype, exact_float32
 
 
 class EngineOverloaded(RuntimeError):
@@ -92,6 +94,7 @@ class InferenceEngine:
             )
         self.model = model
         self.device = next(model.parameters()).device
+        self.compute_dtype = compute_dtype(model)
         self.channels = int(channels)
         self.pad_base = int(pad_base)
         self.max_batch = int(max_batch)
@@ -296,7 +299,7 @@ class InferenceEngine:
         for i, r in enumerate(group):
             xb[i] = pad_image_np(r.img, self.pad_base)
         x = torch.from_numpy(xb).to(self.device).permute(0, 3, 1, 2)
-        with torch.inference_mode():
+        with torch.inference_mode(), exact_float32(self.compute_dtype):
             y = self.model(x)
             if self.clip:
                 y = y.clamp(0.0, 1.0)

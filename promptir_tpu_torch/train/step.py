@@ -1,0 +1,85 @@
+"""The training and evaluation steps.
+
+Counterpart of promptir_tpu/train/step.py: forward, L1 loss, backward and
+one AdamW update (the reference's train.py:37-56). The JAX step is one
+jitted function over a data-parallel mesh; this one runs eagerly on one
+card (data parallelism is ROADMAP Queue 1 item 6). It updates the state in
+place and returns its metrics as tensors on the card, so that the loop
+does not wait for the card at every step.
+
+`grad_accum > 1` splits the batch into that many equal microbatches, runs
+them one after the other and averages their gradients before the single
+update, as the JAX step does with a `lax.scan`: equal microbatches make the
+mean of the microbatch L1 losses the full batch's. A float32 model runs
+with TF32 off (precision.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from promptir_tpu_torch.precision import compute_dtype, exact_float32
+from promptir_tpu_torch.train.losses import l1_loss
+from promptir_tpu_torch.train.state import TrainState, clip_by_global_norm, global_norm
+
+
+def to_nchw(x: torch.Tensor, device) -> torch.Tensor:
+    """A (B, H, W, 3) batch on `device` as the models' (B, 3, H, W)."""
+    return x.to(device, non_blocking=True).permute(0, 3, 1, 2)
+
+
+def make_train_step(model, grad_accum: int = 1):
+    """Build `step(state, batch) -> metrics` for `model`.
+
+    `batch`: {"degraded", "clean"} (B, H, W, 3) float tensors (from
+    data/loader.py), B a multiple of grad_accum. Returns {"train_loss",
+    "grad_norm"}, the norm of the averaged gradient before any clip.
+    """
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    params = [p for p in model.parameters() if p.requires_grad]
+    device = params[0].device
+
+    def step(state: TrainState, batch: dict) -> dict:
+        n = batch["degraded"].shape[0]
+        if n % grad_accum:
+            raise ValueError(f"batch {n} is not divisible by grad_accum "
+                             f"{grad_accum}")
+        m = n // grad_accum
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = torch.zeros((), device=device)
+        with exact_float32(compute_dtype(model)):
+            for i in range(grad_accum):
+                sl = slice(i * m, (i + 1) * m)
+                out = model(to_nchw(batch["degraded"][sl], device))
+                mloss = l1_loss(out, to_nchw(batch["clean"][sl], device))
+                (mloss / grad_accum).backward()
+                loss = loss + mloss.detach()
+        # a parameter the forward never reads (the reference's dead convs)
+        # gets a zero gradient, so that AdamW still decays it, as optax does
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        if state.grad_clip is not None:
+            norm = clip_by_global_norm(grads, state.grad_clip)
+        else:
+            norm = global_norm(grads)
+        state.optimizer.step()
+        state.step += 1
+        return {"train_loss": loss / grad_accum, "grad_norm": norm}
+
+    return step
+
+
+def make_eval_step(model):
+    """`eval_step(degraded) -> restored`: (B, H, W, 3) in, the restored
+    (B, H, W, 3) float32 clipped to [0, 1] out, on the model's device."""
+    device = next(model.parameters()).device
+
+    def eval_step(degraded: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad(), exact_float32(compute_dtype(model)):
+            out = model(to_nchw(degraded, device))
+        return out.clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+    return eval_step

@@ -1,0 +1,145 @@
+"""The training harness: epochs on one card.
+
+Counterpart of promptir_tpu/train/trainer.py, the reference's Lightning
+setup (train.py:303-341) on one device: the train step of step.py, the
+per-epoch warmup-cosine learning rate, a checkpoint every epoch, an
+epoch-end evaluation hook (train.py:134-172), JSONL metric logging and a
+SIGTERM/SIGINT guard that checkpoints and returns. Data parallelism and the
+profiler window of the JAX trainer are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Optional
+
+import torch
+
+from promptir_tpu_torch.config import Config
+from promptir_tpu_torch.data.loader import TrainLoader
+from promptir_tpu_torch.models import create_model
+from promptir_tpu_torch.train.checkpoints import CheckpointManager
+from promptir_tpu_torch.train.metrics_logger import MetricLogger
+from promptir_tpu_torch.train.preemption import PreemptionGuard
+from promptir_tpu_torch.train.schedules import warmup_cosine
+from promptir_tpu_torch.train.state import TrainState, make_optimizer, set_learning_rate
+from promptir_tpu_torch.train.step import make_eval_step, make_train_step
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg: Config,
+        dataset,
+        model=None,
+        eval_hook: Optional[Callable] = None,
+        preemption_guard: Optional[PreemptionGuard] = None,
+    ):
+        """`model`: a model built with `create_model(..., train=True)`; by
+        default `cfg.train.model` on `cfg.system.device`, computing in
+        `cfg.system.compute_dtype`, its weights drawn from `cfg.train.seed`.
+        `eval_hook(eval_step, model) -> dict` runs every
+        `cfg.train.eval_every_epochs` epochs and its metrics are logged."""
+        self.cfg = cfg
+        if model is None:
+            torch.manual_seed(cfg.train.seed)
+            model = create_model(cfg.train.model, device=cfg.system.device,
+                                 dtype=DTYPES[cfg.system.compute_dtype],
+                                 train=True)
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.dataset = dataset
+        self.eval_hook = eval_hook
+        self.loader = TrainLoader(
+            dataset,
+            batch_size=cfg.train.batch_size,
+            seed=cfg.train.seed,
+            num_workers=cfg.data.num_workers,
+            pin_memory=self.device.type == "cuda",
+        )
+        self.state = TrainState(
+            model, make_optimizer(model.parameters(), cfg.train.lr,
+                                  cfg.train.weight_decay),
+            grad_clip=cfg.train.grad_clip)
+        self.step_fn = make_train_step(model, cfg.train.grad_accum)
+        self.eval_step = make_eval_step(model)
+        self.schedule = warmup_cosine(
+            cfg.train.lr, cfg.train.warmup_epochs, cfg.train.cosine_max_epochs
+        )
+        self.ckpt = CheckpointManager(cfg.train.ckpt_dir)
+        self.logger = MetricLogger(cfg.train.log_dir)
+        self.start_epoch = 0
+        # pass a guard to share it (cooperative shutdown, tests); by default
+        # fit() installs one for its own duration
+        self.preemption = preemption_guard
+
+    @property
+    def global_step(self) -> int:
+        return self.state.step
+
+    def resume(self, epoch: Optional[int] = None) -> None:
+        self.ckpt.restore(self.state, epoch)
+        self.start_epoch = self.state.epoch + 1
+        print(f"resumed from epoch {self.state.epoch}")
+
+    def _save_preempted(self, epoch: int) -> None:
+        """Checkpoint so that `resume()` replays the interrupted epoch: the
+        state is saved mid-epoch but tagged epoch - 1. The partial progress
+        of the interrupted epoch is kept in the weights."""
+        self.state.epoch = epoch - 1
+        self.ckpt.save(epoch, self.state)
+        self.logger.log({"preempted_in_epoch": epoch}, self.global_step)
+        self.logger.close()
+        print(f"preempted in epoch {epoch}: checkpoint saved "
+              "(resume replays the epoch)")
+
+    def fit(self) -> None:
+        guard = self.preemption
+        own_guard = guard is None
+        if own_guard:
+            guard = PreemptionGuard()
+        try:
+            self._fit_epochs(guard)
+        finally:
+            # an installed but orphaned handler would swallow SIGTERM and
+            # Ctrl-C for the rest of the process
+            if own_guard:
+                guard.restore()
+
+    def _fit_epochs(self, guard) -> None:
+        cfg = self.cfg
+        for epoch in range(self.start_epoch, cfg.train.epochs):
+            lr = self.schedule(epoch)
+            set_learning_rate(self.state.optimizer, lr)
+            t0 = time.time()
+            losses = []
+            for batch in self.loader.epoch(epoch):
+                metrics = self.step_fn(self.state, batch)
+                losses.append(metrics["train_loss"])
+                if guard.preempted():
+                    self._save_preempted(epoch)
+                    return
+                if self.global_step % 50 == 0:
+                    self.logger.log({"train_loss": float(metrics["train_loss"]),
+                                     "lr": lr, "epoch": epoch},
+                                    self.global_step)
+            epoch_loss = (float(torch.stack(losses).mean()) if losses
+                          else float("nan"))
+            dt = time.time() - t0
+            imgs = len(self.loader) * cfg.train.batch_size
+            print(f"epoch {epoch}: loss {epoch_loss:.4f} lr {lr:.2e} "
+                  f"{imgs / max(dt, 1e-9):.1f} img/s")
+            # an epoch-level record always: the per-step one is every 50
+            # steps, so a short run would leave metrics.jsonl empty
+            self.logger.log({"train_loss": epoch_loss, "lr": lr, "epoch": epoch,
+                             "imgs_per_sec": imgs / max(dt, 1e-9)},
+                            self.global_step)
+            self.state.epoch = epoch
+            self.ckpt.save(epoch, self.state)
+            if (self.eval_hook is not None
+                    and (epoch + 1) % cfg.train.eval_every_epochs == 0):
+                self.logger.log(self.eval_hook(self.eval_step, self.model),
+                                self.global_step)
+        self.logger.close()

@@ -1,5 +1,5 @@
 """The port stands alone: no file of promptir_tpu_torch/ nor chip_smoke.py
-imports JAX, flax, PIL or anything of the JAX package."""
+imports JAX, flax, optax, orbax, PIL or anything of the JAX package."""
 
 import ast
 import pathlib
@@ -9,7 +9,7 @@ import pytest
 import torch  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-BANNED = {"jax", "jaxlib", "flax", "PIL", "promptir_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "PIL", "promptir_tpu"}
 FILES = sorted((ROOT / "promptir_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
