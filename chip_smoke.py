@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Three main paths are driven: serving PromptIR (`promptir`) and the
+Four main paths are driven: serving PromptIR (`promptir`) and the
 X-Restormer family's PromptXRestormer (`promptxrestormerir`, the
-reference's training config), and training PromptIR. Phases, each printed
-with the seconds since start:
+reference's training config), serving PromptIR through the overlap-blend
+tiler (`tiled`), and training PromptIR. Phases, each printed with the
+seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
      together), with ptxas register and shared memory use;
@@ -14,15 +15,24 @@ with the seconds since start:
      (TF32 off) and bfloat16: at every shape a batch-4 forward of either
      model at the serving run's 256x256 and 256x192 buckets gives it, and
      at every shape of the training step (batch 6 at 128x128); the seam
-     bit-exact; and the stats pass's partial-Gram buffer at two sizes;
+     bit-exact; the stats pass's partial-Gram buffer at two sizes; and the
+     merged tail + stats kernel (tail_stats) at every block pair of the
+     promptir stacks at both serving buckets and at the tiler's B8 128x128,
+     against its plain version and against the two-kernel sequence
+     (block_tail then mdta_stats), whose x3 it must equal bit for bit;
   4. the reference's own 64 px outputs reproduced in float32 through the
-     kernels: full-depth PromptIR (tests/goldens/promptir_full.npz) and
+     kernels: full-depth PromptIR (tests/goldens/promptir_full.npz, through
+     the chained stacks and so through tail_stats) and
      one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz),
      with TF32 off (as the engine and trainer run float32) and, printed
      only, with PyTorch's defaults;
   5. each model at full width (random weights from a seed, bf16) serving
      eight requests through the port's engine, with the kernels' launch
-     counts set to 0 just before each run and read just after;
+     counts set to 0 just before each run and read just after; then
+     full-depth PromptIR serving two 1024x768 photographs through the
+     engine's tiled path (128 px tiles, overlap 32, 8 a chunk: 88 tiles in
+     11 forwards an image), in float32 against the same run through the
+     plain versions, and in bf16 for its latency and throughput;
   6. a reduced PromptIR's training gradients through the kernels against
      the same step through the plain versions, on the card;
   7. full-depth PromptIR training: AdamW steps on one fixed batch of six
@@ -34,7 +44,9 @@ with the seconds since start:
   9. each kernel timed with CUDA events beside its plain version, the one
      PyTorch call that computes the same function where there is one, and
      its bound, at every shape of a 256x256 serving forward of each model
-     and of the training forward.
+     and of the training forward; tail_stats at every block pair of the
+     promptir stacks at B4 256x256 and B8 128x128, beside the two-kernel
+     sequence it replaces.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 Imports torch, numpy, the standard library and promptir_tpu_torch only.
@@ -102,26 +114,34 @@ def xr_block_shapes(h, w):
 # (tests/goldens/sd_keys_promptxrestormerir.json)
 XR_TRAIN = dict(num_blocks=(2, 4, 4, 4), num_refinement_blocks=4,
                 channel_heads=(1, 1, 1, 1), spatial_heads=(1, 2, 4, 8))
-KERNELS = ("mdta_stats", "block_tail", "ln_gdfn", "seam", "ln_mdta")
+KERNELS = ("mdta_stats", "block_tail", "ln_gdfn", "seam", "ln_mdta",
+           "tail_stats")
+LAUNCH_NAMES = "/".join(KERNELS)
 PATHS = {
-    # name: (model kwargs, launches of stats/tail/ln_gdfn/seam/ln_mdta per
-    # serving forward)
-    "promptir": ({}, [47, 47, 0, 1, 0]),
-    "promptxrestormerir": (XR_TRAIN, [31, 31, 31, 0, 0]),
+    # name: (model kwargs, launches of each of KERNELS per serving forward):
+    # promptir's 44 stacked blocks run chained (8 stacks: 8 mdta_stats, 36
+    # tail_stats, 8 block_tail), its 3 noise_level blocks alone
+    "promptir": ({}, [11, 11, 0, 1, 0, 36]),
+    "promptxrestormerir": (XR_TRAIN, [31, 31, 31, 0, 0, 0]),
 }
 GOLDENS = {
     # file: (model, kwargs, launches per forward)
-    "promptir_full.npz": ("promptir", {}, [47, 47, 0, 1, 0]),
+    "promptir_full.npz": ("promptir", {}, [11, 11, 0, 1, 0, 36]),
     "prompt_xrestormer_small.npz": (
         "promptxrestormerir",
         dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1),
-        [11, 11, 11, 0, 0]),
+        [11, 11, 11, 0, 0, 0]),
 }
+# the engine's tiled path: 1024x768 photographs in 128 px tiles overlapping
+# by 32, 8 tiles a forward: 11 x 8 = 88 tiles, 11 forwards an image
+TILED_HW = (1024, 768)
+TILE, TILE_OVERLAP, TILE_CHUNK = 128, 32, 8
+TILED_FORWARDS = 11
 BATCH = 4
 # the training step: the reference's per-GPU batch and patch size
 # (promptir_tpu/config.py: TrainConfig.batch_size, DataConfig.patch_size)
 TRAIN_BATCH, TRAIN_HW = 6, (128, 128)
-TRAIN_PER_STEP = [47, 0, 47, 1, 47]  # launches of one step's forward
+TRAIN_PER_STEP = [47, 0, 47, 1, 47, 0]  # launches of one step's forward
 TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # per dtype; the warm-up steps are untimed
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
@@ -156,9 +176,16 @@ def import_port():
 
     if pathlib.Path(promptir_tpu_torch.__file__).resolve().parent.parent != ROOT:
         fail("promptir_tpu_torch does not come from this checkout")
-    from promptir_tpu_torch.ops.cuda import block, build, gdfn, mdta, seam
+    from promptir_tpu_torch.ops.cuda import (
+        block,
+        build,
+        gdfn,
+        mdta,
+        megablock,
+        seam,
+    )
 
-    return promptir_tpu_torch, build, mdta, block, gdfn, seam
+    return promptir_tpu_torch, build, mdta, block, gdfn, seam, megablock
 
 
 def rel_err(a, b) -> tuple[float, float]:
@@ -203,6 +230,30 @@ def run_apply(fn, a, v, attn):
     return fn(v, a["x"], attn, a["wproj"])
 
 
+def run_tail_stats(fn, a, a2, v, attn):
+    """Block n's tail (inputs and weights a) with block n+1's stats pass
+    (weights a2)."""
+    return fn(v, a["x"], attn, a["wproj"], a["ln2w"], a["ln2b"], a["w1"],
+              a["wdwf"], a["w2"], a2["ln1w"], a2["ln1b"], a2["wqkv"],
+              a2["wdw"], a2["heads"])
+
+
+def run_two_kernels(mdta, block, a, a2, v, attn):
+    """The sequence that tail_stats replaces: block_tail, then mdta_stats on
+    its output."""
+    x3 = run_tail(block.block_tail, a, v, attn)
+    return (x3, *mdta.mdta_stats(x3, a2["ln1w"], a2["ln1b"], a2["wqkv"],
+                                 a2["wdw"], a2["heads"]))
+
+
+def chain_shapes():
+    """(shape, batch, pairs a forward) of tail_stats: the block pairs of
+    the promptir stacks at every serving bucket (B4 256x256 and 256x192)
+    and at the tiler's B8 128x128 tile batch."""
+    return ([(s, BATCH, n) for hw in BUCKETS for s, n in chain_pairs(*hw)]
+            + [(s, TILE_CHUNK, n) for s, n in chain_pairs(TILE, TILE)])
+
+
 def seam_inputs(h, w, dtype, gen, batch=BATCH):
     """up2_1's conv output (B, h/2, w/2, 192) and the enc1 skip (B, h, w, 48)."""
     y = torch.randn(batch, h // 2, w // 2, 192, generator=gen,
@@ -234,7 +285,7 @@ def checked_shapes():
 
 # ------------------------------------------------------------ phase 3
 
-def check_kernels(mdta, block, gdfn, seam):
+def check_kernels(mdta, block, gdfn, seam, megablock):
     gen = torch.Generator(device="cuda").manual_seed(0)
     # per kernel and dtype: [max |kernel - plain|, that over max |plain|]
     worst = {k: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
@@ -296,7 +347,50 @@ def check_kernels(mdta, block, gdfn, seam):
             f"{mdta.stats_partial_bytes(b, h, w, c, heads)} bytes with "
             f"{mdta.stats_slots(b, h, w, c, heads)} slots an image and head "
             f"(one slot a tile: {per_tile} bytes)")
+    check_tail_stats(mdta, block, megablock, record)
     return worst
+
+
+def check_tail_stats(mdta, block, megablock, record):
+    """tail_stats against its plain version (x3, v2 and block n+1's attn
+    from the stats, each gated by TOL) and against the two-kernel sequence
+    on the same inputs: x3 bit for bit, the worst v2 and attn differences
+    printed."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    two = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, batch, _ in chain_shapes():
+            a = block_inputs(shape, dtype, gen, batch)
+            a2 = block_inputs(shape, dtype, gen, 1)  # block n+1's weights
+            v, st = run_stats(mdta.mdta_stats_plain, a)
+            attn = mdta.attn_from_stats(st, a["temp"])
+            x3, v2, s2 = run_tail_stats(megablock.tail_stats, a, a2, v, attn)
+            x30, v20, s20 = run_tail_stats(megablock.tail_stats_plain, a, a2,
+                                           v, attn)
+            x3b, v2b, s2b = run_two_kernels(mdta, block, a, a2, v, attn)
+            torch.cuda.synchronize()
+            at2, at20, at2b = (mdta.attn_from_stats(t, a2["temp"])
+                               for t in (s2, s20, s2b))
+            msg = f"check {str(dtype)[6:]:8s} B{batch} {shape}: tail_stats"
+            for what, out, ref in [("x3", x3, x30), ("v2", v2, v20),
+                                   ("attn", at2, at20)]:
+                e, r = rel_err(out, ref)
+                record("tail_stats", dtype, shape, e, r)
+                msg += f" {what} {e:.2e} (rel {r:.2e})"
+            if not torch.equal(x3, x3b):
+                fail(f"tail_stats's x3 differs from block_tail's at {shape} "
+                     f"{dtype}: {rel_err(x3, x3b)[0]:.2e}")
+            ev, ea = rel_err(v2, v2b)[0], rel_err(at2, at2b)[0]
+            w = two[dtype]
+            w[0], w[1] = max(w[0], ev), max(w[1], ea)
+            say(f"{msg}; against block_tail + mdta_stats: x3 bit-exact, v2 "
+                f"{ev:.2e}, attn {ea:.2e}")
+            if not all(torch.isfinite(t).all() for t in (x3, v2, s2)):
+                fail(f"non-finite tail_stats output at {shape} {dtype}")
+    for dtype, (ev, ea) in two.items():
+        say(f"tail_stats against block_tail + mdta_stats, {str(dtype)[6:]}, "
+            f"{len(chain_shapes())} shapes: x3 bit-exact, worst |v2 "
+            f"difference| {ev:.2e}, worst |attn difference| {ea:.2e}")
 
 
 # ------------------------------------------------------------ phase 4
@@ -324,7 +418,7 @@ def check_golden(port, counters, file):
         err_tf32 = (model(x).cpu() - ref).abs().max().item()
     say(f"golden {file} ({name}, {len(sd)} tensors, {tuple(x.shape)}, fp32, "
         f"TF32 off): max |err| {err:.3e} (tolerance {GOLDEN_TOL}); launches "
-        f"stats/tail/ln_gdfn/seam/ln_mdta {ran}; with PyTorch's TF32 defaults "
+        f"{LAUNCH_NAMES} {ran}; with PyTorch's TF32 defaults "
         f"(cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}) max |err| "
         f"{err_tf32:.3e}")
     if ran != want:
@@ -383,7 +477,7 @@ def serve(port, counters, reset, card, name):
     say(f"serve: full-width {name} ({n_params} params) bf16, pad_base {base}, "
         f"8 requests (6x 256x256, 2x 250x190) in {batches} batches of max 4; "
         f"p50 latency {p50 * 1e3:.1f} ms, {ips:.2f} images/s on {card}; "
-        f"launches stats/tail/ln_gdfn/seam/ln_mdta {ran}")
+        f"launches {LAUNCH_NAMES} {ran}")
     want = [n * batches for n in per_forward]
     if ran != want:
         fail(f"serving launches {ran} != {per_forward} per forward x {batches}")
@@ -400,21 +494,121 @@ def serve(port, counters, reset, card, name):
     return ran
 
 
+def run_tiled(model, imgs):
+    """The photographs through a tiled engine, submitted together: (replies,
+    seconds from each submit to its reply, seconds for all, engine stats)."""
+    from promptir_tpu_torch.serve.engine import InferenceEngine
+
+    eng = InferenceEngine(model, max_batch=4, pad_base=8, batch_timeout_ms=0,
+                          tile_threshold_px=256 * 256, tile_size=TILE,
+                          tile_overlap=TILE_OVERLAP, tile_chunk=TILE_CHUNK)
+    try:
+        done = {}
+        t_start = time.perf_counter()
+        futs = []
+        for i, im in enumerate(imgs):
+            f = eng.submit(im)
+            f.add_done_callback(
+                lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+            futs.append((f, time.perf_counter()))
+        outs = [f.result(timeout=600) for f, _ in futs]
+        stats = eng.stats()
+    finally:
+        eng.close(join_timeout_s=60)
+    lat = [done[i] - t for i, (_, t) in enumerate(futs)]
+    return outs, lat, max(done.values()) - t_start, stats
+
+
+def serve_tiled(port, counters, reset, card):
+    """Full-depth promptir (random weights from seed 0) serving two 1024x768
+    photographs through the engine's tiled path: float32 through the
+    kernels against float32 through the plain versions, then bf16 timed.
+    Returns the launches of the timed bf16 run."""
+    per_image = [n * TILED_FORWARDS for n in PATHS["promptir"][1]]
+    rng = np.random.default_rng(0)
+    imgs = [rng.random((*TILED_HW, 3), dtype=np.float32) for _ in range(2)]
+    torch.manual_seed(0)
+    model = port.create_model("promptir", device="cuda")
+    reset()
+    outs, _, secs, st = run_tiled(model, imgs)
+    ran = counters()
+    with plain_route():
+        ref, _, secs_p, _ = run_tiled(model, imgs)
+    if counters() != ran:
+        fail("the plain route launched kernels")
+    err = max(float(np.abs(o - r).max()) for o, r in zip(outs, ref))
+    say(f"tiled: full-depth promptir fp32 (TF32 off), 2 requests {TILED_HW[0]}x"
+        f"{TILED_HW[1]} through the engine's tiled path (tile {TILE}, overlap "
+        f"{TILE_OVERLAP}, chunk {TILE_CHUNK}): {st['tiled_requests']} tiled "
+        f"requests, max |kernels - plain| {err:.3e} (tolerance {GOLDEN_TOL}); "
+        f"{secs:.2f} s through the kernels, {secs_p:.2f} s plain; launches "
+        f"{LAUNCH_NAMES} {ran}")
+    if st["tiled_requests"] != 2 or ran != [2 * n for n in per_image]:
+        fail(f"tiled serving launched {ran} != 2 x {per_image} "
+             f"({st['tiled_requests']} tiled requests)")
+    for im, out in zip(imgs, outs):
+        if out.shape != im.shape or not np.isfinite(out).all():
+            fail(f"bad tiled reply {out.shape} for a {im.shape} request")
+        if out.min() < 0.0 or out.max() > 1.0:
+            fail("tiled reply outside [0, 1]")
+    if not err <= GOLDEN_TOL:
+        fail(f"tiled output through the kernels off by {err:.3e} > {GOLDEN_TOL}")
+    del model
+    torch.manual_seed(0)
+    model = port.create_model("promptir", device="cuda", dtype=torch.bfloat16)
+    run_tiled(model, imgs[:1])  # warm-up: cuDNN plans, allocator
+    reset()
+    outs, lat, secs, _ = run_tiled(model, imgs)
+    ran = counters()
+    say(f"tiled: full-depth promptir bf16, 2 requests {TILED_HW[0]}x"
+        f"{TILED_HW[1]} submitted together: p50 latency "
+        f"{float(np.median(lat)) * 1e3:.1f} ms, "
+        f"{len(imgs) / secs:.3f} images/s on {card}; launches {LAUNCH_NAMES} "
+        f"{ran}")
+    if ran != [2 * n for n in per_image]:
+        fail(f"tiled bf16 serving launched {ran} != 2 x {per_image}")
+    if not all(np.isfinite(o).all() for o in outs):
+        fail("non-finite bf16 tiled reply")
+    # one forward of a tile batch alone, against which phase 9's per-forward
+    # kernel sums of the tiled path are read
+    x = torch.rand(TILE_CHUNK, 3, TILE, TILE, device="cuda")
+    with torch.inference_mode():
+        fwd = time_ms(lambda: model(x), reps=5, warmup=1)
+    reset()  # the timing launches are not the main path's
+    say(f"forward: promptir bf16 B{TILE_CHUNK} {TILE}x{TILE} (one chunk of "
+        f"tiles) alone {fwd:.1f} ms (CUDA events, median of 5)")
+    del model
+    torch.cuda.empty_cache()
+    return ran
+
+
 # ------------------------------------------------------------ phase 6
 
 @contextlib.contextmanager
 def plain_route():
-    """The training forward with each kernel's autograd Function swapped for
-    its plain composition (ops/autodiff.py): the reference route of the
-    gradient check. Restored on exit."""
+    """The forwards with every kernel swapped for its plain version: each
+    autograd Function of the training route for its plain composition
+    (ops/autodiff.py), and each wrapper of the serving route (the chained
+    stacks included) for its plain version. The reference route of the
+    gradient check and of the tiled serving check. Restored on exit."""
     from promptir_tpu_torch.models import blocks
     from promptir_tpu_torch.models import promptir as promptir_model
     from promptir_tpu_torch.ops import autodiff
+    from promptir_tpu_torch.ops.cuda import block, gdfn, mdta, megablock
     from promptir_tpu_torch.ops.cuda.seam import seam_plain
 
-    with mock.patch.object(blocks, "LnMdta", SimpleNamespace(apply=autodiff.plain_ln_mdta)), \
-            mock.patch.object(blocks, "LnGdfn", SimpleNamespace(apply=autodiff.plain_ln_gdfn)), \
-            mock.patch.object(promptir_model, "Seam", SimpleNamespace(apply=seam_plain)):
+    swaps = [
+        (blocks, "LnMdta", SimpleNamespace(apply=autodiff.plain_ln_mdta)),
+        (blocks, "LnGdfn", SimpleNamespace(apply=autodiff.plain_ln_gdfn)),
+        (blocks, "mdta_stats", mdta.mdta_stats_plain),
+        (blocks, "block_tail", block.block_tail_plain),
+        (blocks, "tail_stats", megablock.tail_stats_plain),
+        (blocks, "ln_gdfn", gdfn.ln_gdfn_plain),
+        (promptir_model, "Seam", SimpleNamespace(apply=seam_plain)),
+    ]
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in swaps:
+            stack.enter_context(mock.patch.object(mod, name, fn))
         yield
 
 
@@ -453,8 +647,8 @@ def check_grads(port, counters, reset):
         f"parameters: loss {loss_k:.7f} through the kernels, {loss_p:.7f} "
         f"plain; worst gradient |kernel - plain| / max |plain| {worst[0]:.2e} "
         f"({worst[1]}; tolerance {GRAD_TOL}); launches "
-        f"stats/tail/ln_gdfn/seam/ln_mdta {ran_k} and plain {ran_p}")
-    if ran_k != [11, 0, 11, 1, 11] or any(ran_p):
+        f"{LAUNCH_NAMES} {ran_k} and plain {ran_p}")
+    if ran_k != [11, 0, 11, 1, 11, 0] or any(ran_p):
         fail(f"the gradient check's routes launched {ran_k} and {ran_p}")
     if not worst[0] <= GRAD_TOL:
         fail(f"kernel-route gradient of {worst[1]} off by {worst[0]:.2e}")
@@ -511,7 +705,7 @@ def train(port, counters, reset, card):
             f"(median of {len(times)} after {TRAIN_WARMUP} warm-up, CUDA "
             f"events), {TRAIN_BATCH * 1e3 / ms:.2f} images/s, peak memory "
             f"{peak / 2**30:.2f} GiB on {card}; launches "
-            f"stats/tail/ln_gdfn/seam/ln_mdta per step {TRAIN_PER_STEP}")
+            f"{LAUNCH_NAMES} per step {TRAIN_PER_STEP}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             fail(f"training loss did not fall on a fixed batch: {losses}")
         del model, st, step
@@ -597,8 +791,8 @@ def apply_work(shape, nbytes, batch=BATCH):
 
 def chain_pairs(h, w):
     """(H, W, C, heads) of the consecutive block pairs inside the block
-    stacks of an h x w promptir forward, with how many: the pairs a chained
-    route would run through the unported megablock kernel."""
+    stacks of an h x w promptir forward, with how many: the pairs that the
+    chained route runs through tail_stats."""
     return [
         ((h, w, 48, 1), 3),                  # encoder_level1
         ((h // 2, w // 2, 96, 2), 10),       # encoder_level2, decoder_level2
@@ -608,22 +802,36 @@ def chain_pairs(h, w):
     ]
 
 
-def megablock_bound(dtype=torch.bfloat16):
-    """The bound of promptir_tpu/ops/pallas/megablock.py:165
-    fused_tail_stats_padded (not ported) over one batch-4 256x256 promptir
-    forward: block n's tail and block n+1's stats pass, where n's output
-    feeds n+1 without being read back (one px * C read less than the two
-    functions apart)."""
+def solo_blocks(h, w):
+    """(H, W, C, heads) of the blocks of an h x w promptir forward whose
+    stats pass and tail run alone on the chained route, with how many: the
+    first and last block of each stack (the first's stats, the last's tail)
+    and the noise_level blocks. 11 of each a forward."""
+    pairs = dict(chain_pairs(h, w))
+    return [(s, n - pairs.get(s, 0)) for s, n in block_shapes(h, w)]
+
+
+def pair_work(shape, nbytes, batch=BATCH):
+    """(operations, bytes) of tail_stats at one shape: block n's tail and
+    block n+1's stats pass, where n's output x3 feeds n+1 without being
+    read back (one px * C read less than the two functions apart)."""
+    h, w, c, _ = shape
+    (so, sb), (to, tb) = block_work(shape, nbytes, batch)
+    return so + to, sb + tb - nbytes * batch * h * w * c
+
+
+def megablock_bound(shapes, batch, dtype=torch.bfloat16):
+    """The bound of tail_stats (megablock.py:165 fused_tail_stats_padded)
+    over the block pairs of one promptir forward."""
     ops = nbytes = pairs = 0
-    for shape, n in chain_pairs(*BUCKETS[0]):
-        (so, sb), (to, tb) = block_work(shape, 2)
-        h, w, c, _ = shape
-        ops += n * (so + to)
-        nbytes += n * (sb + tb - 2 * BATCH * h * w * c)
+    for shape, n in shapes:
+        o, b = pair_work(shape, 2, batch)
+        ops += n * o
+        nbytes += n * b
         pairs += n
     b, by = bound_ms(ops, nbytes, dtype)
-    say(f"bound of fused_tail_stats_padded (megablock.py:165, not ported) "
-        f"over the {pairs} block pairs of a promptir B{BATCH} 256x256 bf16 "
+    say(f"bound of tail_stats (megablock.py:165) over the {pairs} block pairs "
+        f"of a promptir B{batch} {shapes[0][0][0]}x{shapes[0][0][1]} bf16 "
         f"forward: {b:.4f} ms by {by} ({ops / 1e12:.3f} T operations, "
         f"{nbytes / 1e9:.3f} GB)")
     return b
@@ -634,19 +842,60 @@ def bound_ms(ops, nbytes, dtype) -> tuple[float, str]:
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-def time_kernels(mdta, block, gdfn, seam, reset):
+def time_tail_stats(mdta, block, megablock, gen, tot):
+    """tail_stats per launch at every block pair of the promptir stacks,
+    beside its plain version and the two-kernel sequence it replaces, summed
+    per forward of the serving path (B4 256x256) and of the tiled path (the
+    tiler's B8 128x128 chunk)."""
+    dtype = torch.bfloat16
+    for path, hw, batch in [("promptir", BUCKETS[0], BATCH),
+                            ("tiled", (TILE, TILE), TILE_CHUNK)]:
+        t = tot[path]["tail_stats"] = dict(ms=0.0, plain_ms=0.0, ops=0,
+                                           bytes=0, library_ms=None)
+        two_sum = 0.0
+        for shape, n in chain_pairs(*hw):
+            a = block_inputs(shape, dtype, gen, batch)
+            a2 = block_inputs(shape, dtype, gen, 1)
+            v, st = run_stats(mdta.mdta_stats, a)
+            attn = mdta.attn_from_stats(st, a["temp"])
+            ms = time_ms(lambda: run_tail_stats(megablock.tail_stats, a, a2,
+                                                v, attn))
+            pms = time_ms(lambda: run_tail_stats(megablock.tail_stats_plain,
+                                                 a, a2, v, attn))
+            two = time_ms(lambda: run_two_kernels(mdta, block, a, a2, v, attn))
+            work = pair_work(shape, 2, batch)
+            b, by = bound_ms(*work, dtype)
+            say(f"time tail_stats B{batch} {shape} bf16: {ms:.3f} ms "
+                f"(block_tail + mdta_stats {two:.3f} ms, plain {pms:.3f} ms, "
+                f"bound {b:.4f} ms by {by}) x{n} per {path} forward")
+            t["ms"] += n * ms
+            t["plain_ms"] += n * pms
+            t["ops"] += n * work[0]
+            t["bytes"] += n * work[1]
+            two_sum += n * two
+        megablock_bound(chain_pairs(*hw), batch)
+        say(f"time tail_stats per {path} forward (B{batch} {hw[0]}x{hw[1]} "
+            f"bf16): {t['ms']:.3f} ms, the two-kernel sequence "
+            f"{two_sum:.3f} ms, plain {t['plain_ms']:.3f} ms")
+
+
+def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     """Per path and kernel, the time of one bf16 forward of the path, summed
     over its launches at each shape: serving promptir and promptxrestormerir
-    (batch 4, 256x256) and the training forward (batch 6, 128x128)."""
+    (batch 4, 256x256), the training forward (batch 6, 128x128) and the
+    tiled path's forward of one chunk of tiles (batch 8, 128x128)."""
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     paths = {
-        # path: (shapes with their block counts, batch, kernels timed)
-        "promptir": (block_shapes(*BUCKETS[0]), BATCH, ("mdta_stats", "block_tail")),
+        # path: (shapes with their block counts, batch, kernels timed); the
+        # promptir stacks' block pairs are timed as tail_stats below
+        "promptir": (solo_blocks(*BUCKETS[0]), BATCH, ("mdta_stats", "block_tail")),
         "promptxrestormerir": (xr_block_shapes(*BUCKETS[0]), BATCH,
                                ("mdta_stats", "block_tail", "ln_gdfn")),
         "train": (block_shapes(*TRAIN_HW), TRAIN_BATCH,
                   ("mdta_stats", "ln_mdta", "ln_gdfn")),
+        "tiled": (solo_blocks(TILE, TILE), TILE_CHUNK,
+                  ("mdta_stats", "block_tail")),
     }
     tot = {path: {} for path in paths}
     for path, (shapes, batch, kernels) in paths.items():
@@ -682,10 +931,13 @@ def time_kernels(mdta, block, gdfn, seam, reset):
                 t["bytes"] += n * work[k][1]
         if path == "train":
             continue
-        # the split tails write the hidden tensor (and block_tail x2) and
-        # read them back: traffic the one-pass TPU kernels do not have
+        # the split tails (block_tail's and tail_stats's) write the hidden
+        # tensor and x2 and read them back: traffic the one-pass TPU kernels
+        # do not have
         split = 0
-        for (h, w, c, _), n in shapes:
+        all_blocks = {"promptir": block_shapes(*BUCKETS[0]),
+                      "tiled": block_shapes(TILE, TILE)}.get(path, shapes)
+        for (h, w, c, _), n in all_blocks:
             px, f2 = batch * h * w, 2 * int(c * 2.66)
             split += n * px * 2 * (f2 + c) * 2
             if path == "promptxrestormerir":
@@ -693,7 +945,8 @@ def time_kernels(mdta, block, gdfn, seam, reset):
         say(f"{path}: the split tails write and read back {split / 1e9:.2f} GB "
             f"per forward ({split / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
     for path, batch, hw in [("promptir", BATCH, BUCKETS[0]),
-                            ("train", TRAIN_BATCH, TRAIN_HW)]:
+                            ("train", TRAIN_BATCH, TRAIN_HW),
+                            ("tiled", TILE_CHUNK, (TILE, TILE))]:
         y, skip = seam_inputs(*hw, dtype, gen, batch)
         yc = y.permute(0, 3, 1, 2)  # NCHW views (channels_last) for the library call
         sc = skip.permute(0, 3, 1, 2)
@@ -703,7 +956,7 @@ def time_kernels(mdta, block, gdfn, seam, reset):
             library_ms=time_ms(lambda: torch.cat([F.pixel_shuffle(yc, 2), sc], 1)),
             ops=0, bytes=2 * (y.numel() + skip.numel() + 2 * skip.numel()),
         )
-    megablock_bound()
+    time_tail_stats(mdta, block, megablock, gen, tot)
     reset()  # the timing launches are not the main path's
     recs = {}
     for k in KERNELS:
@@ -740,7 +993,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         raise SystemExit(3)
-    port, build, mdta, block, gdfn, seam = import_port()
+    port, build, mdta, block, gdfn, seam, megablock = import_port()
     from promptir_tpu_torch.precision import exact_float32
 
     for file in GOLDENS:
@@ -762,7 +1015,7 @@ def main() -> None:
 
     # in KERNELS' order
     kernels = (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam,
-               mdta.ln_mdta)
+               mdta.ln_mdta, megablock.tail_stats)
 
     def counters():
         return [k.launches for k in kernels]
@@ -772,18 +1025,20 @@ def main() -> None:
             k.launches = 0
 
     with exact_float32(torch.float32):
-        worst = check_kernels(mdta, block, gdfn, seam)
+        worst = check_kernels(mdta, block, gdfn, seam, megablock)
     for file in GOLDENS:
         check_golden(port, counters, file)
     launches = {}
     for path in PATHS:
         reset()
         launches[path] = serve(port, counters, reset, card, path)
+    reset()
+    launches["tiled"] = serve_tiled(port, counters, reset, card)
     check_grads(port, counters, reset)
     launches["train"] = train(port, counters, reset, card)
     demo()
     reset()
-    recs = time_kernels(mdta, block, gdfn, seam, reset)
+    recs = time_kernels(mdta, block, gdfn, seam, megablock, reset)
 
     replaces = {
         "mdta_stats": ("promptir_tpu_torch/csrc/mdta_stats.cu",
@@ -796,6 +1051,8 @@ def main() -> None:
                  "promptir_tpu/ops/pallas/seam.py:222"),
         "ln_mdta": ("promptir_tpu_torch/csrc/ln_mdta.cu",
                     "promptir_tpu/ops/pallas/mdta.py:252"),
+        "tail_stats": ("promptir_tpu_torch/csrc/tail_stats.cu",
+                       "promptir_tpu/ops/pallas/megablock.py:165"),
     }
     out = []
     for i, name in enumerate(KERNELS):

@@ -1,7 +1,9 @@
-// Pieces of the gated depthwise feed-forward (GDFN) shared by block_tail.cu
-// and ln_gdfn.cu:
+// Pieces of the gated depthwise feed-forward (GDFN) shared by block_tail.cu,
+// ln_gdfn.cu and tail_stats.cu:
 //   ln_tile      the channel LayerNorm of a pixel tile held in shared memory;
 //   project_in   the W1 product (C -> 2F) of that tile to the hidden tensor h;
+//   gdfn_gate    the depthwise 3x3 taps of h at one pixel and the exact-erf
+//                gate, the value gdfn_out stages for W2 (tail_stats.cu too);
 //   gdfn_out     the spatial kernel from h to the output: depthwise 3x3 on a
 //                1-pixel halo of h, the exact-erf gate, W2 (F -> C) and the
 //                residual.
@@ -84,6 +86,31 @@ __device__ __forceinline__ void project_in(const float* y, const T* w1, T* hid, 
   }
 }
 
+// The gated value gelu(dw(h)[k]) * dw(h)[F + k] at pixel (gy, gx), inside
+// the image, with the taps' zero padding; rounded through T. ldh(yy, xx,
+// half) gives h's channel half * F + k at pixel (yy, xx) and ldw(half, t)
+// tap t of that channel's depthwise weight. gdfn_out_kernel (h from device
+// memory) and tail_stats.cu (h staged in shared memory) take their gates
+// from this one arithmetic, so that their outputs agree bit for bit.
+template <class T, class LoadH, class LoadW>
+__device__ __forceinline__ float gdfn_gate(LoadH ldh, LoadW ldw, int H, int W, int gy, int gx) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    const int yy = gy + dy - 1;
+    if (yy < 0 || yy >= H) continue;
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) {
+      const int xx = gx + dx - 1;
+      if (xx < 0 || xx >= W) continue;
+      const int t = dy * 3 + dx;
+      s1 = fmaf(ldh(yy, xx, 0), ldw(0, t), s1);
+      s2 = fmaf(ldh(yy, xx, 1), ldw(1, t), s2);
+    }
+  }
+  return round_t<T>(gelu_erf(s1) * s2);
+}
+
 struct GdfnOutArgs {
   const void* hid;  // (B, H, W, 2F) T
   const void* wdw;  // (2F, 9) T
@@ -103,7 +130,7 @@ template <class T>
 __global__ void __launch_bounds__(kThreads) gdfn_out_kernel(GdfnOutArgs a, int tiles_w) {
   __shared__ float As[kTileK * kLd];
   __shared__ float Ws[kTileK * kLd];
-  const int b = blockIdx.y, C = a.C, F = a.F, F2 = 2 * F, H = a.H, W = a.W;
+  const int b = blockIdx.y, C = a.C, F = a.F, H = a.H, W = a.W;
   const int ty0 = (blockIdx.x / tiles_w) * kTH, tx0 = (blockIdx.x % tiles_w) * kTW;
   const T* hid = static_cast<const T*>(a.hid);
   const T* wdw = static_cast<const T*>(a.wdw);
@@ -117,25 +144,14 @@ __global__ void __launch_bounds__(kThreads) gdfn_out_kernel(GdfnOutArgs a, int t
     gemm_tile<4>(
         F,
         [&](int k, int p) -> float {
-          // gated value g[p, k] = gelu(dw(h)[k]) * dw(h)[F + k], zero-padded taps
           const int gy = ty0 + p / kTW, gx = tx0 + p % kTW;
           if (gy >= H || gx >= W) return 0.f;
-          float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-          for (int dy = 0; dy < 3; ++dy) {
-            const int yy = gy + dy - 1;
-            if (yy < 0 || yy >= H) continue;
-#pragma unroll
-            for (int dx = 0; dx < 3; ++dx) {
-              const int xx = gx + dx - 1;
-              if (xx < 0 || xx >= W) continue;
-              const T* hp = hid + ((long long)(b * H + yy) * W + xx) * F2;
-              const int t = dy * 3 + dx;
-              s1 = fmaf(to_f(hp[k]), to_f(wdw[k * 9 + t]), s1);
-              s2 = fmaf(to_f(hp[F + k]), to_f(wdw[(F + k) * 9 + t]), s2);
-            }
-          }
-          return round_t<T>(gelu_erf(s1) * s2);
+          return gdfn_gate<T>(
+              [&](int yy, int xx, int half) -> float {
+                return to_f(hid[((long long)(b * H + yy) * W + xx) * (2 * F) + half * F + k]);
+              },
+              [&](int half, int t) -> float { return to_f(wdw[(half * F + k) * 9 + t]); }, H, W,
+              gy, gx);
         },
         [&](int k, int n) -> float {
           return n0 + n < C ? to_f(w2[(long long)(n0 + n) * F + k]) : 0.f;

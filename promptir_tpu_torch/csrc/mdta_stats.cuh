@@ -1,0 +1,206 @@
+// The MDTA statistics pass on one spatial tile, shared by mdta_stats.cu (x
+// read from device memory) and tail_stats.cu (x held in shared memory):
+//   halo_ln_stats  LN1's mean and rstd of every pixel of the tile and its
+//                  1-pixel halo, one warp a pixel, two-pass in fp32;
+//   ln1_value      LN1's output at one pixel and channel, rounded through T;
+//   stats_head     for one head: its 3d qkv rows at every halo pixel, the
+//                  depthwise 3x3 taps on the interior, v written out, and
+//                  the tile's partial Gram q^T k and squared norms of q and
+//                  k added to the head's slot;
+//   stats_reduce_kernel  the slots summed in slot order.
+// halo_ln_stats reads x as ldx(hp, pix, c): halo pixel hp, its flat pixel
+// index pix, channel c (called only for pixels inside the image).
+// stats_head reads LN1's output as ldy(hp, c), 0 outside the image:
+// mdta_stats.cu computes it from x as the product stages it, tail_stats.cu
+// once per tile. Rounding points: LN1's output is rounded through T; qkv,
+// the taps, q, k and the sums stay fp32; v is rounded through T.
+#pragma once
+
+#include "common.cuh"
+
+// One anonymous namespace at file scope, as the including .cu files use
+// (see gdfn.cuh).
+namespace {
+using namespace pk;
+
+constexpr int kMP = 4;  // 64 halo pixels per product pass
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The shared-memory pieces of one stats tile (see the carving in the kernels).
+struct StatsSmem {
+  float* qk;    // pi x 2d: q then k of the interior pixels, fp32
+  float* pre;   // ph x kTileN: one qkv chunk of the halo pixels before the taps
+  float* As;    // gemm_tile's staging tiles
+  float* Ws;
+  float* mean;  // ph: LN1 statistics of the halo pixels
+  float* rstd;
+  int* pix;     // ph: flat pixel index, or -1 outside the image
+};
+
+// The th x tw tile at (ty0, tx0) of image b and its 1-pixel halo:
+// (th + 2) x (tw + 2) pixels, hp = row * (tw + 2) + col.
+struct StatsTile {
+  int b, ty0, tx0, th, tw, H, W, C;
+};
+
+template <class LoadX>
+__device__ __forceinline__ void halo_ln_stats(LoadX ldx, const StatsTile& t, float eps,
+                                              const StatsSmem& s) {
+  const int hw = t.tw + 2, ph = (t.th + 2) * hw, C = t.C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int hp = warp; hp < ph; hp += kThreads / 32) {
+    const int gy = t.ty0 - 1 + hp / hw, gx = t.tx0 - 1 + hp % hw;
+    const bool in = gy >= 0 && gy < t.H && gx >= 0 && gx < t.W;
+    const int pix = in ? (t.b * t.H + gy) * t.W + gx : -1;
+    float mean = 0.f, rstd = 0.f;
+    if (in) {
+      float sum = 0.f;
+      for (int c = lane; c < C; c += 32) sum += ldx(hp, pix, c);
+      mean = warp_sum(sum) / C;
+      float q = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float u = ldx(hp, pix, c) - mean;
+        q = fmaf(u, u, q);
+      }
+      rstd = 1.f / sqrtf(warp_sum(q) / C + eps);
+    }
+    if (lane == 0) {
+      s.mean[hp] = mean;
+      s.rstd[hp] = rstd;
+      s.pix[hp] = pix;
+    }
+  }
+}
+
+template <class T>
+__device__ __forceinline__ float ln1_value(float xv, float mean, float rstd, const T* lnw,
+                                           const T* lnb, int c, int bias_free) {
+  const float y = bias_free ? xv * rstd * to_f(lnw[c])
+                            : (xv - mean) * rstd * to_f(lnw[c]) + to_f(lnb[c]);
+  return round_t<T>(y);
+}
+
+// Head h of the tile: v of its d channels written to v (B, H, W, C), and the
+// tile's Gram and norms written (first) or added to `out` (d*d + 2d fp32).
+// Each value of `out` is read and written by one thread only. Needs what
+// ldy reads behind a barrier; ends with a barrier.
+template <class T, class LoadY>
+__device__ __forceinline__ void stats_head(LoadY ldy, const T* wqkv, const T* wdw, T* v,
+                                           float* out, bool first, int h, int heads,
+                                           const StatsTile& t, const StatsSmem& s) {
+  const int C = t.C, d = C / heads, th = t.th, tw = t.tw;
+  const int hw = tw + 2, ph = (th + 2) * hw, pi = th * tw, ld = 2 * d, n3 = 3 * d;
+  const int ng = threadIdx.x & 15, pg = threadIdx.x >> 4;
+  for (int n0 = 0; n0 < n3; n0 += kTileN) {
+    // qkv rows n0 .. n0+63 of this head (q: 0..d-1, k: d..2d-1, v: 2d..3d-1)
+    // for every halo pixel; out-of-image pixels give y = 0, hence qkv = 0,
+    // which is the depthwise conv's zero padding.
+    for (int p0 = 0; p0 < ph; p0 += 16 * kMP) {
+      float acc[kMP][4];
+      gemm_tile<kMP>(
+          C,
+          [&](int k, int p) -> float {
+            const int hp = p0 + p;
+            return hp < ph ? ldy(hp, k) : 0.f;
+          },
+          [&](int k, int n) -> float {
+            const int nn = n0 + n;
+            if (nn >= n3) return 0.f;
+            const int row = (nn / d) * C + h * d + nn % d;
+            return to_f(wqkv[(long long)row * C + k]);
+          },
+          s.As, s.Ws, acc);
+#pragma unroll
+      for (int i = 0; i < kMP; ++i) {
+        const int hp = p0 + pg + 16 * i;
+        if (hp < ph) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s.pre[hp * kTileN + ng + 16 * j] = acc[i][j];
+        }
+      }
+    }
+    __syncthreads();
+    // depthwise 3x3 on the interior pixels; v goes out, q and k stay here
+    for (int e = threadIdx.x; e < pi * kTileN; e += kThreads) {
+      const int n = e % kTileN, p = e / kTileN, nn = n0 + n;
+      if (nn >= n3) continue;
+      const int sec = nn / d, ch = nn % d, row = sec * C + h * d + ch;
+      const int iy = p / tw, ix = p % tw;
+      float acc = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+          acc = fmaf(s.pre[((iy + dy) * hw + ix + dx) * kTileN + n],
+                     to_f(wdw[row * 9 + dy * 3 + dx]), acc);
+      const int gy = t.ty0 + iy, gx = t.tx0 + ix;
+      const bool valid = gy < t.H && gx < t.W;
+      if (sec == 2) {
+        if (valid) v[((long long)(t.b * t.H + gy) * t.W + gx) * C + h * d + ch] = from_f<T>(acc);
+      } else {
+        s.qk[p * ld + sec * d + ch] = valid ? acc : 0.f;
+      }
+    }
+    __syncthreads();
+  }
+
+  // partial Gram (4x4 register tiles) and squared norms of this tile
+  const int d4 = d / 4;
+  for (int e = threadIdx.x; e < d4 * d4; e += kThreads) {
+    const int ib = e / d4, jb = e % d4;
+    float acc[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = first ? 0.f : out[(ib * 4 + r) * d + jb * 4 + c];
+    for (int p = 0; p < pi; ++p) {
+      const float4 q = *reinterpret_cast<const float4*>(s.qk + p * ld + ib * 4);
+      const float4 k = *reinterpret_cast<const float4*>(s.qk + p * ld + d + jb * 4);
+      const float qa[4] = {q.x, q.y, q.z, q.w}, ka[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(qa[r], ka[c], acc[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[(ib * 4 + r) * d + jb * 4 + c] = acc[r][c];
+  }
+  for (int c = threadIdx.x; c < ld; c += kThreads) {
+    float sum = first ? 0.f : out[d * d + c];
+    for (int p = 0; p < pi; ++p) {
+      const float u = s.qk[p * ld + c];
+      sum = fmaf(u, u, sum);
+    }
+    out[d * d + c] = sum;
+  }
+  __syncthreads();  // qk and pre are rewritten by the next head or tile
+}
+
+// Sum the slots in slot order: (B*heads, nslots, n) -> (B*heads, n).
+__global__ void __launch_bounds__(kThreads) stats_reduce_kernel(const float* part, float* stats,
+                                                                int nslots, int n) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  const float* src = part + (long long)blockIdx.y * nslots * n + e;
+  float sum = 0.f;
+#pragma unroll 8
+  for (int t = 0; t < nslots; ++t) sum += src[(long long)t * n];
+  stats[(long long)blockIdx.y * n + e] = sum;
+}
+
+inline cudaError_t launch_stats_reduce(const float* part, float* stats, int B, int heads,
+                                       int C, int nslots, cudaStream_t stream) {
+  const int d = C / heads, n = d * d + 2 * d;
+  stats_reduce_kernel<<<dim3((n + kThreads - 1) / kThreads, B * heads), kThreads, 0, stream>>>(
+      part, stats, nslots, n);
+  return cudaGetLastError();
+}
+
+}  // namespace

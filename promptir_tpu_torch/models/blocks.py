@@ -18,6 +18,11 @@ routes, chosen by what the caller asks of autograd:
 The JAX package picks between its routes by whether a stripe fits VMEM
 (autodiff.py:256 block_fits). A Hopper block has no VMEM budget to copy;
 the port picks by mode, and never falls back.
+`run_stack` replaces `apply_block_stack` (blocks.py:254) for a stack of
+TransformerBlocks: without autograd it chains them, block n's tail and
+block n+1's stats pass in one `tail_stats` (ops/cuda/megablock.py), so a
+stack of n blocks runs one mdta_stats, n - 1 tail_stats and one block_tail;
+under autograd, or for a single block, it runs `block_forward` per block.
 `gdfn_forward` replaces `fused_gdfn_apply` (blocks.py:188): x + GDFN(LN(x))
 through the LN+GDFN kernel, under `LnGdfn` when autograd records.
 Weights are cast to the activations' dtype at use, so a model with float32
@@ -36,6 +41,7 @@ from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.cuda.block import block_tail
 from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn
 from promptir_tpu_torch.ops.cuda.mdta import attn_from_stats, mdta_stats
+from promptir_tpu_torch.ops.cuda.megablock import tail_stats
 from promptir_tpu_torch.ops.gdfn import GDFN
 from promptir_tpu_torch.ops.norm import LayerNorm
 
@@ -77,6 +83,44 @@ def block_forward(norm1: LayerNorm, attn: MDTA, norm2: LayerNorm, ffn: GDFN,
     a = attn_from_stats(stats, attn.temperature)
     return block_tail(v, xh, a, wproj, *_cast(xh.dtype, *wf),
                       bias_free=norm2.bias_free, eps=norm2.eps)
+
+
+def _stats_weights(blk, dt):
+    return _cast(dt, blk.norm1.body.weight, blk.norm1.body.bias,
+                 blk.attn.qkv.weight, blk.attn.qkv_dwconv.weight)
+
+
+def _tail_weights(blk, dt):
+    return _cast(dt, blk.attn.project_out.weight, blk.norm2.body.weight,
+                 blk.norm2.body.bias, blk.ffn.project_in.weight,
+                 blk.ffn.dwconv.weight, blk.ffn.project_out.weight)
+
+
+def run_stack(stack, xh):
+    """The blocks of `stack` (an nn.Sequential of TransformerBlocks) on NHWC
+    `xh`. Without autograd, two or more blocks run chained: mdta_stats of
+    block 0; for each n, block n's softmax, then its tail fused with block
+    n+1's stats pass (`tail_stats`); block_tail of the last block. Under
+    autograd, or for one block, each block runs `block_forward`."""
+    blocks = list(stack)
+    if len(blocks) < 2 or records_grad(xh, *stack.parameters()):
+        for blk in blocks:
+            xh = block_forward(blk.norm1, blk.attn, blk.norm2, blk.ffn, xh)
+        return xh
+    dt = xh.dtype
+    first = blocks[0]
+    v, stats = mdta_stats(xh, *_stats_weights(first, dt), first.attn.num_heads,
+                          bias_free=first.norm1.bias_free, eps=first.norm1.eps)
+    for blk, nxt in zip(blocks, blocks[1:]):
+        a = attn_from_stats(stats, blk.attn.temperature)
+        xh, v, stats = tail_stats(
+            v, xh, a, *_tail_weights(blk, dt), *_stats_weights(nxt, dt),
+            nxt.attn.num_heads, bias_free=blk.norm2.bias_free,
+            eps=blk.norm2.eps)
+    last = blocks[-1]
+    a = attn_from_stats(stats, last.attn.temperature)
+    return block_tail(v, xh, a, *_tail_weights(last, dt),
+                      bias_free=last.norm2.bias_free, eps=last.norm2.eps)
 
 
 def gdfn_forward(norm: LayerNorm, ffn: GDFN, xh):

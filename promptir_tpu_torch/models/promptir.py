@@ -13,9 +13,12 @@ dict loads with `load_state_dict(strict=True)`:
   * the global residual: output conv + input image.
 
 Activations are NCHW in channels_last memory, so the blocks' kernels see
-contiguous NHWC views. The level-1 decoder entry runs through the seam
-kernel (under `Seam`, which carries its gradient): up2_1's conv, then
-pixel-shuffle and the skip concat in one pass.
+contiguous NHWC views. The eight level stacks run through
+`blocks.run_stack`: served (no autograd), each chains its blocks through
+the merged tail + stats kernel, 36 launches of it a forward at full depth.
+The level-1 decoder entry runs through the seam kernel (under `Seam`,
+which carries its gradient): up2_1's conv, then pixel-shuffle and the skip
+concat in one pass.
 
 The forward computes in the model's `compute_dtype` when it has one (a
 model for training: float32 weights, bfloat16 activations, as the JAX
@@ -35,6 +38,7 @@ from promptir_tpu_torch.models.blocks import (
     TransformerBlock,
     nchw,
     nhwc,
+    run_stack,
 )
 from promptir_tpu_torch.ops.autodiff import Seam
 from promptir_tpu_torch.ops.conv import Conv
@@ -109,26 +113,29 @@ class PromptIR(nn.Module):
         inp = inp_img.to(dt).contiguous(memory_format=torch.channels_last)
         cat = torch.cat
 
-        enc1 = self.encoder_level1(self.patch_embed(inp))
-        enc2 = self.encoder_level2(self.down1_2(enc1))
-        enc3 = self.encoder_level3(self.down2_3(enc2))
-        x = self.latent(self.down3_4(enc3))
+        def run(s, x):
+            return nchw(run_stack(s, nhwc(x)))
+
+        enc1 = run(self.encoder_level1, self.patch_embed(inp))
+        enc2 = run(self.encoder_level2, self.down1_2(enc1))
+        enc3 = run(self.encoder_level3, self.down2_3(enc2))
+        x = run(self.latent, self.down3_4(enc3))
 
         x = self.noise_level3(cat([x, self.prompt3(x)], 1))
         x = self.reduce_noise_level3(x)
         x = self.reduce_chan_level3(cat([self.up4_3(x), enc3], 1))
-        x = self.decoder_level3(x)
+        x = run(self.decoder_level3, x)
 
         x = self.noise_level2(cat([x, self.prompt2(x)], 1))
         x = self.reduce_noise_level2(x)
         x = self.reduce_chan_level2(cat([self.up3_2(x), enc2], 1))
-        x = self.decoder_level2(x)
+        x = run(self.decoder_level2, x)
 
         x = self.noise_level1(cat([x, self.prompt1(x)], 1))
         x = self.reduce_noise_level1(x)
         # up2_1's conv, then pixel-shuffle + skip concat in one seam pass
         x = nchw(Seam.apply(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
-        x = self.refinement(self.decoder_level1(x))
+        x = run(self.refinement, run(self.decoder_level1, x))
         return (self.output(x) + inp).float()
 
 

@@ -16,9 +16,12 @@ group:
     joins it with a time limit and fails whatever it never reached. The
     worker is a daemon thread, so a wedged forward cannot keep the process
     alive.
-The overlap-blend tiler for oversized images (promptir_tpu/eval/tiling.py)
-is not ported yet: asking for it raises NotImplementedError rather than
-serving such an image whole.
+  * with `tile_threshold_px`, a request whose padded area is above it runs
+    alone through the overlap-blend tiler (eval/tiling.py) at `tile_size`,
+    `tile_overlap` and `tile_chunk`: the model then sees one fixed tile
+    batch whatever the image's size. The tiler clips once after blending,
+    so the engine's own clip is skipped for it; `stats()` counts
+    `tiled_requests`.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from promptir_tpu_torch.eval.padding import target_size
+from promptir_tpu_torch.eval.tiling import tiled_inference
 from promptir_tpu_torch.precision import compute_dtype, exact_float32
 
 
@@ -86,12 +90,10 @@ class InferenceEngine:
         max_queue: int = 256,
         request_timeout_s: Optional[float] = None,
         tile_threshold_px: Optional[int] = None,
+        tile_size: int = 128,
+        tile_overlap: int = 32,
+        tile_chunk: int = 8,
     ):
-        if tile_threshold_px is not None:
-            raise NotImplementedError(
-                "the tiled path for oversized images is not ported yet "
-                "(ROADMAP.md); serve without tile_threshold_px"
-            )
         self.model = model
         self.device = next(model.parameters()).device
         self.compute_dtype = compute_dtype(model)
@@ -102,6 +104,10 @@ class InferenceEngine:
         self.clip = clip
         self.max_queue = int(max_queue)
         self.request_timeout_s = request_timeout_s
+        self.tile_threshold_px = tile_threshold_px
+        self.tile_size = int(tile_size)
+        self.tile_overlap = int(tile_overlap)
+        self.tile_chunk = int(tile_chunk)
 
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._pending: "collections.deque[_Request]" = collections.deque()
@@ -110,6 +116,7 @@ class InferenceEngine:
         self._stats: Dict[str, float] = {
             "requests": 0,
             "batches": 0,
+            "tiled_requests": 0,
             "rejected": 0,
             "timed_out": 0,
             "batch_fill_sum": 0.0,
@@ -169,6 +176,7 @@ class InferenceEngine:
         return {
             "requests": int(s["requests"]),
             "batches": int(s["batches"]),
+            "tiled_requests": int(s["tiled_requests"]),
             "rejected": int(s["rejected"]),
             "timed_out": int(s["timed_out"]),
             "mean_batch_fill": s["batch_fill_sum"] / b,
@@ -230,6 +238,12 @@ class InferenceEngine:
         h, w = req.shape[:2]
         return target_size(h, w, self.pad_base)
 
+    def _is_tiled(self, req: _Request) -> bool:
+        if self.tile_threshold_px is None:
+            return False
+        th, tw = self._bucket(req)
+        return th * tw > self.tile_threshold_px
+
     def _expire(self, req: _Request) -> bool:
         """Fail and drop a request that waited past request_timeout_s."""
         if self.request_timeout_s is None:
@@ -261,6 +275,10 @@ class InferenceEngine:
                     return None
             if self._expire(head):
                 head = None
+        if self._is_tiled(head):
+            # an oversized image runs alone through the tiler; a request in
+            # the bucket of a head that is not oversized is not either
+            return [head]
         key = self._bucket(head)
         group = [head]
         for r in list(self._pending):
@@ -293,6 +311,13 @@ class InferenceEngine:
         self._pending.extend(stash)
         return group
 
+    def _tiled(self, req: _Request) -> np.ndarray:
+        with exact_float32(self.compute_dtype):
+            y = tiled_inference(self.model, torch.from_numpy(req.img[None]),
+                                tile=self.tile_size, overlap=self.tile_overlap,
+                                chunk=self.tile_chunk, bucket=self.pad_base)
+            return y.cpu().numpy()
+
     def _forward(self, group: list) -> np.ndarray:
         th, tw = self._bucket(group[0])
         xb = np.zeros((self.max_batch, th, tw, self.channels), np.float32)
@@ -322,15 +347,19 @@ class InferenceEngine:
             group = claimed
             if not group:
                 continue
+            tiled = self._is_tiled(group[0])
             try:
-                y = self._forward(group)
+                y = self._tiled(group[0]) if tiled else self._forward(group)
             except Exception as e:  # the worker keeps serving; callers see it
                 for r in group:
                     self._resolve_exc(r, e)
                 continue
             now = time.perf_counter()
             with self._lock:
-                self._buckets.add(self._bucket(group[0]))
+                if tiled:
+                    self._stats["tiled_requests"] += 1
+                else:
+                    self._buckets.add(self._bucket(group[0]))
                 self._stats["batches"] += 1
                 self._stats["batch_fill_sum"] += len(group)
                 for r in group:

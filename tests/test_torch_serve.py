@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from promptir_tpu_torch import create_model
+from promptir_tpu_torch.eval.tiling import tiled_inference
 from promptir_tpu_torch.serve.engine import (
     EngineClosed,
     EngineOverloaded,
@@ -128,8 +129,22 @@ def test_close_fails_what_a_wedged_worker_never_reached(model):
 
 
 def test_tiled_path_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="tiled"):
-        InferenceEngine(model, tile_threshold_px=1 << 20)
+    """The engine's tiled path (the name predates its port): an image whose
+    padded area is above tile_threshold_px is served alone through the
+    overlap-blend tiler, exactly as a direct tiled_inference call with
+    bucket = pad_base, and is counted in tiled_requests."""
+    big = img(1, 40, 48)  # 40x48 = 1920 px > 1500: tiled
+    with InferenceEngine(model, pad_base=8, max_batch=4, batch_timeout_ms=0,
+                         tile_threshold_px=1500, tile_size=16,
+                         tile_overlap=8, tile_chunk=4) as eng:
+        out = eng.restore(big)
+        s = eng.stats()
+    ref = tiled_inference(model, torch.from_numpy(big[None]), tile=16,
+                          overlap=8, chunk=4, bucket=8).numpy()[0]
+    assert out.shape == big.shape
+    np.testing.assert_array_equal(out, ref)
+    assert s["tiled_requests"] == 1 and s["requests"] == 1
+    assert s["buckets"] == 0
 
 
 def test_rejects_wrong_channels(model):

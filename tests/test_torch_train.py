@@ -2,7 +2,7 @@
 
   * a reduced PromptIR's L1 loss and every parameter's gradient against
     `jax.value_and_grad` of the JAX model (`fused_ffn=False`) on identical
-    weights, float32;
+    weights, float32, and in bf16 compute with float32 weights;
   * torch's AdamW against the JAX package's optax optimizer on identical
     gradients, with and without the global-norm clip;
   * the warmup-cosine schedule value for value, the synthetic data and the
@@ -78,6 +78,61 @@ def test_reduced_promptir_loss_and_grads_match_jax():
         err = np.abs(p.grad.numpy() - want).max()
         assert err <= GRAD_TOL * np.abs(want).max(), (name, err)
     assert dead == 6
+
+
+# bf16 compute, float32 weights: each gradient within BF16_GRAD_TOL of that
+# tensor's max |grad| and the median over tensors within BF16_GRAD_MEDIAN.
+# The JAX package's own bf16 gradients of this model and batch differ that
+# much between its eager and its jitted forms (XLA keeps excess precision in
+# fusions): up to 0.179 of a tensor's max, median 0.018. The port against
+# the jitted form measured 0.152 (decoder_level1.0.attn.temperature),
+# median 0.0138 to 0.0141; against the eager form 0.102, median 0.0145.
+# PromptGen with its rounding points in the wrong order (the GAP, the
+# Linear and the mix all kept in float32) measured 0.155, median 0.0188
+# to 0.0197:
+# the per-tensor bound does not see that fault, the median bound does.
+BF16_GRAD_TOL = 0.25
+BF16_GRAD_MEDIAN = 0.017
+
+
+def test_reduced_promptir_bf16_grads_match_jax():
+    """One (2, 32, 48, 3) batch through reduced PromptIR computing in bf16
+    with float32 weights in both packages (`dtype=bfloat16`, the jitted
+    `jax.value_and_grad`): the loss within 2e-4 of JAX's (measured 5.9e-5)
+    and every gradient within the bf16 bounds above."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(2, 32, 48, 3)).astype(np.float32)
+    y = rng.uniform(size=(2, 32, 48, 3)).astype(np.float32)
+    variables = jax_create_model("promptir", fused_ffn=False, **REDUCED).init(
+        jax.random.PRNGKey(1), jnp.asarray(x))
+    jmodel = jax_create_model("promptir", dtype=jnp.bfloat16, fused_ffn=False,
+                              **REDUCED)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jax_l1_loss(jmodel.apply({"params": p}, jnp.asarray(x)),
+                              jnp.asarray(y))))(variables["params"])
+
+    model = create_model("promptir", device="cpu", train=True,
+                         dtype=torch.bfloat16, **REDUCED)
+    model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)  # noqa: E731
+    loss = l1_loss(model(nchw(x)), nchw(y))
+    loss.backward()
+    assert abs(loss.item() - float(loss_j)) <= 2e-4 * float(loss_j)
+    ref = state_dict_from_flax(
+        {"params": jax.tree.map(lambda a: np.asarray(a, np.float32), grads_j)},
+        model)
+    errs = []
+    for name, p in model.named_parameters():
+        want = ref[name].numpy()
+        if p.grad is None:
+            assert not want.any(), name
+            continue
+        assert p.grad.dtype == torch.float32
+        err = np.abs(p.grad.numpy() - want).max() / np.abs(want).max()
+        assert err <= BF16_GRAD_TOL, (name, err)
+        errs.append(err)
+    assert len(errs) == len(list(model.parameters())) - 6
+    assert np.median(errs) <= BF16_GRAD_MEDIAN, np.median(errs)
 
 
 @pytest.mark.parametrize("grad_clip", [None, 0.5])
