@@ -10,7 +10,9 @@ tiler (`tiled`), and training PromptIR. Phases, each printed with the
 seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
-     together), with ptxas register and shared memory use;
+     together), with ptxas register and shared memory use, and the
+     tensor-core instructions (HMMA/HGMMA) of each kernel in the built
+     library (cuobjdump): the bf16 tail kernels must hold some;
   3. each kernel against its plain PyTorch version on the card, in float32
      (TF32 off) and bfloat16: at every shape a batch-4 forward of either
      model at the serving run's 256x256 and 256x192 buckets gives it, and
@@ -25,7 +27,9 @@ seconds since start:
      the chained stacks and so through tail_stats) and
      one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz),
      with TF32 off (as the engine and trainer run float32) and, printed
-     only, with PyTorch's defaults;
+     only, with PyTorch's defaults; then full-depth PromptIR's bf16 B4
+     256x256 forward through the kernels against the same forward through
+     the plain versions (FORWARD_TOL_BF16);
   5. each model at full width (random weights from a seed, bf16) serving
      eight requests through the port's engine, with the kernels' launch
      counts set to 0 just before each run and read just after; then
@@ -38,17 +42,25 @@ seconds since start:
   7. full-depth PromptIR training: AdamW steps on one fixed batch of six
      128x128 synthetic patches in float32 (TF32 off) and in bf16 compute
      with float32 weights; launches per step, the loss, step time and peak
-     memory;
+     memory; then the bf16-computing model served through the engine, its
+     GDFN weights packed in the first forward only;
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
      PyTorch call that computes the same function where there is one, and
      its bound, at every shape of a 256x256 serving forward of each model
-     and of the training forward; tail_stats at every block pair of the
-     promptir stacks at B4 256x256 and B8 128x128, beside the two-kernel
-     sequence it replaces.
+     and of the training forward, block_tail's per shape with its tile
+     for the serving and tiled paths; tail_stats at every block pair of
+     the promptir stacks at B4 256x256 and B8 128x128, with its tile,
+     beside the two-kernel sequence it replaces.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
+
+    python3 chip_smoke.py --bf16-forward
+
+builds the kernels and runs phase 4's bf16 forward check only, and takes
+the port from the script's own directory: copied into a checkout of an
+earlier commit, it reads that commit's kernels against its plain versions.
 Imports torch, numpy, the standard library and promptir_tpu_torch only.
 """
 
@@ -147,6 +159,15 @@ REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 GOLDEN_TOL = 2e-4
+# full-depth promptir B4 256x256 bf16 through the kernels against the same
+# forward through the plain versions: max |difference| of the output. Twice
+# the 7.8125e-3 that the kernels gave before their bf16 products moved to
+# the tensor cores (`--bf16-forward` on that commit; PERF.md, section 6)
+FORWARD_TOL_BF16 = 1.5625e-2
+# the bf16 kernels that must hold tensor-core instructions (HMMA or HGMMA):
+# tail_stats's three kernels (tail_a's, the merged one) and block_tail's two
+TENSOR_CORE_KERNELS = ("tail_a_tc_kernel", "tail_stats_tc_kernel",
+                       "gdfn_out_tc_kernel")
 # kernel-route gradients against plain-route gradients, float32 (TF32 off):
 # max |difference| over max |plain| of each parameter's gradient
 GRAD_TOL = 1e-3
@@ -281,6 +302,36 @@ def checked_shapes():
                   for s, _ in block_shapes(*TRAIN_HW)]
         out.append((dtype, shapes, (*TRAIN_HW, TRAIN_BATCH)))
     return out
+
+
+def kernel_id(mangled: str) -> str:
+    """The kernel's identifier in a mangled name: the first length-prefixed
+    name ending in `_kernel` (the length is the tail of a run of digits)."""
+    for m in re.finditer(r"\d+", mangled):
+        digits, end = m.group(), m.end()
+        for i in range(len(digits)):
+            n = int(digits[i:])
+            if mangled[end:end + n].endswith("_kernel") and end + n <= len(mangled):
+                return mangled[end:end + n]
+    return mangled
+
+
+def tensor_core_sass(so) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) of each kernel of the built
+    library, summed over its instantiations and source files, from
+    `cuobjdump --dump-sass`: {kernel name: count}."""
+    cu = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cu, "--dump-sass", str(so)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_id(m.group(1))
+            counts.setdefault(name, 0)
+        elif name and re.search(r"\bH(G)?MMA\b", line):
+            counts[name] += 1
+    return counts
 
 
 # ------------------------------------------------------------ phase 3
@@ -425,6 +476,37 @@ def check_golden(port, counters, file):
         fail(f"golden forward did not run through the kernels: {ran} != {want}")
     if not err <= GOLDEN_TOL:
         fail(f"golden output off by {err:.3e} > {GOLDEN_TOL}")
+    del model
+    return err
+
+
+def check_bf16_forward(port, counters, reset):
+    """Full-depth promptir (random weights from seed 0), B4 256x256 bf16:
+    the served forward through the kernels against the same forward through
+    the plain versions (plain_route), gated by FORWARD_TOL_BF16."""
+    torch.manual_seed(0)
+    model = port.create_model("promptir", device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.rand(BATCH, 3, *BUCKETS[0], generator=gen, device="cuda")
+    reset()
+    with torch.inference_mode():
+        y = model(x)
+        ran = counters()
+        with plain_route():
+            y0 = model(x)
+    torch.cuda.synchronize()
+    reset()  # a comparison, not the main path
+    e = (y.float() - y0.float()).abs()
+    err = e.max().item()
+    say(f"bf16 forward: full-depth promptir B{BATCH} {BUCKETS[0][0]}x"
+        f"{BUCKETS[0][1]} through the kernels against the plain versions: max "
+        f"|difference| {err:.4e} (tolerance {FORWARD_TOL_BF16}), mean "
+        f"{e.mean().item():.4e}, max |plain| {y0.float().abs().max().item():.4f};"
+        f" launches {LAUNCH_NAMES} {ran}")
+    if ran != PATHS["promptir"][1]:
+        fail(f"the bf16 forward launched {ran} != {PATHS['promptir'][1]}")
+    if not torch.isfinite(y).all() or not err <= FORWARD_TOL_BF16:
+        fail(f"the bf16 forward through the kernels is off by {err:.4e}")
     del model
     return err
 
@@ -670,6 +752,7 @@ def train(port, counters, reset, card):
                              num_workers=2, pin_memory=True).epoch(0))
     reset()
     total = [0] * len(KERNELS)
+    served = [0] * len(KERNELS)
     for dtype in (torch.float32, torch.bfloat16):
         torch.manual_seed(0)
         model = port.create_model("promptir", device="cuda", dtype=dtype,
@@ -708,11 +791,61 @@ def train(port, counters, reset, card):
             f"{LAUNCH_NAMES} per step {TRAIN_PER_STEP}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             fail(f"training loss did not fall on a fixed batch: {losses}")
+        if dtype == torch.bfloat16:
+            served = serve_trained(model, counters, card)
         del model, st, step
         torch.cuda.empty_cache()
-    if total != counters():
-        fail(f"launches outside the training steps: {counters()} != {total}")
+    if [a + b for a, b in zip(total, served)] != counters():
+        fail(f"launches outside the training steps and the serving of the "
+             f"trained model: {counters()} != {total} + {served}")
     return total
+
+
+def serve_trained(model, counters, card):
+    """The bf16-computing model with float32 weights that train() stepped,
+    served through the engine (under torch.inference_mode) for eight
+    256x256 requests in two rounds: the launches of a served forward, every
+    GDFN's packed weights made in the first round only, replies finite and
+    in [0, 1]. Returns the launches."""
+    from promptir_tpu_torch.models.blocks import TransformerBlock
+    from promptir_tpu_torch.ops.cuda import packed
+    from promptir_tpu_torch.serve.engine import InferenceEngine
+
+    n_blocks = sum(isinstance(m, TransformerBlock) for m in model.modules())
+    rng = np.random.default_rng(1)
+    imgs = [rng.random((256, 256, 3), dtype=np.float32) for _ in range(8)]
+    made, real = [], packed._pack
+    before = counters()
+    with mock.patch.object(packed, "_pack",
+                           lambda *w: made.append(1) or real(*w)):
+        eng = InferenceEngine(model, max_batch=4, pad_base=8,
+                              batch_timeout_ms=50)
+        try:
+            outs = [f.result(timeout=600)
+                    for f in [eng.submit(im) for im in imgs[:4]]]
+            first = len(made)
+            outs += [f.result(timeout=600)
+                     for f in [eng.submit(im) for im in imgs[4:]]]
+            batches = eng.stats()["batches"]
+        finally:
+            eng.close(join_timeout_s=60)
+    ran = [a - b for a, b in zip(counters(), before)]
+    say(f"serve the trained model: full-depth promptir, fp32 weights, bf16 "
+        f"compute, 8 requests 256x256 in {batches} batches on {card}; packed "
+        f"GDFN weights made {first} times in the first round ({n_blocks} "
+        f"blocks), {len(made) - first} in the second; launches "
+        f"{LAUNCH_NAMES} {ran}")
+    if first != n_blocks or len(made) != first:
+        fail(f"the trained model's GDFN weights were packed {first} + "
+             f"{len(made) - first} times, not {n_blocks} + 0")
+    if ran != [n * batches for n in PATHS["promptir"][1]]:
+        fail(f"serving the trained model launched {ran} != "
+             f"{PATHS['promptir'][1]} per forward x {batches}")
+    for out in outs:
+        if (out.shape != (256, 256, 3) or not np.isfinite(out).all()
+                or out.min() < 0.0 or out.max() > 1.0):
+            fail("bad reply from the trained model")
+    return ran
 
 
 # ------------------------------------------------------------ phase 8
@@ -865,9 +998,11 @@ def time_tail_stats(mdta, block, megablock, gen, tot):
             two = time_ms(lambda: run_two_kernels(mdta, block, a, a2, v, attn))
             work = pair_work(shape, 2, batch)
             b, by = bound_ms(*work, dtype)
-            say(f"time tail_stats B{batch} {shape} bf16: {ms:.3f} ms "
-                f"(block_tail + mdta_stats {two:.3f} ms, plain {pms:.3f} ms, "
-                f"bound {b:.4f} ms by {by}) x{n} per {path} forward")
+            tile = megablock.tail_stats_tile(shape[2], shape[3], dtype)
+            say(f"time tail_stats B{batch} {shape} bf16, tile {tile[0]}x"
+                f"{tile[1]}: {ms:.3f} ms (block_tail + mdta_stats {two:.3f} "
+                f"ms, plain {pms:.3f} ms, bound {b:.4f} ms by {by}) x{n} per "
+                f"{path} forward")
             t["ms"] += n * ms
             t["plain_ms"] += n * pms
             t["ops"] += n * work[0]
@@ -898,6 +1033,7 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                   ("mdta_stats", "block_tail")),
     }
     tot = {path: {} for path in paths}
+    tails = []  # block_tail per shape: (path, shape, batch, count, ms, bound)
     for path, (shapes, batch, kernels) in paths.items():
         for shape, n in shapes:
             a = block_inputs(shape, dtype, gen, batch)
@@ -923,6 +1059,8 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                 say(f"time {k:10s} B{batch} {shape} bf16: {ms:.3f} ms (plain "
                     f"{pms:.3f} ms, bound {b:.4f} ms by {by}) x{n} per "
                     f"{path} forward")
+                if k == "block_tail":
+                    tails.append((path, shape, batch, n, ms, b, by))
                 t = tot[path].setdefault(k, dict(ms=0.0, plain_ms=0.0, ops=0,
                                                  bytes=0, library_ms=None))
                 t["ms"] += n * ms
@@ -956,6 +1094,14 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
             library_ms=time_ms(lambda: torch.cat([F.pixel_shuffle(yc, 2), sc], 1)),
             ops=0, bytes=2 * (y.numel() + skip.numel() + 2 * skip.numel()),
         )
+    for path in ("promptir", "tiled"):
+        rows = [r for r in tails if r[0] == path]
+        say(f"time block_tail per shape of the {path} path's "
+            f"{sum(r[3] for r in rows)} solo blocks (bf16; tail_a on 64 "
+            "pixels, then gdfn_out on its tile): " + "; ".join(
+                f"B{bt} {sh} x{n} tile {'x'.join(map(str, block.gdfn_out_tile(sh[2])[0]))}"
+                f" {ms:.3f} ms (bound {b:.4f} by {by})"
+                for _, sh, bt, n, ms, b, by in rows))
     time_tail_stats(mdta, block, megablock, gen, tot)
     reset()  # the timing launches are not the main path's
     recs = {}
@@ -993,12 +1139,22 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         raise SystemExit(3)
+    only_forward = sys.argv[1:] == ["--bf16-forward"]
+    if sys.argv[1:] and not only_forward:
+        fail(f"unknown arguments {sys.argv[1:]}: takes none, or --bf16-forward")
     port, build, mdta, block, gdfn, seam, megablock = import_port()
     from promptir_tpu_torch.precision import exact_float32
 
-    for file in GOLDENS:
-        if not (ROOT / "tests" / "goldens" / file).exists():
-            fail(f"tests/goldens/{file} is missing")
+    # in KERNELS' order
+    kernels = (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam,
+               mdta.ln_mdta, megablock.tail_stats)
+
+    def counters():
+        return [k.launches for k in kernels]
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
 
     card = card_line()
     print(card, flush=True)
@@ -1012,22 +1168,25 @@ def main() -> None:
         if re.search(r"Compiling entry|registers|spill", line):
             print("    " + line.strip(), flush=True)
     build.lib()
-
-    # in KERNELS' order
-    kernels = (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam,
-               mdta.ln_mdta, megablock.tail_stats)
-
-    def counters():
-        return [k.launches for k in kernels]
-
-    def reset():
-        for k in kernels:
-            k.launches = 0
+    if only_forward:
+        check_bf16_forward(port, counters, reset)
+        say(f"done in {time.perf_counter() - T0:.1f} s")
+        return
+    for file in GOLDENS:
+        if not (ROOT / "tests" / "goldens" / file).exists():
+            fail(f"tests/goldens/{file} is missing")
+    sass = tensor_core_sass(so)
+    say("tensor-core instructions (HMMA/HGMMA) per kernel in the SASS: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(sass.items())))
+    for k in TENSOR_CORE_KERNELS:
+        if not sass.get(k):
+            fail(f"{k} holds no tensor-core instruction")
 
     with exact_float32(torch.float32):
         worst = check_kernels(mdta, block, gdfn, seam, megablock)
     for file in GOLDENS:
         check_golden(port, counters, file)
+    check_bf16_forward(port, counters, reset)
     launches = {}
     for path in PATHS:
         reset()

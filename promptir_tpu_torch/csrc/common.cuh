@@ -1,10 +1,25 @@
 // Shared device helpers for the PromptIR Hopper kernels.
 //
 // Every kernel here keeps its arithmetic in fp32 and reads or writes its
-// activations in T, which is float or __nv_bfloat16. The one matrix routine,
-// gemm_tile, is a plain shared-memory SIMT tile (64 output channels by
-// 16 * MP pixels, a 32-deep reduction chunk, a 4-by-MP micro-tile per thread).
-// It is the simple, correct first form; wgmma and TMA are later work.
+// activations in T, which is float or __nv_bfloat16. Two matrix routines:
+//   gemm_tile  the float32 route's plain shared-memory SIMT tile (64 output
+//              channels by 16 * MP pixels, a 32-deep reduction chunk, a
+//              4-by-MP micro-tile per thread). fp32 on the tensor cores would
+//              be TF32, which misses the float32 goldens' 2e-4 gate;
+//   tc_gemm    the bf16 route's product on the tensor cores: bf16 operands in
+//              shared memory, fp32 accumulators in registers
+//              (mma.sync.m16n8k16 fed by ldmatrix), the weights streamed in
+//              32-deep chunks through a cp.async double buffer.
+// The kernels dispatch by dtype, never by fit: a float32 launch takes
+// gemm_tile, a bf16 launch tc_gemm.
+//
+// Why mma.sync and not wgmma: one instruction form serves every product of
+// the bf16 route, from the 32-row pixel tiles of gdfn_out at C = 704 to the
+// d x d Gram, each warp owning its own 16-row slices, so products of 32 to
+// 256 rows split over the block's 8 warps without padding to wgmma's
+// 64-row warpgroup tile; and the W2 products of block_tail and tail_stats
+// must sum every output in the same instruction sequence (x3 bit-exact
+// between them, gdfn.cuh:gdfn_w2). wgmma is later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +29,8 @@
 namespace pk {
 
 constexpr int kThreads = 256;  // every kernel launches 256 threads a block
+constexpr int kSmSmem = 233472;      // bytes of shared memory of one H100 SM
+constexpr int kBlockReserved = 1024;  // bytes the runtime keeps per resident block
 constexpr int kTileN = 64;     // output channels of one gemm_tile pass
 constexpr int kTileK = 32;     // reduction depth staged per step
 constexpr int kLd = 65;        // padded row stride of the staging tiles
@@ -77,6 +94,187 @@ __device__ __forceinline__ void gemm_tile(int K, LoadA la, LoadW lw, float* As, 
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
     }
     __syncthreads();
+  }
+}
+
+// ------------------------------------------------------- the bf16 route
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kKB = 32;  // reduction depth of one streamed weight chunk (tc_gemm)
+
+// Row stride, in elements, of a bf16 operand tile of k columns: k rounded up
+// to 16 (the instruction's depth) plus 8, so that the stride in 16-byte units
+// is odd and the eight rows an ldmatrix phase reads fall in distinct banks.
+__host__ __device__ constexpr int tc_ld(int k) { return (k + 15) / 16 * 16 + 8; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b for one m16n8k16 tile, bf16 operands, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes from device to shared memory in flight; zeros when !valid (src is
+// then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// One k16 step of a warp's (16 MT) x (8 NT) tile: acc[i][j] += A_i B_j^T.
+// A: the warp's first row, row-major bf16 in shared memory (stride lda, rows
+// are pixels); B: its first output channel, row-major N x K bf16 in shared
+// memory (stride ldb). Both point at the step's first k.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_mma_k16(const bf16* A, int lda, const bf16* B, int ldb,
+                                             float (&acc)[MT][NT][4]) {
+  const int lane = threadIdx.x & 31;
+  uint32_t a[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) ldsm_x4(a[i], A + (i * 16 + (lane & 15)) * lda + (lane >> 4) * 8);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    if (j + 1 < NT) {
+      uint32_t b[4];
+      ldsm_x4(b, B + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldb + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma_bf16(acc[i][j], a[i], b[0], b[1]);
+        mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+      }
+    } else {
+      uint32_t b[2];
+      ldsm_x2(b, B + (j * 8 + (lane & 7)) * ldb + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b[0], b[1]);
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+}
+
+// f(row, col, v0, v1) for every pair of accumulators (columns col and col +
+// 1, col even) of the warp's tile, row and col relative to the tile (the
+// m16n8 accumulator layout).
+template <int MT, int NT, class F>
+__device__ __forceinline__ void for_each_acc(const float (&acc)[MT][NT][4], F f) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        f(i * 16 + (lane >> 2) + r * 8, j * 8 + (lane & 3) * 2, acc[i][j][2 * r],
+          acc[i][j][2 * r + 1]);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// The block's 8 warps as WM rows by 8 / WM columns of warp tiles.
+template <int WM, int MT, int NT>
+struct TcShape {
+  static constexpr int WN = 8 / WM;
+  static constexpr int M = WM * 16 * MT;  // rows of the block's tile
+  static constexpr int NP = WN * 8 * NT;  // output channels of one pass
+  static constexpr int LDB = tc_ld(kKB);  // row stride of a weight chunk
+  static constexpr int WBUF = 2 * NP * LDB;  // bf16 of the double buffer
+};
+
+// Stage rows [n0, n0 + NP) x k [k0, k0 + kKB) of a row-major weight into
+// dst (NP x LDB bf16) with cp.async; row(n) gives row n's first element, or
+// nullptr for a zero row; k >= K is zero. K must be a multiple of 8 and the
+// rows 16-byte aligned. Commits one group.
+template <int NP, class Row>
+__device__ __forceinline__ void tc_stage_w(bf16* dst, Row row, int n0, int k0, int K) {
+  constexpr int LDB = tc_ld(kKB);
+  for (int e = threadIdx.x; e < NP * (kKB / 8); e += kThreads) {
+    const int r = e / (kKB / 8), k = k0 + (e % (kKB / 8)) * 8;
+    const bf16* src = row(n0 + r);
+    const bool ok = src != nullptr && k < K;
+    cp_async16(dst + r * LDB + (e % (kKB / 8)) * 8, ok ? src + k : dst, ok);
+  }
+  cp_async_commit();
+}
+
+// C = A W^T on the tensor cores. A: M x K bf16 in shared memory, row-major
+// with stride lda, every column below K rounded up to 16 finite (the
+// caller's padding); W: N rows given by row(n) (see tc_stage_w). For each
+// pass of NP output channels: the 32-deep chunks of W come through wbuf
+// (WBUF bf16) with cp.async, the next chunk loading while the current one
+// multiplies, the sums in fp32 registers; then epi(m, n, v) for every row m
+// < M and pair of channels n, n + 1 < N of the pass (N even), and after(n0)
+// once the whole block has finished the epilogue. Every output sums its k in ascending 16-deep steps
+// from zero. Must be called by the whole block; ends with a barrier.
+template <int WM, int MT, int NT, class Row, class Epi, class After>
+__device__ __forceinline__ void tc_gemm(const bf16* A, int lda, Row row, int N, int K, bf16* wbuf,
+                                        Epi epi, After after) {
+  using S = TcShape<WM, MT, NT>;
+  const int warp = threadIdx.x >> 5, wm = warp % WM, wn = warp / WM;
+  const int nk = (K + kKB - 1) / kKB;
+  const bf16* Aw = A + wm * 16 * MT * lda;
+  for (int n0 = 0; n0 < N; n0 += S::NP) {
+    float acc[MT][NT][4];
+    zero_acc(acc);
+    tc_stage_w<S::NP>(wbuf, row, n0, 0, K);
+    for (int kc = 0; kc < nk; ++kc) {
+      cp_async_wait_all();
+      __syncthreads();  // chunk kc landed; chunk kc - 1's buffer is free
+      if (kc + 1 < nk) tc_stage_w<S::NP>(wbuf + ((kc + 1) & 1) * S::NP * S::LDB, row, n0,
+                                         (kc + 1) * kKB, K);
+      const bf16* B = wbuf + (kc & 1) * S::NP * S::LDB + wn * 8 * NT * S::LDB;
+      warp_mma_k16<MT, NT>(Aw + kc * kKB, lda, B, S::LDB, acc);
+      if (kc * kKB + 16 < K) warp_mma_k16<MT, NT>(Aw + kc * kKB + 16, lda, B + 16, S::LDB, acc);
+    }
+    __syncthreads();  // every warp is done with wbuf
+    const int m0 = wm * 16 * MT, c0 = n0 + wn * 8 * NT;
+    for_each_acc(acc, [&](int r, int c, float v0, float v1) {
+      if (c0 + c < N) epi(m0 + r, c0 + c, v0, v1);
+    });
+    __syncthreads();
+    after(n0);
   }
 }
 

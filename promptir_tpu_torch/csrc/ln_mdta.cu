@@ -16,10 +16,10 @@
 // heads. In bf16 at 989 TFLOP/s and 3.35 TB/s (295 operations a byte) the
 // minimal traffic is the bound while (d + C) / 3 < 295, i.e. at every
 // promptir shape (d + C <= 880) and the operations only for one head at
-// C = 704 (d + C = 1408); chip_smoke.py prints which for every shape. This
-// first form is bound by neither: its products are fp32 SIMT FMAs from the
-// plain shared-memory tile of common.cuh, not wgmma, and it re-reads
-// W_proj and attn from L2 for every tile of pixels.
+// C = 704 (d + C = 1408); chip_smoke.py prints which for every shape. Both
+// routes re-read W_proj and attn from L2 for every tile of pixels; the
+// float32 route's products are SIMT FMAs (common.cuh:gemm_tile), the bf16
+// route's (mdta_apply_tc_kernel) on the tensor cores with attn in bf16.
 //
 // Dropped TPU workarounds: the 128-lane padding of C and of the attention
 // matrix (the masked off-head blocks cost the MXU a C x C product where
@@ -32,7 +32,7 @@ using namespace pk;
 struct ApplyArgs {
   const void* v;      // (B, H, W, C) T
   const void* x;      // (B, H, W, C) T
-  const float* attn;  // (B, heads, d, d) fp32
+  const void* attn;   // (B, heads, d, d) T
   const void* wproj;  // (C, C) T (out, in)
   void* x2;           // (B, H, W, C) T
   int B, HW, C, heads;
@@ -52,9 +52,32 @@ __global__ void __launch_bounds__(kThreads) mdta_apply_kernel(ApplyArgs a) {
   float* As = av + a.C * PT;
   float* Ws = As + kTileK * kLd;
   attn_apply_project<T, MP, false>(static_cast<const T*>(a.v), static_cast<const T*>(a.x),
-                                   a.attn, static_cast<const T*>(a.wproj),
+                                   static_cast<const float*>(a.attn),
+                                   static_cast<const T*>(a.wproj),
                                    static_cast<T*>(a.x2), b, a.C, a.heads, pix0, np, av,
                                    nullptr, As, Ws);
+}
+
+// The bf16 route: kPT pixels a block; X and AV (kPT x tc_ld(C) bf16), then
+// the weight double buffer (2 x 256 x tc_ld(32) bf16).
+__global__ void __launch_bounds__(kThreads) mdta_apply_tc_kernel(ApplyArgs a) {
+  extern __shared__ float4 smem4[];
+  const int b = blockIdx.y, ld = tc_ld(a.C);
+  const long long pix0 = (long long)b * a.HW + (long long)blockIdx.x * kPT;
+  const int np = min(kPT, a.HW - (int)blockIdx.x * kPT);
+  bf16* X = reinterpret_cast<bf16*>(smem4);
+  bf16* AV = X + kPT * ld;
+  attn_apply_project_tc(static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.x),
+                        static_cast<const bf16*>(a.attn), static_cast<const bf16*>(a.wproj),
+                        static_cast<bf16*>(a.x2), b, a.C, a.heads, pix0, np, X, AV,
+                        AV + kPT * ld);
+}
+
+int launch_tc(const ApplyArgs& a, size_t smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(mdta_apply_tc_kernel, smem);
+  if (err != cudaSuccess) return err;
+  mdta_apply_tc_kernel<<<dim3((a.HW + kPT - 1) / kPT, a.B), kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <class T, int MP>
@@ -69,9 +92,10 @@ int launch(const ApplyArgs& a, size_t smem, cudaStream_t stream) {
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success). `mp` is the
-// pixel tile's 16-pixel groups (4 or 2) and `smem` its shared-memory bytes,
-// both from ops/cuda/mdta.py (the wrapper checks the fit).
-extern "C" int ln_mdta_launch(int dtype, const void* v, const void* x, const float* attn,
+// pixel tile's 16-pixel groups (4 or 2; 4 in bf16) and `smem` its
+// shared-memory bytes, both from ops/cuda/mdta.py (the wrapper checks the
+// fit); a bf16 launch takes attn in bf16.
+extern "C" int ln_mdta_launch(int dtype, const void* v, const void* x, const void* attn,
                               const void* wproj, void* x2, int B, int H, int W, int C, int heads,
                               int mp, long long smem, void* stream) {
   ApplyArgs a;
@@ -79,12 +103,8 @@ extern "C" int ln_mdta_launch(int dtype, const void* v, const void* x, const flo
   a.B = B; a.HW = H * W; a.C = C; a.heads = heads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
-  if (mp == 4) {
-    if (dtype == kBF16) return launch<__nv_bfloat16, 4>(a, sm, s);
-    if (dtype == kF32) return launch<float, 4>(a, sm, s);
-  } else if (mp == 2) {
-    if (dtype == kBF16) return launch<__nv_bfloat16, 2>(a, sm, s);
-    if (dtype == kF32) return launch<float, 2>(a, sm, s);
-  }
+  if (dtype == kBF16) return launch_tc(a, sm, s);
+  if (dtype == kF32 && mp == 4) return launch<float, 4>(a, sm, s);
+  if (dtype == kF32 && mp == 2) return launch<float, 2>(a, sm, s);
   return cudaErrorInvalidValue;
 }

@@ -3,7 +3,10 @@
 //   av = attn v per head, rounded through T;
 //   x2 = x + W_proj av, rounded through T; written out, and kept in shared
 //        memory when the caller goes on from it (block_tail's LN2).
-// Products are fp32 from gemm_tile (common.cuh).
+// The float32 route's products are gemm_tile's (attn_apply_project), the
+// bf16 route's tc_gemm's on the tensor cores (attn_apply_project_tc), where
+// attn arrives in bf16: the wrapper rounds the softmax output once, as the
+// JAX composition does (promptir_tpu/ops/attention.py:81).
 #pragma once
 
 #include "common.cuh"
@@ -73,6 +76,63 @@ __device__ __forceinline__ void attn_apply_project(const T* v, const T* x, const
       }
   }
   __syncthreads();
+}
+
+constexpr int kPT = 64;  // pixels of a bf16 apply (or tail_a) block
+
+// The bf16 route: for the np valid pixels of a tile of kPT consecutive
+// pixels of image b from flat pixel pix0. X and AV are kPT x tc_ld(C) bf16
+// of shared memory, wbuf ProjGemm's double buffer. v is staged into X with
+// cp.async (0 past np), av = attn v per head into AV, then x2 = x + W_proj
+// av is written out and kept in X (0 past np). attn is (B, heads, d, d)
+// bf16, d a multiple of 8. Ends with a barrier.
+__device__ __forceinline__ void attn_apply_project_tc(const bf16* v, const bf16* x,
+                                                      const bf16* attn, const bf16* wproj,
+                                                      bf16* x2g, int b, int C, int heads,
+                                                      long long pix0, int np, bf16* X, bf16* AV,
+                                                      bf16* wbuf) {
+  const int d = C / heads, ld = tc_ld(C), tid = threadIdx.x;
+  for (int e = tid; e < kPT * (C / 8); e += kThreads) {
+    const int p = e / (C / 8), q = e % (C / 8);
+    const bool ok = p < np;
+    cp_async16(X + p * ld + q * 8, ok ? v + (pix0 + p) * C + q * 8 : v, ok);
+  }
+  cp_async_commit();
+  // the padding columns: a k16 step past a head's last channel reads them
+  for (int e = tid; e < kPT * (ld - C); e += kThreads) {
+    const int p = e / (ld - C), j = C + e % (ld - C);
+    X[p * ld + j] = AV[p * ld + j] = __float2bfloat16(0.f);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 1. av = attn v per head: a product of K = N = d on X's head columns
+  for (int hh = 0; hh < heads; ++hh) {
+    const bf16* at = attn + (long long)(b * heads + hh) * d * d;
+    tc_gemm<4, 1, 4>(
+        X + hh * d, ld,
+        [&](int n) -> const bf16* { return n < d ? at + (long long)n * d : nullptr; }, d, d, wbuf,
+        [&](int m, int n, float v0, float v1) { store2(AV + m * ld + hh * d + n, v0, v1); },
+        [](int) {});
+  }
+
+  // 2. x2 = x + W_proj av, rounded to bf16
+  tc_gemm<2, 2, 8>(
+      AV, ld, [&](int n) -> const bf16* { return n < C ? wproj + (long long)n * C : nullptr; }, C,
+      C, wbuf,
+      [&](int m, int n, float v0, float v1) {
+        float r0 = 0.f, r1 = 0.f;
+        if (m < np) {
+          const long long i = (pix0 + m) * C + n;
+          const float2 xv = load2(x + i);
+          const __nv_bfloat162 r = __floats2bfloat162_rn(xv.x + v0, xv.y + v1);
+          *reinterpret_cast<__nv_bfloat162*>(x2g + i) = r;
+          r0 = __low2float(r);
+          r1 = __high2float(r);
+        }
+        store2(X + m * ld + n, r0, r1);
+      },
+      [](int) {});
 }
 
 }  // namespace

@@ -14,6 +14,11 @@
 // mdta_stats.cu computes it from x as the product stages it, tail_stats.cu
 // once per tile. Rounding points: LN1's output is rounded through T; qkv,
 // the taps, q, k and the sums stay fp32; v is rounded through T.
+// stats_head_tc is the bf16 route: the qkv product and the Gram on the
+// tensor cores (common.cuh:tc_gemm, warp_mma_k16), LN1's output staged once
+// a tile as a bf16 operand; q and k are rounded to bf16 for the Gram while
+// their squared norms sum the unrounded fp32 values, the rounding of the
+// Pallas kernel (promptir_tpu/ops/pallas/mdta.py:113-124).
 #pragma once
 
 #include "common.cuh"
@@ -24,12 +29,6 @@ namespace {
 using namespace pk;
 
 constexpr int kMP = 4;  // 64 halo pixels per product pass
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // The shared-memory pieces of one stats tile (see the carving in the kernels).
 struct StatsSmem {
@@ -181,6 +180,152 @@ __device__ __forceinline__ void stats_head(LoadY ldy, const T* wqkv, const T* wd
     out[d * d + c] = sum;
   }
   __syncthreads();  // qk and pre are rewritten by the next head or tile
+}
+
+// ----------------------------------------------------------- bf16 route
+
+constexpr int kPreLd = 72;  // pre's row stride: 4 rows of float2 stores, distinct banks
+
+// The bf16 stats pass's shared memory beside its operand Y, in the order it
+// is carved (ops/cuda/mdta.py:stats_tc_bytes mirrors it).
+struct StatsTcSmem {
+  float* pre;   // ph x kPreLd: one 64-channel qkv chunk of the halo pixels, fp32
+  bf16* qT;     // rows(d) x tc_ld(pi): q of the interior pixels, channel-major
+  bf16* kT;     // rows(d) x tc_ld(pi): k
+  bf16* wbuf;   // the qkv product's weight double buffer
+  float* red;   // kThreads: partial squared norms
+  float* mean;  // ph each: LN1 statistics and flat pixel indices of the halo
+  float* rstd;
+  int* pix;
+  __host__ __device__ static int rows(int d) { return (d + 31) / 32 * 32; }
+  __host__ __device__ static int bytes(int ph, int pi, int d) {
+    return ph * kPreLd * 4 + 2 * rows(d) * tc_ld(pi) * 2 + TcShape<4, 1, 4>::WBUF * 2 +
+           kThreads * 4 + (3 * ph + 3) / 4 * 16;
+  }
+  __device__ StatsTcSmem(char* p, int ph, int pi, int d) {
+    pre = reinterpret_cast<float*>(p);
+    qT = reinterpret_cast<bf16*>(pre + ph * kPreLd);
+    kT = qT + rows(d) * tc_ld(pi);
+    wbuf = kT + rows(d) * tc_ld(pi);
+    red = reinterpret_cast<float*>(wbuf + TcShape<4, 1, 4>::WBUF);
+    mean = red + kThreads;
+    rstd = mean + ph;
+    pix = reinterpret_cast<int*>(rstd + ph);
+  }
+  // halo_ln_stats's view
+  __device__ StatsSmem ln() const {
+    StatsSmem s{};
+    s.mean = mean;
+    s.rstd = rstd;
+    s.pix = pix;
+    return s;
+  }
+};
+
+// Zero n bytes of shared memory from p (16-byte aligned, n a multiple of 16).
+__device__ __forceinline__ void zero_smem(void* p, int n) {
+  for (int e = threadIdx.x; e < n / 16; e += kThreads)
+    reinterpret_cast<uint4*>(p)[e] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Head h of the tile in the bf16 route, as stats_head: Y holds LN1's output
+// on the halo pixels (WM x 16 MT rows, stride ldy, 0 outside the image and
+// in the padding rows; columns up to C rounded to 16 finite). qT and kT must
+// hold zeros outside rows d and columns pi. Per pass of 64 qkv rows: the
+// product on the tensor cores into pre, then the taps on the interior
+// pixels, each thread one channel (its taps in registers) and every fourth
+// row (a 3 x 3 window of pre in registers): v written out, q and k to qT
+// and kT rounded to bf16, their unrounded fp32 squares summed per channel
+// (four partials added in order). Then the Gram of the rounded q and k on
+// the tensor cores, 16 x 32 tiles a warp. Ends with a barrier.
+template <int WM, int MT, int NT>
+__device__ __forceinline__ void stats_head_tc(const bf16* Y, int ldy, const bf16* wqkv,
+                                              const bf16* wdw, bf16* v, float* out, bool first,
+                                              int h, int heads, const StatsTile& t,
+                                              const StatsTcSmem& s) {
+  static_assert(TcShape<WM, MT, NT>::NP == 64, "pre holds 64 qkv rows a pass");
+  const int C = t.C, d = C / heads, th = t.th, tw = t.tw, tid = threadIdx.x;
+  const int hw = tw + 2, ph = (th + 2) * hw, pi = th * tw, n3 = 3 * d, ldq = tc_ld(pi);
+  tc_gemm<WM, MT, NT>(
+      Y, ldy,
+      [&](int nn) -> const bf16* {
+        return nn < n3 ? wqkv + (long long)((nn / d) * C + h * d + nn % d) * C : nullptr;
+      },
+      n3, C, s.wbuf,
+      [&](int m, int n, float v0, float v1) {
+        if (m < ph) *reinterpret_cast<float2*>(s.pre + m * kPreLd + (n & 63)) = make_float2(v0, v1);
+      },
+      [&](int n0) {
+        const int n = tid & 63, nn = n0 + n;
+        float nrm = 0.f;
+        if (nn < n3) {
+          const int sec = nn / d, ch = nn % d, row = sec * C + h * d + ch;
+          float wt[9];
+#pragma unroll
+          for (int t9 = 0; t9 < 9; ++t9) wt[t9] = to_f(wdw[row * 9 + t9]);
+          bf16* qk = (sec ? s.kT : s.qT) + ch * ldq;
+          for (int iy = tid >> 6; iy < th; iy += kThreads / 64) {
+            const float* pr = s.pre + iy * hw * kPreLd + n;
+            float win[3][3];
+#pragma unroll
+            for (int dy = 0; dy < 3; ++dy) {
+              win[dy][1] = pr[dy * hw * kPreLd];
+              win[dy][2] = pr[(dy * hw + 1) * kPreLd];
+            }
+            const int gy = t.ty0 + iy;
+            for (int ix = 0; ix < tw; ++ix) {
+#pragma unroll
+              for (int dy = 0; dy < 3; ++dy) {
+                win[dy][0] = win[dy][1];
+                win[dy][1] = win[dy][2];
+                win[dy][2] = pr[(dy * hw + ix + 2) * kPreLd];
+              }
+              float acc = 0.f;
+#pragma unroll
+              for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+                for (int dx = 0; dx < 3; ++dx) acc = fmaf(win[dy][dx], wt[dy * 3 + dx], acc);
+              const int gx = t.tx0 + ix;
+              const bool valid = gy < t.H && gx < t.W;
+              if (sec == 2) {
+                if (valid)
+                  v[((long long)(t.b * t.H + gy) * t.W + gx) * C + h * d + ch] =
+                      __float2bfloat16(acc);
+              } else {
+                const float u = valid ? acc : 0.f;
+                qk[iy * tw + ix] = __float2bfloat16(u);
+                nrm = fmaf(u, u, nrm);
+              }
+            }
+          }
+        }
+        s.red[tid] = nrm;
+        __syncthreads();
+        if (tid < 64 && n0 + tid < 2 * d) {
+          const float sum = s.red[tid] + s.red[64 + tid] + s.red[128 + tid] + s.red[192 + tid];
+          float* o = out + d * d + n0 + tid;
+          *o = first ? sum : *o + sum;
+        }
+      });
+  __syncthreads();  // qT and kT are complete
+
+  // the tile's partial Gram q^T k: K = the interior pixels, zero-padded to 16
+  const int ti = (d + 15) / 16, tj = (d + 31) / 32, kp = (pi + 15) / 16 * 16;
+  for (int tt = tid >> 5; tt < ti * tj; tt += kThreads / 32) {
+    const int i0 = (tt / tj) * 16, j0 = (tt % tj) * 32;
+    float acc[1][4][4];
+    zero_acc(acc);
+    for (int k = 0; k < kp; k += 16)
+      warp_mma_k16<1, 4>(s.qT + i0 * ldq + k, ldq, s.kT + j0 * ldq + k, ldq, acc);
+    for_each_acc(acc, [&](int r, int c, float v0, float v1) {
+      const int i = i0 + r, j = j0 + c;
+      if (i >= d || j >= d) return;
+      float* o = out + i * d + j;
+      o[0] = first ? v0 : o[0] + v0;
+      o[1] = first ? v1 : o[1] + v1;
+    });
+  }
+  __syncthreads();  // pre, qT and kT are rewritten by the next head or tile
 }
 
 // Sum the slots in slot order: (B*heads, nslots, n) -> (B*heads, n).

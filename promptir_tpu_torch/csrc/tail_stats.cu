@@ -33,15 +33,22 @@
 // Bound on the H100: the two functions' operations (about 15 C^2 MACs a
 // pixel) against v and x read and x3 and v2 written, one read of x3 fewer
 // than the two kernels apart. In bf16 the operations are the bound from
-// C = 96 (chip_smoke.py:megablock_bound prints it per forward). This first
-// form is bound by neither: its products are fp32 SIMT FMAs, not wgmma; it
-// still writes and reads back h (and x2) as block_tail does; and the ring
-// costs (th + 2)(tw + 2) / (th tw) of the W2 product, 1.56x at the 8 x 8
-// tile of C = 48 and 2x at the 4 x 6 tile of C = 384. Against gdfn_out it
-// computes each gate once instead of once per 64 outputs. A block of 256
-// threads is latency-bound alone, so ops/cuda/megablock.py:tail_stats_tile
-// takes the largest tile whose shared memory (MergedSmem) lets two blocks
-// share an SM.
+// C = 96 (chip_smoke.py:megablock_bound prints it per forward). Both routes
+// still write and read back h (and x2) as block_tail does, and the ring
+// costs (th + 2)(tw + 2) / (th tw) of the W2 and qkv products.
+// The float32 route (tail_stats_kernel, described above): SIMT FMAs, W2's
+// sums in shared memory between gate chunks, fp32 x3; the largest tile of
+// 8 x 8 / 6 x 6 / 4 x 6 whose shared memory (MergedSmem) lets two blocks
+// share an SM, as a SIMT block is latency-bound alone.
+// The bf16 route (tail_stats_tc_kernel, below): every product on the tensor
+// cores; W2's sums in registers over all gate chunks (gdfn.cuh:gdfn_w2, the
+// routine of block_tail's gdfn_out_tc, so x3 stays bit-exact), x3 in bf16;
+// tiles of 14 x 14 / 6 x 14 / 6 x 6 whose ring fills the product's 256 /
+// 128 / 64 rows (ring cost 1.31x / 1.52x / 1.78x), one block an SM (96
+// accumulator registers a thread); the stats pass on the tensor cores too
+// (mdta_stats.cuh:stats_head_tc). Per serving forward it is about as fast
+// as block_tail + mdta_stats apart (PERF.md): what the ring recomputes now
+// costs what the saved read of x3 gives back.
 //
 // Dropped TPU workarounds: the stripe lag and its rolling scratch, the extra
 // program per image, the clamped index maps, the W+2 / 128-lane padding.
@@ -235,6 +242,126 @@ __global__ void __launch_bounds__(kThreads) tail_stats_kernel(TailStatsArgs a) {
   }
 }
 
+// ----------------------------------------------------------- bf16 route
+
+// Shared-memory bytes of the bf16 merged block, in the order
+// tail_stats_tc_kernel carves them (ops/cuda/megablock.py mirrors this):
+//   X3   ph x tc_ld(C) bf16: x3 on the tile and its ring, then LN1's output
+//        in place (the stats pass's operand);
+//   then one scratch area, used first by gdfn_w2 (W2Smem on the ring and its
+//   halo, np = the accumulators' columns) and then by the stats pass
+//   (StatsTcSmem).
+__host__ __device__ inline int merged_tc_bytes(int th, int tw, int C, int d, int np) {
+  const int ph = (th + 2) * (tw + 2), w2 = W2Smem::bytes(th + 2, tw + 2, np);
+  const int st = StatsTcSmem::bytes(ph, th * tw, d);
+  return ph * tc_ld(C) * 2 + (w2 > st ? w2 : st);
+}
+
+// One block: slot blockIdx.x of image blockIdx.y, all heads of block n+1,
+// on th x tw tiles whose ring, (th + 2)(tw + 2) pixels, fills the W2
+// product's rows (WM x 16 MT); the accumulators hold all C outputs of the
+// ring in registers across every gate chunk (8 / WM x 8 NT >= C columns).
+// Per tile: 1. gdfn_w2 on the ring (the routine gdfn_out_tc runs on its
+// tile, so x3 equals block_tail's bit for bit); 2. x3 = x2 + that product,
+// rounded to bf16, into X3 (0 outside the image), the interior written out;
+// 3. LN1 on X3 in place, then stats_head_tc for each head.
+template <int WM, int MT, int NT, int TH, int TW>
+__global__ void __launch_bounds__(kThreads) tail_stats_tc_kernel(TailStatsArgs a) {
+  using S = TcShape<WM, MT, NT>;
+  constexpr int RW = TW + 2, PH = (TH + 2) * RW;
+  static_assert(S::M == PH, "the ring fills the product's rows");
+  extern __shared__ float4 smem4[];
+  const TailArgs& ta = a.tail;
+  const int slot = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int C = ta.C, H = ta.H, W = ta.W, heads = a.heads2, d = C / heads, ld = tc_ld(C);
+  const bf16* x2 = static_cast<const bf16*>(ta.x2);
+  const bf16* ln1w = static_cast<const bf16*>(a.ln1w);
+  const bf16* ln1b = static_cast<const bf16*>(a.ln1b);
+  bf16* x3 = static_cast<bf16*>(a.x3);
+  bf16* X3 = reinterpret_cast<bf16*>(smem4);
+  char* scratch = reinterpret_cast<char*>(X3 + PH * ld);
+  const W2Smem w2s(scratch, TH + 2, TW + 2, S::NP);
+  const StatsTcSmem ss(scratch, PH, TH * TW, d);
+  const StatsSmem ls = ss.ln();
+  const int warp = tid >> 5, m0 = (warp % WM) * 16 * MT, c0 = (warp / WM) * 8 * NT;
+  for (int e = tid; e < PH * (ld - C); e += kThreads)  // X3's padding stays zero
+    X3[(e / (ld - C)) * ld + C + e % (ld - C)] = __float2bfloat16(0.f);
+
+  for (int tile = slot; tile < a.tiles; tile += a.nslots) {
+    const int ty0 = (tile / a.tiles_w) * TH, tx0 = (tile % a.tiles_w) * TW;
+
+    // 1-2. x3 = x2 + W2 gate(h) on the tile and its ring
+    float acc[MT][NT][4];
+    gdfn_w2<WM, MT, NT>(static_cast<const bf16*>(ta.hid), static_cast<const float*>(ta.wdw),
+                        static_cast<const bf16*>(ta.w2), b, H, W, C, packed_f(ta.F), ty0 - 1,
+                        tx0 - 1, TH + 2, TW + 2, w2s, acc);
+    for_each_acc(acc, [&](int r, int c, float v0, float v1) {
+      const int hp = m0 + r, n = c0 + c;
+      if (n >= C) return;
+      const int ry = hp / RW, rx = hp % RW, gy = ty0 - 1 + ry, gx = tx0 - 1 + rx;
+      __nv_bfloat162 val = __floats2bfloat162_rn(0.f, 0.f);
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const long long i = ((long long)(b * H + gy) * W + gx) * C + n;
+        const float2 xv = load2(x2 + i);
+        val = __floats2bfloat162_rn(xv.x + v0, xv.y + v1);
+        if (ry >= 1 && ry <= TH && rx >= 1 && rx <= TW)
+          *reinterpret_cast<__nv_bfloat162*>(x3 + i) = val;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(X3 + hp * ld + n) = val;
+    });
+    __syncthreads();
+
+    // 3. block n+1's stats pass: LN1 once per tile, in place, then each head
+    const StatsTile t{b, ty0, tx0, TH, TW, H, W, C};
+    halo_ln_stats([&](int hp, int, int c) -> float { return to_f(X3[hp * ld + c]); }, t, ta.eps,
+                  ls);
+    zero_smem(ss.qT, 2 * StatsTcSmem::rows(d) * tc_ld(TH * TW) * 2);  // phase 1's leftovers
+    __syncthreads();
+    for (int hp = warp; hp < PH; hp += kThreads / 32) {  // a warp a pixel
+      const bool out = ss.pix[hp] < 0;
+      const float mean = ss.mean[hp], rstd = ss.rstd[hp];
+      for (int c = tid & 31; c < C; c += 32)
+        X3[hp * ld + c] = __float2bfloat16(
+            out ? 0.f
+                : ln1_value(to_f(X3[hp * ld + c]), mean, rstd, ln1w, ln1b, c, ta.bias_free));
+    }
+    __syncthreads();
+    for (int h = 0; h < heads; ++h) {
+      float* out = a.part + ((long long)(b * heads + h) * a.nslots + slot) * (d * d + 2 * d);
+      // the slot's first tile writes, the rest add
+      stats_head_tc<4, PH / 64, 4>(X3, ld, static_cast<const bf16*>(a.wqkv),
+                                   static_cast<const bf16*>(a.wdwa), static_cast<bf16*>(a.v2),
+                                   out, tile == slot, h, heads, t, ss);
+    }
+  }
+}
+
+template <int WM, int MT, int NT, int TH, int TW>
+int launch_tc_at(const TailStatsArgs& a, float* stats, size_t smem, cudaStream_t stream) {
+  if (a.th != TH || a.tw != TW) return cudaErrorInvalidValue;
+  cudaError_t err = launch_tail_a_tc(a.tail, stream);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(tail_stats_tc_kernel<WM, MT, NT, TH, TW>, smem);
+  if (err != cudaSuccess) return err;
+  tail_stats_tc_kernel<WM, MT, NT, TH, TW>
+      <<<dim3(a.nslots, a.tail.B), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_stats_reduce(a.part, stats, a.tail.B, a.heads2, a.tail.C, a.nslots, stream);
+}
+
+// The bf16 tile and warp layout by width (ops/cuda/megablock.py:TC_TILES):
+// the ring fills 256, 128 or 64 rows and the accumulators 96 registers a
+// thread at C = 96, 192 and 384 (48 at C = 48).
+int launch_tc(const TailStatsArgs& a, float* stats, size_t smem, cudaStream_t stream) {
+  const int C = a.tail.C;
+  if (C <= 48) return launch_tc_at<4, 4, 3, 14, 14>(a, stats, smem, stream);
+  if (C <= 96) return launch_tc_at<4, 4, 6, 14, 14>(a, stats, smem, stream);
+  if (C <= 192) return launch_tc_at<2, 4, 6, 6, 14>(a, stats, smem, stream);
+  if (C <= 384) return launch_tc_at<1, 4, 6, 6, 6>(a, stats, smem, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <class T, int MP>
 int launch(const TailStatsArgs& a, float* stats, size_t smem, cudaStream_t stream) {
   cudaError_t err = launch_tail_a<T, MP>(a.tail, stream);
@@ -251,14 +378,19 @@ int launch(const TailStatsArgs& a, float* stats, size_t smem, cudaStream_t strea
 
 // Shared-memory bytes of one merged block at a (th, tw) tile, width C and
 // head width d (the Python wrapper picks the tile and checks the fit).
-extern "C" long long tail_stats_smem(int th, int tw, int C, int d) {
+extern "C" long long tail_stats_smem(int dtype, int th, int tw, int C, int d) {
+  if (dtype == kBF16) {
+    const int n8 = C <= 48 ? 6 : C <= 96 ? 12 : C <= 192 ? 24 : 48;  // launch_tc's columns / 8
+    return merged_tc_bytes(th, tw, C, d, 8 * n8);
+  }
   return (long long)MergedSmem(th, tw, C, d).floats() * sizeof(float);
 }
 
 // Returns the CUDA error code of the launches (0 on success). `smem` is
 // tail_stats_smem's bytes for the launch's tile (the wrapper checks the
-// fit, and tail_a's).
-extern "C" int tail_stats_launch(int dtype, const void* v, const void* x, const float* attn,
+// fit, and tail_a's). In bf16, attn is bf16, w1, wdw and w2 the packed
+// copies and hid (B, H, W, 2Fp).
+extern "C" int tail_stats_launch(int dtype, const void* v, const void* x, const void* attn,
                                  const void* wproj, const void* ln2w, const void* ln2b,
                                  const void* w1, const void* wdw, const void* w2,
                                  const void* ln1w, const void* ln1b, const void* wqkv,
@@ -279,9 +411,7 @@ extern "C" int tail_stats_launch(int dtype, const void* v, const void* x, const 
   a.nslots = nslots;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide = tail_mp(C) == 4;
-  if (dtype == kBF16)
-    return wide ? launch<__nv_bfloat16, 4>(a, stats, (size_t)smem, s)
-                : launch<__nv_bfloat16, 2>(a, stats, (size_t)smem, s);
+  if (dtype == kBF16) return launch_tc(a, stats, (size_t)smem, s);
   if (dtype == kF32)
     return wide ? launch<float, 4>(a, stats, (size_t)smem, s)
                 : launch<float, 2>(a, stats, (size_t)smem, s);

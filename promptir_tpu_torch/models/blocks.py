@@ -26,8 +26,10 @@ under autograd, or for a single block, it runs `block_forward` per block.
 `gdfn_forward` replaces `fused_gdfn_apply` (blocks.py:188): x + GDFN(LN(x))
 through the LN+GDFN kernel, under `LnGdfn` when autograd records.
 Weights are cast to the activations' dtype at use, so a model with float32
-weights can compute in bfloat16. A tensor on the card always goes through
-the kernels; a tensor on the CPU through their plain versions.
+weights can compute in bfloat16; without autograd the cast copy is kept
+beside its weight (`cast_weight`, ops/cuda/packed.py). A tensor on the card
+always goes through the kernels; a tensor on the CPU through their plain
+versions.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from promptir_tpu_torch.ops.cuda.block import block_tail
 from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn
 from promptir_tpu_torch.ops.cuda.mdta import attn_from_stats, mdta_stats
 from promptir_tpu_torch.ops.cuda.megablock import tail_stats
+from promptir_tpu_torch.ops.cuda.packed import cast_weight
 from promptir_tpu_torch.ops.gdfn import GDFN
 from promptir_tpu_torch.ops.norm import LayerNorm
 
@@ -63,7 +66,7 @@ def nchw(x):
 
 
 def _cast(dt, *ws):
-    return [None if t is None else t.to(dt) for t in ws]
+    return [cast_weight(t, dt) for t in ws]
 
 
 def block_forward(norm1: LayerNorm, attn: MDTA, norm2: LayerNorm, ffn: GDFN,

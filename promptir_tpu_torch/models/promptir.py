@@ -136,7 +136,9 @@ class PromptIR(nn.Module):
         # up2_1's conv, then pixel-shuffle + skip concat in one seam pass
         x = nchw(Seam.apply(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
         x = run(self.refinement, run(self.decoder_level1, x))
-        return (self.output(x) + inp).float()
+        # the global residual in float32, as the JAX package's jitted forward
+        # computes it (XLA keeps the bf16 sum in f32 before the final cast)
+        return self.output(x).float() + inp.float()
 
 
 @register_model("promptir")

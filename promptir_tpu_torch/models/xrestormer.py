@@ -143,7 +143,9 @@ class XRestormer(nn.Module):
         x = self.prompt(1, self.decoder_level2(x))
         x = self.decoder_level1(cat([self.up2_1(x), enc1], 1))
         x = self.refinement(x)
-        return (self.output(x) + inp).float()
+        # the global residual in float32, as the JAX package's jitted forward
+        # computes it (XLA keeps the bf16 sum in f32 before the final cast)
+        return self.output(x).float() + inp.float()
 
 
 @register_model("xrestormerir")

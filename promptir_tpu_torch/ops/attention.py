@@ -31,7 +31,7 @@ def channel_attention(q, k, v, temperature, num_heads: int):
     q = F.normalize(q, dim=-1)
     k = F.normalize(k, dim=-1)
     attn = (q @ k.transpose(-2, -1)) * temperature.float()
-    attn = attn.softmax(dim=-1)
+    attn = attn.softmax(dim=-1).to(dt).float()  # as the JAX composition rounds it
     return (attn @ v).to(dt).reshape(b, c, h, w)
 
 

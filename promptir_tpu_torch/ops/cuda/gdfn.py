@@ -4,7 +4,9 @@
   out = x + W2 (gelu(h1) * h2),  [h1, h2] = dw3x3(W1 LN(x)).
 The kernels are csrc/ln_gdfn.cu: ln_gdfn_a up to the hidden tensor, then
 the gdfn_out kernel that block_tail's tail_b also is (csrc/gdfn.cuh), with
-the residual read from x (one `ln_gdfn` call launches both).
+the residual read from x (one `ln_gdfn` call launches both). In float32
+they take the SIMT tile, in bfloat16 the tensor cores with the weights'
+packed copy (ops/cuda/packed.py).
 
 Rounding points, shared by the kernels and the plain version: LN(x), the
 hidden h and the gated gelu(h1) * h2 are each rounded to x's dtype; the
@@ -20,30 +22,47 @@ import torch
 import torch.nn.functional as F
 
 from promptir_tpu_torch.ops.conv import dwconv3x3_nhwc
-from promptir_tpu_torch.ops.cuda import build
-from promptir_tpu_torch.ops.cuda.mdta import GEMM_STAGE_FLOATS, SMEM_LIMIT
+from promptir_tpu_torch.ops.cuda import build, packed
+from promptir_tpu_torch.ops.cuda.block import TC_MAX_WIDTH
+from promptir_tpu_torch.ops.cuda.mdta import (
+    GEMM_STAGE_FLOATS,
+    PIXELS,
+    PROJ_WBUF,
+    SMEM_LIMIT,
+    tc_ld,
+)
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-PIXELS = 64  # pixels of one ln_gdfn_a block (16 * kMP)
 THREADS = 256
 
 
-def ln_gdfn_smem(c: int) -> int:
-    """Shared-memory bytes of one ln_gdfn_a block: the x tile (C x 64 fp32),
-    the product staging tiles and the LN reduction (csrc/ln_gdfn.cu)."""
+def ln_gdfn_smem(c: int, dtype=torch.float32) -> int:
+    """Shared-memory bytes of one ln_gdfn_a block of 64 pixels
+    (csrc/ln_gdfn.cu). float32: the x tile (C x 64 fp32), the product
+    staging tiles and the LN reduction; bfloat16: the x tile (64 x tc_ld(C)
+    bf16) and the weight double buffer."""
+    if dtype == torch.bfloat16:
+        return PIXELS * tc_ld(c) * 2 + PROJ_WBUF * 2
     return (c * PIXELS + GEMM_STAGE_FLOATS + THREADS + 2 * PIXELS) * 4
 
 
 def _launch(x, lnw, lnb, w1, wdw, w2, bias_free, eps):
     b, h, w, c = x.shape
     f = w2.shape[1]
-    smem = ln_gdfn_smem(c)
+    smem = ln_gdfn_smem(c, x.dtype)
     if smem > SMEM_LIMIT:
         raise ValueError(f"ln_gdfn: C={c} needs {smem} bytes of shared memory "
                          f"(> {SMEM_LIMIT})")
-    hid = torch.empty((b, h, w, 2 * f), device=x.device, dtype=x.dtype)
+    f2 = 2 * f
+    if x.dtype == torch.bfloat16:
+        if c > TC_MAX_WIDTH or c % 8:
+            raise ValueError(f"ln_gdfn: bf16 takes C a multiple of 8 up to "
+                             f"{TC_MAX_WIDTH}, got {c}")
+        w1, wdw, w2 = packed.gdfn_weights(w1, wdw, w2)
+        f2 = 2 * packed.packed_f(f)
+    hid = torch.empty((b, h, w, f2), device=x.device, dtype=x.dtype)
     out = torch.empty_like(x)
     fn = build.function("ln_gdfn_launch",
                         [_I] + [_P] * 8 + [_I] * 6

@@ -14,6 +14,10 @@ layout, so `attn_from_stats(stats, temperature of block n+1)` takes it.
 Rounding points are those of the two functions apart: x3 is block_tail's
 output bit for bit and v2 mdta_stats's on it; the Gram sums the same
 products in another order. The plain version is exactly that composition.
+
+In float32 the merged kernel takes the SIMT tile and its tile rule is
+TILES'; in bfloat16 it takes the tensor cores and TC_TILES' tiles, whose
+ring fills the W2 product's rows.
 """
 
 from __future__ import annotations
@@ -23,7 +27,11 @@ import ctypes
 import torch
 
 from promptir_tpu_torch.ops.cuda import build
-from promptir_tpu_torch.ops.cuda.block import block_tail_plain
+from promptir_tpu_torch.ops.cuda.block import (
+    block_tail_plain,
+    tail_operands,
+    w2_bytes,
+)
 from promptir_tpu_torch.ops.cuda.mdta import (
     GEMM_STAGE_FLOATS,
     QKV_CHUNK,
@@ -31,6 +39,9 @@ from promptir_tpu_torch.ops.cuda.mdta import (
     STATS_BLOCKS,
     STATS_BUDGET,
     mdta_stats_plain,
+    check_tc_width,
+    stats_tc_bytes,
+    tc_ld,
 )
 
 _P = ctypes.c_void_p
@@ -40,15 +51,24 @@ _I = ctypes.c_int
 # (tail_stats_tile picks one): the tiles that two resident blocks an SM
 # allow at the promptir stacks' widths.
 TILES = ((8, 8), (6, 6), (4, 6))
+# bfloat16: (widest C, tile) by width class (csrc/tail_stats.cu:launch_tc):
+# the ring, (th + 2)(tw + 2) pixels, fills 256, 128 or 64 rows of the W2
+# product, whose accumulators hold all C outputs in registers (96 a thread
+# at C = 96, 192 and 384)
+TC_TILES = ((48, (14, 14)), (96, (14, 14)), (192, (6, 14)), (384, (6, 6)))
 GATE_CHUNK = 32  # gate channels of one chunk of the W2 product (kKC)
 SM_SMEM = 233472  # bytes of shared memory of one H100 SM (228 KB)
 BLOCK_RESERVED = 1024  # bytes the runtime keeps per resident block
 
 
-def _smem(c: int, num_heads: int, tile) -> int:
+def _smem(c: int, num_heads: int, tile, dtype=torch.float32) -> int:
     d = c // num_heads
     th, tw = tile
     ph, pi = (th + 2) * (tw + 2), th * tw
+    if dtype == torch.bfloat16:
+        cols = next(n for n, _ in TC_TILES if c <= n)
+        return ph * tc_ld(c) * 2 + max(w2_bytes(th + 2, tw + 2, cols),
+                                       stats_tc_bytes(ph, pi, d))
     ldh = (th + 4) * (tw + 4) | 1
     head = -(-(ph * c + 3 * ph) // 4) * 4
     w2_product = (64 * ldh + 64 * 9 + GATE_CHUNK * ph
@@ -57,13 +77,28 @@ def _smem(c: int, num_heads: int, tile) -> int:
     return 4 * (head + max(w2_product, stats_pass))
 
 
-def tail_stats_tile(c: int, num_heads: int) -> tuple[int, int]:
+def tail_stats_tile(c: int, num_heads: int,
+                    dtype=torch.float32) -> tuple[int, int]:
     """Interior (rows, cols) of one merged block's tile for width c and
-    block n+1's heads: the largest whose shared memory lets two blocks share
-    an SM. A block of 256 threads is latency bound alone, and on the H100 a
-    second resident block gained more than the larger ring of a smaller tile
-    cost (PERF.md, PR 7). The promptir stacks get 8 x 8 at C = 48 and 96
-    (two heads), 6 x 6 at C = 192 and 96 (one head), 4 x 6 at C = 384."""
+    block n+1's heads.
+
+    bfloat16: TC_TILES' tile of c's width class (14 x 14 up to C = 96, 6 x
+    14 at 192, 6 x 6 at 384), whose ring fills the tensor-core product's
+    rows; one block an SM (its accumulators take 96 registers a thread). A
+    width above 384, or whose shared memory exceeds a block's, raises.
+
+    float32: the largest of TILES whose shared memory lets two blocks share
+    an SM. A SIMT block of 256 threads is latency bound alone, and on the
+    H100 a second resident block gained more than the larger ring of a
+    smaller tile cost (PERF.md). The promptir stacks get 8 x 8 at C =
+    48 and 96 (two heads), 6 x 6 at C = 192 and 96 (one head), 4 x 6 at
+    C = 384."""
+    if dtype == torch.bfloat16:
+        for widest, tile in TC_TILES:
+            if c <= widest and _smem(c, num_heads, tile, dtype) <= SMEM_LIMIT:
+                return tile
+        raise ValueError(f"tail_stats: C={c}, heads={num_heads} fits no tile "
+                         f"of the bf16 route (C up to {TC_TILES[-1][0]})")
     two_per_sm = SM_SMEM // 2 - BLOCK_RESERVED
     for tile in TILES:
         if _smem(c, num_heads, tile) <= two_per_sm:
@@ -72,24 +107,28 @@ def tail_stats_tile(c: int, num_heads: int) -> tuple[int, int]:
                      f"{two_per_sm} bytes of shared memory")
 
 
-def tail_stats_smem(c: int, num_heads: int) -> int:
+def tail_stats_smem(c: int, num_heads: int, dtype=torch.float32) -> int:
     """Shared-memory bytes of one merged block, as csrc/tail_stats.cu
     (MergedSmem) carves them: x3 on the tile and its 1-pixel ring (ph x C
     fp32, then LN1's output in place), the ring's LN1 mean, rstd and flat
     pixel indices, and one scratch area that the W2 product uses first (h of
     32 gate channels and their partners on a 2-pixel ring, their taps, the
     gated values, a chunk of W2) and the stats pass then (q and k of the
-    interior, one qkv chunk of the ring, the product staging tiles)."""
-    return _smem(c, num_heads, tail_stats_tile(c, num_heads))
+    interior, one qkv chunk of the ring, the product staging tiles). In
+    bfloat16 (merged_tc_bytes): x3 on the tile and its ring (bf16, then
+    LN1's output in place), then one scratch area for w2_bytes and then
+    stats_tc_bytes."""
+    return _smem(c, num_heads, tail_stats_tile(c, num_heads, dtype), dtype)
 
 
-def tail_stats_slots(b: int, h: int, w: int, c: int, num_heads: int) -> int:
+def tail_stats_slots(b: int, h: int, w: int, c: int, num_heads: int,
+                     dtype=torch.float32) -> int:
     """Slots of one image: the merged blocks of it, each walking the tiles
     slot, slot + nslots, ... and summing every head's partial Gram into its
     own slot. One a tile while the partial Grams fit STATS_BUDGET, else
     enough for about STATS_BLOCKS blocks, as mdta_stats's slots."""
     d = c // num_heads
-    th, tw = tail_stats_tile(c, num_heads)
+    th, tw = tail_stats_tile(c, num_heads, dtype)
     tiles = -(-h // th) * -(-w // tw)
     per_slot = 4 * b * num_heads * (d * d + 2 * d)
     return min(tiles, max(-(-STATS_BLOCKS // b), STATS_BUDGET // per_slot))
@@ -101,21 +140,24 @@ def _launch(v, x, attn, wproj, ln2w, ln2b, w1, wdw, w2, ln1w, ln1b, wqkv,
     heads = attn.shape[1]
     f = w2.shape[1]
     d = c // num_heads
-    th, tw = tail_stats_tile(c, num_heads)
-    smem = tail_stats_smem(c, num_heads)
-    carved = build.function("tail_stats_smem", [_I] * 4, ctypes.c_longlong)(
-        th, tw, c, d)
+    code = build.dtype_code(x)
+    th, tw = tail_stats_tile(c, num_heads, x.dtype)
+    smem = tail_stats_smem(c, num_heads, x.dtype)
+    carved = build.function("tail_stats_smem", [_I] * 5, ctypes.c_longlong)(
+        code, th, tw, c, d)
     if carved != smem:
         raise RuntimeError(f"tail_stats: the kernel carves {carved} bytes of "
                            f"shared memory, the wrapper counted {smem}")
-    smem_a = build.function("block_tail_smem", [_I], ctypes.c_longlong)(c)
+    smem_a = build.function("block_tail_smem", [_I, _I], ctypes.c_longlong)(
+        code, c)
     if smem_a > SMEM_LIMIT:
         raise ValueError(f"tail_stats: C={c} needs {smem_a} bytes of shared "
                          f"memory in tail_a (> {SMEM_LIMIT})")
-    nslots = tail_stats_slots(b, h, w, c, num_heads)
+    attn, w1, wdw, w2, f2 = tail_operands(x, attn, w1, wdw, w2, f, "tail_stats")
+    nslots = tail_stats_slots(b, h, w, c, num_heads, x.dtype)
     n = d * d + 2 * d
     x2 = torch.empty_like(x)
-    hid = torch.empty((b, h, w, 2 * f), device=x.device, dtype=x.dtype)
+    hid = torch.empty((b, h, w, f2), device=x.device, dtype=x.dtype)
     x3 = torch.empty_like(x)
     v2 = torch.empty_like(x)
     part = torch.empty((b, num_heads, nslots, n), device=x.device,
@@ -127,10 +169,9 @@ def _launch(v, x, attn, wproj, ln2w, ln2b, w1, wdw, w2, ln1w, ln1b, wqkv,
            (v, x, attn, wproj, ln2w, ln2b, w1, wdw, w2, ln1w, ln1b, wqkv, wdwa,
             x2, hid, x3, v2, part, stats)]
     with build.on_card_of(x):
-        code = fn(build.dtype_code(x), *ptr, b, h, w, c, heads, num_heads, f,
-                  th, tw, nslots, int(bias_free), eps, smem,
-                  build.stream_of(x))
-    build.check(code, "tail_stats")
+        err = fn(code, *ptr, b, h, w, c, heads, num_heads, f, th, tw, nslots,
+                 int(bias_free), eps, smem, build.stream_of(x))
+    build.check(err, "tail_stats")
     return x3, v2, stats
 
 
@@ -170,6 +211,7 @@ def tail_stats(v, x, attn, w_proj, ln2_w, ln2_b, w1, w_dw, w2, ln1_w, ln1_b,
                             "and dtype")
     if attn.device != x.device:
         raise TypeError("tail_stats: attn must be on x's device")
+    check_tc_width(x, c, num_heads, "tail_stats")
     v, x, attn = v.contiguous(), x.contiguous(), attn.contiguous()
     ws = [None if t is None else t.contiguous() for t in ws]
     out = _launch(v, x, attn, *ws, num_heads, bias_free, eps)

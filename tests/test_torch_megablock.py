@@ -121,9 +121,10 @@ def test_tail_stats_is_block_tail_then_mdta_stats():
 
 
 def test_every_tile_serves_a_chained_width():
-    """TILES holds only tiles that the rule returns at the promptir stacks'
-    widths, and at each width the rule's tile is the first of TILES within
-    the two-blocks-an-SM budget."""
+    """TILES (float32) holds only tiles that the rule returns at the promptir
+    stacks' widths, and at each width the rule's tile is the first of TILES
+    within the two-blocks-an-SM budget; TC_TILES (bfloat16) holds only tiles
+    the stacks take, each the tile of its width class."""
     widths = [(48, 1), (96, 2), (192, 4), (384, 8), (96, 1)]
     two_per_sm = megablock.SM_SMEM // 2 - megablock.BLOCK_RESERVED
     picked = {megablock.tail_stats_tile(c, heads) for c, heads in widths}
@@ -132,6 +133,12 @@ def test_every_tile_serves_a_chained_width():
         i = megablock.TILES.index(megablock.tail_stats_tile(c, heads))
         assert all(megablock._smem(c, heads, t) > two_per_sm
                    for t in megablock.TILES[:i])
+    bf16 = torch.bfloat16
+    picked = {megablock.tail_stats_tile(c, heads, bf16) for c, heads in widths}
+    assert picked == {t for _, t in megablock.TC_TILES}
+    for c, heads in widths:
+        widest, tile = next(e for e in megablock.TC_TILES if c <= e[0])
+        assert megablock.tail_stats_tile(c, heads, bf16) == tile
 
 
 def test_tail_stats_tile_fits_every_chained_width():
@@ -146,6 +153,16 @@ def test_tail_stats_tile_fits_every_chained_width():
         assert megablock.tail_stats_smem(c, heads) <= two_per_sm
     with pytest.raises(ValueError, match="fits no tile"):
         megablock.tail_stats_tile(704, 1)
+    # bfloat16: the ring fills the tensor-core product's rows, one block an SM
+    bf16 = torch.bfloat16
+    want = {(48, 1): (14, 14), (96, 2): (14, 14), (192, 4): (6, 14),
+            (384, 8): (6, 6), (96, 1): (14, 14)}
+    for (c, heads), tile in want.items():
+        assert megablock.tail_stats_tile(c, heads, bf16) == tile
+        assert megablock.tail_stats_smem(c, heads, bf16) <= mdta.SMEM_LIMIT
+    with pytest.raises(ValueError, match="fits no tile"):
+        megablock.tail_stats_tile(704, 1, bf16)
+    assert megablock.tail_stats_slots(4, 256, 256, 48, 1, bf16) == 19 * 19
     d = 48
     per_slot = 4 * 4 * (d * d + 2 * d)
     assert megablock.tail_stats_slots(4, 256, 256, 48, 1) == 32 * 32
@@ -252,9 +269,10 @@ def test_tail_stats_launches_inside_its_card(monkeypatch):
 
     def function(name, argtypes, restype=None):
         if name == "block_tail_smem":
-            return lambda c: 0
+            return lambda dtype, c: 0
         if name == "tail_stats_smem":
-            return lambda th, tw, c, d: megablock._smem(c, c // d, (th, tw))
+            return lambda dtype, th, tw, c, d: megablock._smem(c, c // d,
+                                                               (th, tw))
         assert len(argtypes) == 34  # the C signature of tail_stats_launch
         return lambda *args: log.append(("launch", name, args)) or 0
 

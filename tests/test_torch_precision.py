@@ -133,7 +133,7 @@ def test_every_wrapper_launches_inside_its_card(monkeypatch):
 
     def function(name, argtypes, restype=None):
         if name == "block_tail_smem":
-            return lambda c: 0
+            return lambda dtype, c: 0
         return lambda *args: log.append(("launch", name, args[-1])) or 0
 
     monkeypatch.setattr(build, "function", function)

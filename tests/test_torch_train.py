@@ -84,15 +84,17 @@ def test_reduced_promptir_loss_and_grads_match_jax():
 # tensor's max |grad| and the median over tensors within BF16_GRAD_MEDIAN.
 # The JAX package's own bf16 gradients of this model and batch differ that
 # much between its eager and its jitted forms (XLA keeps excess precision in
-# fusions): up to 0.179 of a tensor's max, median 0.018. The port against
-# the jitted form measured 0.152 (decoder_level1.0.attn.temperature),
-# median 0.0138 to 0.0141; against the eager form 0.102, median 0.0145.
-# PromptGen with its rounding points in the wrong order (the GAP, the
-# Linear and the mix all kept in float32) measured 0.155, median 0.0188
-# to 0.0197:
-# the per-tensor bound does not see that fault, the median bound does.
+# fusions): up to 0.179 of a tensor's max, median 0.018. The L1 loss's sign
+# makes the median follow the outputs' agreement with the jitted forward.
+# With attn rounded into the apply, q and k rounded into the Gram and the
+# global residual summed in float32, the port measured a median of 0.0082
+# to 0.0086 over 1 to 8 CPU threads (0.0138 to 0.0147 before). PromptGen
+# with its rounding points in the wrong order (the GAP, the Linear and the
+# mix all kept in float32) measured a median of 0.0139 to 0.0140 (0.0188
+# to 0.0197 before, when the bound was 0.017): the per-tensor bound does
+# not see that fault, the median bound does.
 BF16_GRAD_TOL = 0.25
-BF16_GRAD_MEDIAN = 0.017
+BF16_GRAD_MEDIAN = 0.011
 
 
 def test_reduced_promptir_bf16_grads_match_jax():
