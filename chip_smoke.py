@@ -3,36 +3,40 @@
 
     python3 chip_smoke.py
 
-Four main paths are driven: serving PromptIR (`promptir`) and the
-X-Restormer family's PromptXRestormer (`promptxrestormerir`, the
-reference's training config), serving PromptIR through the overlap-blend
-tiler (`tiled`), and training PromptIR. Phases, each printed with the
-seconds since start:
+Four main paths are driven: serving PromptIR (`promptir`, each block
+alone, and `promptir_chained`, its level stacks chained through tail_stats
+with `fused_ffn=True`) and the X-Restormer family's PromptXRestormer
+(`promptxrestormerir`, the reference's training config), serving PromptIR
+through the overlap-blend tiler (`tiled`), and training PromptIR. Phases,
+each printed with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
      together), with ptxas register and shared memory use, and the
      tensor-core instructions (HMMA/HGMMA) of each kernel in the built
-     library (cuobjdump): the bf16 tail kernels must hold some;
+     library (cuobjdump): the bf16 tail, stats and Gram kernels must hold
+     some;
   3. each kernel against its plain PyTorch version on the card, in float32
      (TF32 off) and bfloat16: at every shape a batch-4 forward of either
      model at the serving run's 256x256 and 256x192 buckets gives it, and
-     at every shape of the training step (batch 6 at 128x128); the seam
-     bit-exact; the stats pass's partial-Gram buffer at two sizes; and the
-     merged tail + stats kernel (tail_stats) at every block pair of the
-     promptir stacks at both serving buckets and at the tiler's B8 128x128,
-     against its plain version and against the two-kernel sequence
-     (block_tail then mdta_stats), whose x3 it must equal bit for bit;
+     at every shape of the training step (batch 6 at 128x128); mdta_stats
+     twice at each (the two launches bit-identical), the Gram kernel at
+     every wide-route shape; the seam bit-exact; the stats pass's scratch at
+     four sizes; and the merged tail + stats kernel (tail_stats) at every
+     block pair of the promptir stacks at both serving buckets and at the
+     tiler's B8 128x128, against its plain version and against the
+     two-kernel sequence (block_tail then mdta_stats), whose x3 it must
+     equal bit for bit;
   4. the reference's own 64 px outputs reproduced in float32 through the
-     kernels: full-depth PromptIR (tests/goldens/promptir_full.npz, through
-     the chained stacks and so through tail_stats) and
+     kernels: full-depth PromptIR (tests/goldens/promptir_full.npz) block
+     by block and with fused_ffn=True (through tail_stats), and
      one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz),
      with TF32 off (as the engine and trainer run float32) and, printed
      only, with PyTorch's defaults; then full-depth PromptIR's bf16 B4
      256x256 forward through the kernels against the same forward through
      the plain versions (FORWARD_TOL_BF16);
-  5. each model at full width (random weights from a seed, bf16) serving
-     eight requests through the port's engine, with the kernels' launch
-     counts set to 0 just before each run and read just after; then
+  5. each serving path at full width (random weights from a seed, bf16)
+     serving eight requests through the port's engine, with the kernels'
+     launch counts set to 0 just before each run and read just after; then
      full-depth PromptIR serving two 1024x768 photographs through the
      engine's tiled path (128 px tiles, overlap 32, 8 a chunk: 88 tiles in
      11 forwards an image), in float32 against the same run through the
@@ -48,11 +52,13 @@ seconds since start:
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
      PyTorch call that computes the same function where there is one, and
-     its bound, at every shape of a 256x256 serving forward of each model
-     and of the training forward, block_tail's per shape with its tile
-     for the serving and tiled paths; tail_stats at every block pair of
-     the promptir stacks at B4 256x256 and B8 128x128, with its tile,
-     beside the two-kernel sequence it replaces.
+     its bound, at every shape of a 256x256 serving forward of each model,
+     of the training forward and of the tiled path's chunk; mdta_stats per
+     shape with its route and tile, block_tail per shape with its tile, the
+     Gram kernel at the wide shapes; tail_stats at every block pair of the
+     promptir stacks at B4 256x256 and B8 128x128, with its tile, beside
+     the two-kernel sequence it replaces, and the chained route's decision
+     (CHAIN_RATIO, CHAIN_FORWARD_MS).
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 
@@ -127,23 +133,32 @@ def xr_block_shapes(h, w):
 XR_TRAIN = dict(num_blocks=(2, 4, 4, 4), num_refinement_blocks=4,
                 channel_heads=(1, 1, 1, 1), spatial_heads=(1, 2, 4, 8))
 KERNELS = ("mdta_stats", "block_tail", "ln_gdfn", "seam", "ln_mdta",
-           "tail_stats")
+           "tail_stats", "mdta_gram")
 LAUNCH_NAMES = "/".join(KERNELS)
 PATHS = {
-    # name: (model kwargs, launches of each of KERNELS per serving forward):
-    # promptir's 44 stacked blocks run chained (8 stacks: 8 mdta_stats, 36
-    # tail_stats, 8 block_tail), its 3 noise_level blocks alone
-    "promptir": ({}, [11, 11, 0, 1, 0, 36]),
-    "promptxrestormerir": (XR_TRAIN, [31, 31, 31, 0, 0, 0]),
+    # name: (model, its kwargs, launches of each of KERNELS per serving
+    # forward):
+    # promptir's 47 blocks each run mdta_stats then block_tail, the Gram
+    # kernel at the two wide noise_level widths (C 704 and 320, 4 heads);
+    # with fused_ffn=True its 44 stacked blocks run chained (8 stacks: 8
+    # mdta_stats, 36 tail_stats, 8 block_tail), its 3 noise_level blocks
+    # alone; promptxrestormerir's one-head widths from 160 take the Gram
+    # kernel (15 of its 31 blocks)
+    "promptir": ("promptir", {}, [47, 47, 0, 1, 0, 0, 2]),
+    "promptxrestormerir": ("promptxrestormerir", XR_TRAIN,
+                           [31, 31, 31, 0, 0, 0, 15]),
+    "promptir_chained": ("promptir", dict(fused_ffn=True),
+                         [11, 11, 0, 1, 0, 36, 2]),
 }
-GOLDENS = {
-    # file: (model, kwargs, launches per forward)
-    "promptir_full.npz": ("promptir", {}, [11, 11, 0, 1, 0, 36]),
-    "prompt_xrestormer_small.npz": (
-        "promptxrestormerir",
-        dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1),
-        [11, 11, 11, 0, 0, 0]),
-}
+GOLDENS = [
+    # (file, model, kwargs, launches per forward)
+    ("promptir_full.npz", "promptir", {}, [47, 47, 0, 1, 0, 0, 2]),
+    ("promptir_full.npz", "promptir", dict(fused_ffn=True),
+     [11, 11, 0, 1, 0, 36, 2]),
+    ("prompt_xrestormer_small.npz", "promptxrestormerir",
+     dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1),
+     [11, 11, 11, 0, 0, 0, 3]),
+]
 # the engine's tiled path: 1024x768 photographs in 128 px tiles overlapping
 # by 32, 8 tiles a forward: 11 x 8 = 88 tiles, 11 forwards an image
 TILED_HW = (1024, 768)
@@ -153,7 +168,7 @@ BATCH = 4
 # the training step: the reference's per-GPU batch and patch size
 # (promptir_tpu/config.py: TrainConfig.batch_size, DataConfig.patch_size)
 TRAIN_BATCH, TRAIN_HW = 6, (128, 128)
-TRAIN_PER_STEP = [47, 0, 47, 1, 47, 0]  # launches of one step's forward
+TRAIN_PER_STEP = [47, 0, 47, 1, 47, 0, 2]  # launches of one step's forward
 TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # per dtype; the warm-up steps are untimed
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
@@ -165,9 +180,15 @@ GOLDEN_TOL = 2e-4
 # the tensor cores (`--bf16-forward` on that commit; PERF.md, section 6)
 FORWARD_TOL_BF16 = 1.5625e-2
 # the bf16 kernels that must hold tensor-core instructions (HMMA or HGMMA):
-# tail_stats's three kernels (tail_a's, the merged one) and block_tail's two
+# tail_stats's three kernels (tail_a's, the merged one), block_tail's two,
+# mdta_stats' stats pass and its Gram kernel
 TENSOR_CORE_KERNELS = ("tail_a_tc_kernel", "tail_stats_tc_kernel",
-                       "gdfn_out_tc_kernel")
+                       "gdfn_out_tc_kernel", "stats_tc_kernel", "gram_tc_kernel")
+# the chained route (PromptIR's fused_ffn) stays off by default unless
+# tail_stats takes at most CHAIN_RATIO of block_tail + mdta_stats at every
+# chain shape and at most CHAIN_FORWARD_MS a bf16 promptir B4 256x256 forward
+# (ROADMAP.md, Redesign order, item 1)
+CHAIN_RATIO, CHAIN_FORWARD_MS = 0.9, 32.0
 # kernel-route gradients against plain-route gradients, float32 (TF32 off):
 # max |difference| over max |plain| of each parameter's gradient
 GRAD_TOL = 1e-3
@@ -353,14 +374,30 @@ def check_kernels(mdta, block, gdfn, seam, megablock):
         for shape, batch, kinds in shapes:
             a = block_inputs(shape, dtype, gen, batch)
             v, st = run_stats(mdta.mdta_stats, a)
+            v1, st1 = run_stats(mdta.mdta_stats, a)  # a second launch
             v0, st0 = run_stats(mdta.mdta_stats_plain, a)
             torch.cuda.synchronize()
+            if not (torch.equal(st, st1) and torch.equal(v, v1)):
+                fail(f"two mdta_stats launches differ at {shape} {dtype}")
             ev, rv = rel_err(v, v0)
             es, rs = rel_err(st, st0)
             record("mdta_stats", dtype, shape, ev, rv)
             record("mdta_stats", dtype, shape, es, rs)
-            msg = (f"check {str(dtype)[6:]:8s} B{batch} {shape}: mdta_stats v "
-                   f"{ev:.2e} (rel {rv:.2e}) stats {es:.2e} (rel {rs:.2e})")
+            plan = mdta.stats_plan(batch, *shape, dtype)
+            msg = (f"check {str(dtype)[6:]:8s} B{batch} {shape}: mdta_stats "
+                   f"({plan.route}, tile {plan.tile[0]}x{plan.tile[1]}) v "
+                   f"{ev:.2e} (rel {rv:.2e}) stats {es:.2e} (rel {rs:.2e}), "
+                   "two launches bit-identical")
+            if plan.route == "wide":
+                # the Gram kernel alone on the stats pass's q and k
+                _, q, k, _ = mdta.stats_pass_plain(
+                    a["x"], a["ln1w"], a["ln1b"], a["wqkv"], a["wdw"], a["heads"])
+                g = mdta.mdta_gram(q, k, a["heads"])
+                g0 = mdta.mdta_gram_plain(q, k, a["heads"])
+                torch.cuda.synchronize()
+                e, r = rel_err(g, g0)
+                record("mdta_gram", dtype, shape, e, r)
+                msg += f"; mdta_gram {e:.2e} (rel {r:.2e})"
             attn = mdta.attn_from_stats(st0, a["temp"])
             outs = [v]
             pairs = {
@@ -388,16 +425,21 @@ def check_kernels(mdta, block, gdfn, seam, megablock):
             fail(f"seam is not bit-exact in {dtype}")
         say(f"check {str(dtype)[6:]:8s} seam {tuple(y.shape)} + "
             f"{tuple(skip.shape)}: bit-exact")
-    # the stats pass's partial Grams: one slot a tile before, capped slots now
+    # the stats pass's scratch: one slot a block (and the wide route's Gram
+    # slices, beside its q and k), where one partial Gram a tile went before
     for b, h, w, c, heads in [(4, 32, 32, 704, 1), (4, 128, 128, 704, 4),
-                              (4, 128, 128, 704, 1)]:
+                              (4, 128, 128, 704, 1), (4, 256, 256, 96, 1)]:
         d = c // heads
-        th, tw = mdta.stats_tile(d)
+        plan = mdta.stats_plan(b, h, w, c, heads, torch.bfloat16)
+        th, tw = plan.tile
         per_tile = 4 * b * heads * -(-h // th) * -(-w // tw) * (d * d + 2 * d)
-        say(f"mdta_stats partial-Gram buffer at B{b} ({h}, {w}, {c}, {heads}): "
-            f"{mdta.stats_partial_bytes(b, h, w, c, heads)} bytes with "
-            f"{mdta.stats_slots(b, h, w, c, heads)} slots an image and head "
-            f"(one slot a tile: {per_tile} bytes)")
+        qk = 2 * 2 * b * h * w * c if plan.route == "wide" else 0
+        say(f"mdta_stats scratch at B{b} ({h}, {w}, {c}, {heads}) bf16, "
+            f"{plan.route}, tile {th}x{tw}: "
+            f"{mdta.stats_partial_bytes(b, h, w, c, heads, torch.bfloat16)} "
+            f"bytes of slots ({plan.nslots} an image) and Gram slices "
+            f"({plan.slices}), q and k {qk} bytes (one partial Gram a tile: "
+            f"{per_tile} bytes)")
     check_tail_stats(mdta, block, megablock, record)
     return worst
 
@@ -446,10 +488,9 @@ def check_tail_stats(mdta, block, megablock, record):
 
 # ------------------------------------------------------------ phase 4
 
-def check_golden(port, counters, file):
+def check_golden(port, counters, file, name, kwargs, want):
     from promptir_tpu_torch.precision import exact_float32
 
-    name, kwargs, want = GOLDENS[file]
     data = np.load(ROOT / "tests" / "goldens" / file)
     sd = {k[4:]: torch.from_numpy(data[k].astype(np.float32))
           for k in data.files if k.startswith("sd::")}
@@ -467,7 +508,8 @@ def check_golden(port, counters, file):
     # in TF32): printed, not gated; the engine and trainer turn TF32 off
     with torch.inference_mode():
         err_tf32 = (model(x).cpu() - ref).abs().max().item()
-    say(f"golden {file} ({name}, {len(sd)} tensors, {tuple(x.shape)}, fp32, "
+    say(f"golden {file} ({name} {kwargs or ''}, {len(sd)} tensors, "
+        f"{tuple(x.shape)}, fp32, "
         f"TF32 off): max |err| {err:.3e} (tolerance {GOLDEN_TOL}); launches "
         f"{LAUNCH_NAMES} {ran}; with PyTorch's TF32 defaults "
         f"(cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}) max |err| "
@@ -503,8 +545,8 @@ def check_bf16_forward(port, counters, reset):
         f"|difference| {err:.4e} (tolerance {FORWARD_TOL_BF16}), mean "
         f"{e.mean().item():.4e}, max |plain| {y0.float().abs().max().item():.4f};"
         f" launches {LAUNCH_NAMES} {ran}")
-    if ran != PATHS["promptir"][1]:
-        fail(f"the bf16 forward launched {ran} != {PATHS['promptir'][1]}")
+    if ran != PATHS["promptir"][2]:
+        fail(f"the bf16 forward launched {ran} != {PATHS['promptir'][2]}")
     if not torch.isfinite(y).all() or not err <= FORWARD_TOL_BF16:
         fail(f"the bf16 forward through the kernels is off by {err:.4e}")
     del model
@@ -513,11 +555,11 @@ def check_bf16_forward(port, counters, reset):
 
 # ------------------------------------------------------------ phase 5
 
-def serve(port, counters, reset, card, name):
+def serve(port, counters, reset, card, path):
     from promptir_tpu_torch.eval.padding import pad_bases
     from promptir_tpu_torch.serve.engine import InferenceEngine
 
-    kwargs, per_forward = PATHS[name]
+    name, kwargs, per_forward = PATHS[path]
     torch.manual_seed(0)
     model = port.create_model(name, device="cuda", dtype=torch.bfloat16,
                               **kwargs)
@@ -556,7 +598,7 @@ def serve(port, counters, reset, card, name):
     lat = sorted(done[i] - t for i, (_, t) in enumerate(futs))
     p50 = float(np.median(lat))
     ips = len(imgs) / (t_end - t_start)
-    say(f"serve: full-width {name} ({n_params} params) bf16, pad_base {base}, "
+    say(f"serve: full-width {path} ({n_params} params) bf16, pad_base {base}, "
         f"8 requests (6x 256x256, 2x 250x190) in {batches} batches of max 4; "
         f"p50 latency {p50 * 1e3:.1f} ms, {ips:.2f} images/s on {card}; "
         f"launches {LAUNCH_NAMES} {ran}")
@@ -569,7 +611,7 @@ def serve(port, counters, reset, card, name):
     with torch.inference_mode():
         fwd = time_ms(lambda: model(x), reps=5, warmup=1)
     reset()  # the timing launches are not the main path's
-    say(f"forward: {name} bf16 B4 256x256 alone {fwd:.1f} ms (CUDA events, "
+    say(f"forward: {path} bf16 B4 256x256 alone {fwd:.1f} ms (CUDA events, "
         "median of 5)")
     del model, eng
     torch.cuda.empty_cache()
@@ -606,7 +648,7 @@ def serve_tiled(port, counters, reset, card):
     photographs through the engine's tiled path: float32 through the
     kernels against float32 through the plain versions, then bf16 timed.
     Returns the launches of the timed bf16 run."""
-    per_image = [n * TILED_FORWARDS for n in PATHS["promptir"][1]]
+    per_image = [n * TILED_FORWARDS for n in PATHS["promptir"][2]]
     rng = np.random.default_rng(0)
     imgs = [rng.random((*TILED_HW, 3), dtype=np.float32) for _ in range(2)]
     torch.manual_seed(0)
@@ -730,7 +772,7 @@ def check_grads(port, counters, reset):
         f"plain; worst gradient |kernel - plain| / max |plain| {worst[0]:.2e} "
         f"({worst[1]}; tolerance {GRAD_TOL}); launches "
         f"{LAUNCH_NAMES} {ran_k} and plain {ran_p}")
-    if ran_k != [11, 0, 11, 1, 11, 0] or any(ran_p):
+    if ran_k != [11, 0, 11, 1, 11, 0, 2] or any(ran_p):
         fail(f"the gradient check's routes launched {ran_k} and {ran_p}")
     if not worst[0] <= GRAD_TOL:
         fail(f"kernel-route gradient of {worst[1]} off by {worst[0]:.2e}")
@@ -838,9 +880,9 @@ def serve_trained(model, counters, card):
     if first != n_blocks or len(made) != first:
         fail(f"the trained model's GDFN weights were packed {first} + "
              f"{len(made) - first} times, not {n_blocks} + 0")
-    if ran != [n * batches for n in PATHS["promptir"][1]]:
+    if ran != [n * batches for n in PATHS["promptir"][2]]:
         fail(f"serving the trained model launched {ran} != "
-             f"{PATHS['promptir'][1]} per forward x {batches}")
+             f"{PATHS['promptir'][2]} per forward x {batches}")
     for out in outs:
         if (out.shape != (256, 256, 3) or not np.isfinite(out).all()
                 or out.min() < 0.0 or out.max() > 1.0):
@@ -935,15 +977,6 @@ def chain_pairs(h, w):
     ]
 
 
-def solo_blocks(h, w):
-    """(H, W, C, heads) of the blocks of an h x w promptir forward whose
-    stats pass and tail run alone on the chained route, with how many: the
-    first and last block of each stack (the first's stats, the last's tail)
-    and the noise_level blocks. 11 of each a forward."""
-    pairs = dict(chain_pairs(h, w))
-    return [(s, n - pairs.get(s, 0)) for s, n in block_shapes(h, w)]
-
-
 def pair_work(shape, nbytes, batch=BATCH):
     """(operations, bytes) of tail_stats at one shape: block n's tail and
     block n+1's stats pass, where n's output x3 feeds n+1 without being
@@ -978,11 +1011,13 @@ def bound_ms(ops, nbytes, dtype) -> tuple[float, str]:
 def time_tail_stats(mdta, block, megablock, gen, tot):
     """tail_stats per launch at every block pair of the promptir stacks,
     beside its plain version and the two-kernel sequence it replaces, summed
-    per forward of the serving path (B4 256x256) and of the tiled path (the
-    tiler's B8 128x128 chunk)."""
+    per chained forward of the serving path (B4 256x256) and of the tiled
+    path (the tiler's B8 128x128 chunk); then the chained route's decision
+    (CHAIN_RATIO at every shape, CHAIN_FORWARD_MS a serving forward)."""
     dtype = torch.bfloat16
-    for path, hw, batch in [("promptir", BUCKETS[0], BATCH),
-                            ("tiled", (TILE, TILE), TILE_CHUNK)]:
+    ratios, per_forward = [], {}
+    for path, hw, batch in [("promptir_chained", BUCKETS[0], BATCH),
+                            ("tiled_chained", (TILE, TILE), TILE_CHUNK)]:
         t = tot[path]["tail_stats"] = dict(ms=0.0, plain_ms=0.0, ops=0,
                                            bytes=0, library_ms=None)
         two_sum = 0.0
@@ -999,41 +1034,69 @@ def time_tail_stats(mdta, block, megablock, gen, tot):
             work = pair_work(shape, 2, batch)
             b, by = bound_ms(*work, dtype)
             tile = megablock.tail_stats_tile(shape[2], shape[3], dtype)
+            ratios.append((ms / two, batch, shape))
             say(f"time tail_stats B{batch} {shape} bf16, tile {tile[0]}x"
                 f"{tile[1]}: {ms:.3f} ms (block_tail + mdta_stats {two:.3f} "
-                f"ms, plain {pms:.3f} ms, bound {b:.4f} ms by {by}) x{n} per "
-                f"{path} forward")
+                f"ms, ratio {ms / two:.3f}; plain {pms:.3f} ms, bound {b:.4f} "
+                f"ms by {by}) x{n} per {path} forward")
             t["ms"] += n * ms
             t["plain_ms"] += n * pms
             t["ops"] += n * work[0]
             t["bytes"] += n * work[1]
             two_sum += n * two
         megablock_bound(chain_pairs(*hw), batch)
+        per_forward[path] = t["ms"]
         say(f"time tail_stats per {path} forward (B{batch} {hw[0]}x{hw[1]} "
             f"bf16): {t['ms']:.3f} ms, the two-kernel sequence "
             f"{two_sum:.3f} ms, plain {t['plain_ms']:.3f} ms")
+    worst = max(ratios)
+    keep = worst[0] <= CHAIN_RATIO and per_forward[
+        "promptir_chained"] <= CHAIN_FORWARD_MS
+    say(f"chained route: tail_stats over block_tail + mdta_stats at most "
+        f"{worst[0]:.3f} (B{worst[1]} {worst[2]}; limit {CHAIN_RATIO}), at "
+        f"most {CHAIN_RATIO} at {sum(r <= CHAIN_RATIO for r, *_ in ratios)} of "
+        f"{len(ratios)} shapes; {per_forward['promptir_chained']:.3f} ms a "
+        f"promptir B{BATCH} forward (limit {CHAIN_FORWARD_MS}): "
+        + ("both hold, the chain could be the default" if keep else
+           "the chain stays off by default (fused_ffn=False)"))
+
+
+def time_gram(mdta, q, k, heads, batch, shape, dtype):
+    """The Gram kernel at one wide shape: (ms, plain ms, library ms, ops,
+    bytes); the library call is one cuBLAS batched product of the same q and
+    k (torch.matmul, output in their dtype)."""
+    h, w, c, _ = shape
+    d, px = c // heads, h * w
+    qh = q.reshape(batch, px, heads, d).permute(0, 2, 3, 1)
+    kh = k.reshape(batch, px, heads, d).permute(0, 2, 1, 3)
+    ms = time_ms(lambda: mdta.mdta_gram(q, k, heads))
+    pms = time_ms(lambda: mdta.mdta_gram_plain(q, k, heads))
+    lib = time_ms(lambda: torch.matmul(qh, kh))
+    ops = 2 * batch * heads * d * d * px
+    return ms, pms, lib, ops, 2 * q.numel() * 2 + 4 * batch * heads * d * d
 
 
 def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     """Per path and kernel, the time of one bf16 forward of the path, summed
     over its launches at each shape: serving promptir and promptxrestormerir
     (batch 4, 256x256), the training forward (batch 6, 128x128) and the
-    tiled path's forward of one chunk of tiles (batch 8, 128x128)."""
+    tiled path's forward of one chunk of tiles (batch 8, 128x128); with
+    mdta_stats' per-shape line (route, tile) and the Gram kernel's at the
+    wide shapes."""
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     paths = {
-        # path: (shapes with their block counts, batch, kernels timed); the
-        # promptir stacks' block pairs are timed as tail_stats below
-        "promptir": (solo_blocks(*BUCKETS[0]), BATCH, ("mdta_stats", "block_tail")),
+        # path: (shapes with their block counts, batch, kernels timed)
+        "promptir": (block_shapes(*BUCKETS[0]), BATCH, ("mdta_stats", "block_tail")),
         "promptxrestormerir": (xr_block_shapes(*BUCKETS[0]), BATCH,
                                ("mdta_stats", "block_tail", "ln_gdfn")),
         "train": (block_shapes(*TRAIN_HW), TRAIN_BATCH,
                   ("mdta_stats", "ln_mdta", "ln_gdfn")),
-        "tiled": (solo_blocks(TILE, TILE), TILE_CHUNK,
+        "tiled": (block_shapes(TILE, TILE), TILE_CHUNK,
                   ("mdta_stats", "block_tail")),
     }
-    tot = {path: {} for path in paths}
-    tails = []  # block_tail per shape: (path, shape, batch, count, ms, bound)
+    tot = {path: {} for path in [*paths, "promptir_chained", "tiled_chained"]}
+    tails, stats_rows = [], []  # per shape: (path, shape, batch, count, ...)
     for path, (shapes, batch, kernels) in paths.items():
         for shape, n in shapes:
             a = block_inputs(shape, dtype, gen, batch)
@@ -1061,21 +1124,38 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                     f"{path} forward")
                 if k == "block_tail":
                     tails.append((path, shape, batch, n, ms, b, by))
+                if k == "mdta_stats":
+                    stats_rows.append((path, shape, batch, n, ms, pms, b, by))
                 t = tot[path].setdefault(k, dict(ms=0.0, plain_ms=0.0, ops=0,
                                                  bytes=0, library_ms=None))
                 t["ms"] += n * ms
                 t["plain_ms"] += n * pms
                 t["ops"] += n * work[k][0]
                 t["bytes"] += n * work[k][1]
+            heads = shape[3]
+            if mdta.stats_route(shape[2], heads) == "wide":
+                _, q, k, _ = mdta.stats_pass_plain(
+                    a["x"], a["ln1w"], a["ln1b"], a["wqkv"], a["wdw"], heads)
+                ms, pms, lib, ops, nbytes = time_gram(mdta, q, k, heads, batch,
+                                                      shape, dtype)
+                b, by = bound_ms(ops, nbytes, dtype)
+                say(f"time mdta_gram  B{batch} {shape} bf16: {ms:.3f} ms (plain "
+                    f"{pms:.3f} ms, library {lib:.3f} ms, bound {b:.4f} ms by "
+                    f"{by}) x{n} per {path} forward")
+                t = tot[path].setdefault("mdta_gram", dict(
+                    ms=0.0, plain_ms=0.0, ops=0, bytes=0, library_ms=0.0))
+                t["ms"] += n * ms
+                t["plain_ms"] += n * pms
+                t["library_ms"] += n * lib
+                t["ops"] += n * ops
+                t["bytes"] += n * nbytes
         if path == "train":
             continue
         # the split tails (block_tail's and tail_stats's) write the hidden
         # tensor and x2 and read them back: traffic the one-pass TPU kernels
         # do not have
         split = 0
-        all_blocks = {"promptir": block_shapes(*BUCKETS[0]),
-                      "tiled": block_shapes(TILE, TILE)}.get(path, shapes)
-        for (h, w, c, _), n in all_blocks:
+        for (h, w, c, _), n in shapes:
             px, f2 = batch * h * w, 2 * int(c * 2.66)
             split += n * px * 2 * (f2 + c) * 2
             if path == "promptxrestormerir":
@@ -1097,17 +1177,25 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     for path in ("promptir", "tiled"):
         rows = [r for r in tails if r[0] == path]
         say(f"time block_tail per shape of the {path} path's "
-            f"{sum(r[3] for r in rows)} solo blocks (bf16; tail_a on 64 "
+            f"{sum(r[3] for r in rows)} blocks (bf16; tail_a on 64 "
             "pixels, then gdfn_out on its tile): " + "; ".join(
                 f"B{bt} {sh} x{n} tile {'x'.join(map(str, block.gdfn_out_tile(sh[2])[0]))}"
                 f" {ms:.3f} ms (bound {b:.4f} by {by})"
                 for _, sh, bt, n, ms, b, by in rows))
+    for path in paths:
+        rows = [r for r in stats_rows if r[0] == path]
+        say(f"time mdta_stats per shape of the {path} path (bf16; route, "
+            "tile, slots an image): " + "; ".join(
+                f"B{bt} {sh} x{n} {p.route} {p.tile[0]}x{p.tile[1]} "
+                f"{p.nslots} {ms:.3f} ms (plain {pms:.3f}, bound {b:.4f} by {by})"
+                for _, sh, bt, n, ms, pms, b, by in rows
+                for p in [mdta.stats_plan(bt, *sh, dtype)]))
     time_tail_stats(mdta, block, megablock, gen, tot)
     reset()  # the timing launches are not the main path's
     recs = {}
     for k in KERNELS:
         by_path = {}
-        for path in paths:
+        for path in tot:
             t = tot[path].get(k)
             if t is None:
                 continue
@@ -1116,8 +1204,7 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                                  bound_ms=b, bound_by=by,
                                  library_ms=t["library_ms"])
             lib = t["library_ms"]
-            batch = paths[path][1]
-            say(f"time {k:10s} per {path} forward (B{batch} bf16): "
+            say(f"time {k:10s} per {path} forward (bf16): "
                 f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
                 f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound {b:.4f} "
                 f"ms by {by}")
@@ -1147,7 +1234,7 @@ def main() -> None:
 
     # in KERNELS' order
     kernels = (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam,
-               mdta.ln_mdta, megablock.tail_stats)
+               mdta.ln_mdta, megablock.tail_stats, mdta.mdta_gram)
 
     def counters():
         return [k.launches for k in kernels]
@@ -1172,7 +1259,7 @@ def main() -> None:
         check_bf16_forward(port, counters, reset)
         say(f"done in {time.perf_counter() - T0:.1f} s")
         return
-    for file in GOLDENS:
+    for file, *_ in GOLDENS:
         if not (ROOT / "tests" / "goldens" / file).exists():
             fail(f"tests/goldens/{file} is missing")
     sass = tensor_core_sass(so)
@@ -1184,8 +1271,8 @@ def main() -> None:
 
     with exact_float32(torch.float32):
         worst = check_kernels(mdta, block, gdfn, seam, megablock)
-    for file in GOLDENS:
-        check_golden(port, counters, file)
+    for golden in GOLDENS:
+        check_golden(port, counters, *golden)
     check_bf16_forward(port, counters, reset)
     launches = {}
     for path in PATHS:
@@ -1212,6 +1299,9 @@ def main() -> None:
                     "promptir_tpu/ops/pallas/mdta.py:252"),
         "tail_stats": ("promptir_tpu_torch/csrc/tail_stats.cu",
                        "promptir_tpu/ops/pallas/megablock.py:165"),
+        # the Gram of the wide route, a stage of the same TPU kernel
+        "mdta_gram": ("promptir_tpu_torch/csrc/mdta_stats.cu",
+                      "promptir_tpu/ops/pallas/mdta.py:317"),
     }
     out = []
     for i, name in enumerate(KERNELS):

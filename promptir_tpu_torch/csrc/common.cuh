@@ -142,6 +142,9 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+// Wait until at most N of the groups this thread committed are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // One k16 step of a warp's (16 MT) x (8 NT) tile: acc[i][j] += A_i B_j^T.
 // A: the warp's first row, row-major bf16 in shared memory (stride lda, rows
@@ -169,6 +172,40 @@ __device__ __forceinline__ void warp_mma_k16(const bf16* A, int lda, const bf16*
       ldsm_x2(b, B + (j * 8 + (lane & 7)) * ldb + ((lane >> 3) & 1) * 8);
 #pragma unroll
       for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b[0], b[1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// One k16 step of a warp's (16 MT) x (8 NT) tile of a product over a shared
+// index k whose operands are both stored k-major: acc[i][j] += A_i^T B_j
+// with A[k][m] (stride lda) and B[k][n] (stride ldb) bf16 in shared memory,
+// e.g. the Gram q^T k of pixel-major q and k. A points at the step's first
+// k and the warp's first m, B at its first k and first n; NT even.
+// ldmatrix.trans turns the k-major 8 x 8 blocks into the m16n8k16
+// fragments that warp_mma_k16 reads from m-major rows.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_mma_t_k16(const bf16* A, int lda, const bf16* B, int ldb,
+                                               float (&acc)[MT][NT][4]) {
+  static_assert(NT % 2 == 0, "B fragments come in pairs of 8 columns");
+  const int lane = threadIdx.x & 31, q = lane >> 3, r = lane & 7;
+  uint32_t a[MT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    ldsm_x4_t(a[i], A + (r + (q >> 1) * 8) * lda + i * 16 + (q & 1) * 8);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    uint32_t b[4];
+    ldsm_x4_t(b, B + (r + (q & 1) * 8) * ldb + j * 8 + (q >> 1) * 8);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      mma_bf16(acc[i][j], a[i], b[0], b[1]);
+      mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
     }
   }
 }

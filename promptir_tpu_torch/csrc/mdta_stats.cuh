@@ -1,24 +1,28 @@
-// The MDTA statistics pass on one spatial tile, shared by mdta_stats.cu (x
-// read from device memory) and tail_stats.cu (x held in shared memory):
+// The MDTA statistics pass on one spatial tile, shared by mdta_stats.cu's
+// float32 route (x read from device memory) and tail_stats.cu (x held in
+// shared memory); mdta_stats.cu's bf16 route has its own (stats_tc_kernel)
+// and takes only ln1_value from here:
 //   halo_ln_stats  LN1's mean and rstd of every pixel of the tile and its
 //                  1-pixel halo, one warp a pixel, two-pass in fp32;
 //   ln1_value      LN1's output at one pixel and channel, rounded through T;
 //   stats_head     for one head: its 3d qkv rows at every halo pixel, the
 //                  depthwise 3x3 taps on the interior, v written out, and
 //                  the tile's partial Gram q^T k and squared norms of q and
-//                  k added to the head's slot;
-//   stats_reduce_kernel  the slots summed in slot order.
+//                  k added to the head's slot; or, given qo and ko (the
+//                  wide route), q and k written out beside v and only the
+//                  norms added;
+//   slot_sum_kernel  slots summed in slot order (both kernels' last step).
 // halo_ln_stats reads x as ldx(hp, pix, c): halo pixel hp, its flat pixel
 // index pix, channel c (called only for pixels inside the image).
 // stats_head reads LN1's output as ldy(hp, c), 0 outside the image:
 // mdta_stats.cu computes it from x as the product stages it, tail_stats.cu
 // once per tile. Rounding points: LN1's output is rounded through T; qkv,
 // the taps, q, k and the sums stay fp32; v is rounded through T.
-// stats_head_tc is the bf16 route: the qkv product and the Gram on the
-// tensor cores (common.cuh:tc_gemm, warp_mma_k16), LN1's output staged once
-// a tile as a bf16 operand; q and k are rounded to bf16 for the Gram while
-// their squared norms sum the unrounded fp32 values, the rounding of the
-// Pallas kernel (promptir_tpu/ops/pallas/mdta.py:113-124).
+// stats_head_tc is tail_stats' bf16 route: the qkv product and the Gram on
+// the tensor cores (common.cuh:tc_gemm, warp_mma_k16), LN1's output staged
+// once a tile as a bf16 operand; q and k are rounded to bf16 for the Gram
+// while their squared norms sum the unrounded fp32 values, the rounding of
+// the Pallas kernel (promptir_tpu/ops/pallas/mdta.py:113-124).
 #pragma once
 
 #include "common.cuh"
@@ -91,7 +95,8 @@ __device__ __forceinline__ float ln1_value(float xv, float mean, float rstd, con
 template <class T, class LoadY>
 __device__ __forceinline__ void stats_head(LoadY ldy, const T* wqkv, const T* wdw, T* v,
                                            float* out, bool first, int h, int heads,
-                                           const StatsTile& t, const StatsSmem& s) {
+                                           const StatsTile& t, const StatsSmem& s,
+                                           T* qo = nullptr, T* ko = nullptr) {
   const int C = t.C, d = C / heads, th = t.th, tw = t.tw;
   const int hw = tw + 2, ph = (th + 2) * hw, pi = th * tw, ld = 2 * d, n3 = 3 * d;
   const int ng = threadIdx.x & 15, pg = threadIdx.x >> 4;
@@ -139,17 +144,22 @@ __device__ __forceinline__ void stats_head(LoadY ldy, const T* wqkv, const T* wd
                      to_f(wdw[row * 9 + dy * 3 + dx]), acc);
       const int gy = t.ty0 + iy, gx = t.tx0 + ix;
       const bool valid = gy < t.H && gx < t.W;
+      const long long o = ((long long)(t.b * t.H + gy) * t.W + gx) * C + h * d + ch;
       if (sec == 2) {
-        if (valid) v[((long long)(t.b * t.H + gy) * t.W + gx) * C + h * d + ch] = from_f<T>(acc);
+        if (valid) v[o] = from_f<T>(acc);
       } else {
         s.qk[p * ld + sec * d + ch] = valid ? acc : 0.f;
+        if (qo != nullptr && valid) (sec ? ko : qo)[o] = from_f<T>(acc);
       }
     }
     __syncthreads();
   }
 
-  // partial Gram (4x4 register tiles) and squared norms of this tile
-  const int d4 = d / 4;
+  // partial Gram (4x4 register tiles) and squared norms of this tile; with
+  // q and k written out (qo, ko) the Gram is left to the Gram kernel and the
+  // norms go to out[0, 2d)
+  const int d4 = qo != nullptr ? 0 : d / 4;
+  float* nrm = qo != nullptr ? out : out + d * d;
   for (int e = threadIdx.x; e < d4 * d4; e += kThreads) {
     const int ib = e / d4, jb = e % d4;
     float acc[4][4];
@@ -172,12 +182,12 @@ __device__ __forceinline__ void stats_head(LoadY ldy, const T* wqkv, const T* wd
       for (int c = 0; c < 4; ++c) out[(ib * 4 + r) * d + jb * 4 + c] = acc[r][c];
   }
   for (int c = threadIdx.x; c < ld; c += kThreads) {
-    float sum = first ? 0.f : out[d * d + c];
+    float sum = first ? 0.f : nrm[c];
     for (int p = 0; p < pi; ++p) {
       const float u = s.qk[p * ld + c];
       sum = fmaf(u, u, sum);
     }
-    out[d * d + c] = sum;
+    nrm[c] = sum;
   }
   __syncthreads();  // qk and pre are rewritten by the next head or tile
 }
@@ -328,24 +338,32 @@ __device__ __forceinline__ void stats_head_tc(const bf16* Y, int ldy, const bf16
   __syncthreads();  // pre, qT and kT are rewritten by the next head or tile
 }
 
-// Sum the slots in slot order: (B*heads, nslots, n) -> (B*heads, n).
-__global__ void __launch_bounds__(kThreads) stats_reduce_kernel(const float* part, float* stats,
-                                                                int nslots, int n) {
+// Sum the slots in slot order: row y of part (nslots x n) into
+// out[y * ld_out + off, + n).
+__global__ void __launch_bounds__(kThreads) slot_sum_kernel(const float* part, float* out,
+                                                            int nslots, int n, int ld_out,
+                                                            int off) {
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= n) return;
   const float* src = part + (long long)blockIdx.y * nslots * n + e;
   float sum = 0.f;
 #pragma unroll 8
   for (int t = 0; t < nslots; ++t) sum += src[(long long)t * n];
-  stats[(long long)blockIdx.y * n + e] = sum;
+  out[(long long)blockIdx.y * ld_out + off + e] = sum;
 }
 
+inline cudaError_t launch_slot_sum(const float* part, float* out, int rows, int nslots, int n,
+                                   int ld_out, int off, cudaStream_t stream) {
+  slot_sum_kernel<<<dim3((n + kThreads - 1) / kThreads, rows), kThreads, 0, stream>>>(
+      part, out, nslots, n, ld_out, off);
+  return cudaGetLastError();
+}
+
+// tail_stats' slots (B*heads, nslots, d*d + 2d) -> stats (B*heads, d*d + 2d).
 inline cudaError_t launch_stats_reduce(const float* part, float* stats, int B, int heads,
                                        int C, int nslots, cudaStream_t stream) {
   const int d = C / heads, n = d * d + 2 * d;
-  stats_reduce_kernel<<<dim3((n + kThreads - 1) / kThreads, B * heads), kThreads, 0, stream>>>(
-      part, stats, nslots, n);
-  return cudaGetLastError();
+  return launch_slot_sum(part, stats, B * heads, nslots, n, n, 0, stream);
 }
 
 }  // namespace

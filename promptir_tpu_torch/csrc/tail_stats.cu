@@ -24,7 +24,8 @@
 //        once per tile, in place of x3, then for each head its qkv rows,
 //        the taps, v2 written out and the partial Gram and norms added to
 //        the head's slot;
-//   stats_reduce_kernel: the slots summed in slot order (deterministic).
+//   slot_sum_kernel (mdta_stats.cuh): the slots summed in slot order
+//   (deterministic).
 // Every x3 output sums its products in gdfn_out's order (gemm_tile's: k
 // ascending, the last chunk padded with zeros), so x3 equals block_tail's
 // output bit for bit, and v2 mdta_stats's on it; the Gram sums the same

@@ -19,10 +19,11 @@ The JAX package picks between its routes by whether a stripe fits VMEM
 (autodiff.py:256 block_fits). A Hopper block has no VMEM budget to copy;
 the port picks by mode, and never falls back.
 `run_stack` replaces `apply_block_stack` (blocks.py:254) for a stack of
-TransformerBlocks: without autograd it chains them, block n's tail and
-block n+1's stats pass in one `tail_stats` (ops/cuda/megablock.py), so a
-stack of n blocks runs one mdta_stats, n - 1 tail_stats and one block_tail;
-under autograd, or for a single block, it runs `block_forward` per block.
+TransformerBlocks: `block_forward` per block, or, when the caller asks for
+the chain (PromptIR's `fused_ffn`) and autograd does not record, block n's
+tail and block n+1's stats pass in one `tail_stats` (ops/cuda/megablock.py),
+so that a stack of n blocks runs one mdta_stats, n - 1 tail_stats and one
+block_tail.
 `gdfn_forward` replaces `fused_gdfn_apply` (blocks.py:188): x + GDFN(LN(x))
 through the LN+GDFN kernel, under `LnGdfn` when autograd records.
 Weights are cast to the activations' dtype at use, so a model with float32
@@ -99,14 +100,14 @@ def _tail_weights(blk, dt):
                  blk.ffn.dwconv.weight, blk.ffn.project_out.weight)
 
 
-def run_stack(stack, xh):
+def run_stack(stack, xh, chain: bool = False):
     """The blocks of `stack` (an nn.Sequential of TransformerBlocks) on NHWC
-    `xh`. Without autograd, two or more blocks run chained: mdta_stats of
-    block 0; for each n, block n's softmax, then its tail fused with block
-    n+1's stats pass (`tail_stats`); block_tail of the last block. Under
-    autograd, or for one block, each block runs `block_forward`."""
+    `xh`. With `chain`, and without autograd, two or more blocks run
+    chained: mdta_stats of block 0; for each n, block n's softmax, then its
+    tail fused with block n+1's stats pass (`tail_stats`); block_tail of the
+    last block. Otherwise each block runs `block_forward`."""
     blocks = list(stack)
-    if len(blocks) < 2 or records_grad(xh, *stack.parameters()):
+    if not chain or len(blocks) < 2 or records_grad(xh, *stack.parameters()):
         for blk in blocks:
             xh = block_forward(blk.norm1, blk.attn, blk.norm2, blk.ffn, xh)
         return xh

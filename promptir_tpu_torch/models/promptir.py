@@ -14,8 +14,9 @@ dict loads with `load_state_dict(strict=True)`:
 
 Activations are NCHW in channels_last memory, so the blocks' kernels see
 contiguous NHWC views. The eight level stacks run through
-`blocks.run_stack`: served (no autograd), each chains its blocks through
-the merged tail + stats kernel, 36 launches of it a forward at full depth.
+`blocks.run_stack`: block by block (mdta_stats, then block_tail, served),
+or with `fused_ffn=True`, served, chained through the merged tail + stats
+kernel, 36 launches of it a forward at full depth.
 The level-1 decoder entry runs through the seam kernel (under `Seam`,
 which carries its gradient): up2_1's conv, then pixel-shuffle and the skip
 concat in one pass.
@@ -53,8 +54,14 @@ class PromptIR(nn.Module):
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_refinement_blocks: int = 4,
                  heads: Sequence[int] = (1, 2, 4, 8), expansion: float = 2.66,
-                 bias_free_norm: bool = False):
+                 bias_free_norm: bool = False, fused_ffn: bool = False):
+        """`fused_ffn` is named after the JAX model's option
+        (promptir_tpu/models/promptir.py:57, 162), which ties the chained
+        stacks to its fused FFN kernel. Every route of the port runs the
+        kernels, so here it selects only the chaining of the level stacks
+        (blocks.run_stack, tail_stats); without it each block runs alone."""
         super().__init__()
+        self.fused_ffn = fused_ffn
         d, nb, hs = dim, num_blocks, heads
 
         def stack(n, c, h):
@@ -114,7 +121,7 @@ class PromptIR(nn.Module):
         cat = torch.cat
 
         def run(s, x):
-            return nchw(run_stack(s, nhwc(x)))
+            return nchw(run_stack(s, nhwc(x), self.fused_ffn))
 
         enc1 = run(self.encoder_level1, self.patch_embed(inp))
         enc2 = run(self.encoder_level2, self.down1_2(enc1))

@@ -37,6 +37,7 @@ BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_functions: dict = {}  # (library, name) -> the declared function
 # what the last build printed (ptxas register and shared-memory use) and
 # how long it took; None when the library was already built
 build_log: str | None = None
@@ -119,10 +120,15 @@ def lib() -> ctypes.CDLL:
 
 
 def function(name: str, argtypes: list, restype=ctypes.c_int):
-    """A library function with its ctypes signature declared."""
-    fn = getattr(lib(), name)
-    fn.argtypes = argtypes
-    fn.restype = restype
+    """A library function with its ctypes signature declared (once a
+    library and name: the wrappers call this at every launch)."""
+    key = (id(lib()), name)
+    fn = _functions.get(key)
+    if fn is None:
+        fn = getattr(lib(), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _functions[key] = fn
     return fn
 
 

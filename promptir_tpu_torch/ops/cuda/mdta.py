@@ -1,11 +1,15 @@
-"""MDTA: the statistics pass, its softmax, and the apply pass.
+"""MDTA: the statistics pass, its Gram, its softmax, and the apply pass.
 
 `mdta_stats` replaces promptir_tpu/ops/pallas/mdta.py:317 mdta_stats:
 LN1 -> 1x1 qkv -> depthwise 3x3 of an NHWC input, writing v and the
-whole-image Gram q^T k and squared norms of q and k of every head; q and k
-never reach memory. The kernel is csrc/mdta_stats.cu. `attn_from_stats`
-(promptir_tpu/ops/pallas/mdta.py:211) is the tiny softmax over those
-statistics and stays plain PyTorch.
+whole-image Gram q^T k and squared norms of q and k of every head. Its
+kernel (csrc/mdta_stats.cu) takes all heads of a spatial tile in one block.
+`stats_plan` picks, from (B, H, W, C, heads, dtype), one of two routes and
+the tile: narrow heads keep the Gram in the stats pass (q and k never reach
+memory); wide heads write q and k out and `mdta_gram` (the Gram kernel,
+same source, counted in `mdta_gram.launches`) takes q^T k over all pixels.
+`attn_from_stats` (promptir_tpu/ops/pallas/mdta.py:211) is the tiny softmax
+over those statistics and stays plain PyTorch.
 
 `ln_mdta` replaces promptir_tpu/ops/pallas/mdta.py:252 fused_ln_mdta,
 x + MDTA(LN(x)): the stats kernel, the softmax, then `mdta_apply`, whose
@@ -22,14 +26,16 @@ dtype and the projection is an fp32 product. In float32 this is the unfused
 composition exactly.
 
 The kernels dispatch by dtype: float32 takes the SIMT tile of
-csrc/common.cuh (gemm_tile), bfloat16 the tensor cores (tc_gemm), whose
+csrc/common.cuh (gemm_tile), bfloat16 the tensor cores, whose
 shared-memory carving the *_smem functions here mirror.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -38,13 +44,24 @@ from promptir_tpu_torch.ops.cuda import build
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
 
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may opt in to
+NUM_SMS = 132  # SMs of the H100 SXM
 GEMM_STAGE_FLOATS = 2 * 32 * 65  # gemm_tile's two kTileK x kLd staging tiles
 QKV_CHUNK = 64  # qkv rows of one product pass (kTileN; the bf16 route's too)
 PIXELS = 64  # pixels of a bf16 apply, tail_a or ln_gdfn_a block (kPT)
-PRE_LD = 72  # row stride of the bf16 stats pass's qkv chunk (kPreLd)
-# The stats pass's slots (see stats_slots): at least STATS_BLOCKS blocks over
-# all images and heads (two per SM of the H100's 132), and more, up to one a
-# tile, while their partial Grams fit STATS_BUDGET bytes.
+PRE_LD = 72  # row stride of the bf16 stats passes' qkv chunk (kPreLd)
+WEIGHT_CHUNK = 64  # k depth of a streamed weight chunk of mdta_stats (kKC)
+# a tile's product rows stand for this many more in stats_tile's cost: the
+# per-tile work that does not grow with the tile (x staging, LN, barriers)
+TILE_OVERHEAD_ROWS = 64
+# mdta_stats' narrow route: every head's running Gram and norms, heads *
+# (d^2 + 2d) fp32, within this many bytes of the block's shared memory
+STATS_SUMS_BUDGET = 80 << 10
+GRAM_TILE = 64  # output rows and columns of one Gram block (kGT)
+GRAM_MAX_SLICES = 32  # pixel slices of one head's Gram, at most
+GRAM_MIN_SPAN = 512  # pixels of one slice, at least (but for the last)
+# tail_stats' slots (ops/cuda/megablock.py:tail_stats_slots): at least
+# STATS_BLOCKS blocks over all images, and more, up to one a tile, while
+# their partial Grams fit STATS_BUDGET bytes.
 STATS_BLOCKS = 264
 STATS_BUDGET = 128 << 20
 
@@ -68,7 +85,7 @@ PROJ_WBUF = tc_wbuf(256)  # the pointwise products' buffer (ProjGemm)
 
 
 def stats_tc_bytes(ph: int, pi: int, d: int) -> int:
-    """Bytes of the bf16 stats pass's scratch for a halo of ph pixels, pi
+    """Bytes of tail_stats' bf16 stats scratch for a halo of ph pixels, pi
     interior pixels and head width d (csrc/mdta_stats.cuh:StatsTcSmem): the
     qkv chunk (ph x PRE_LD fp32), q and k channel-major in bf16 (d rounded up
     to 32 rows of tc_ld(pi)), the qkv product's weight buffer, the norms'
@@ -79,107 +96,201 @@ def stats_tc_bytes(ph: int, pi: int, d: int) -> int:
 
 
 def stats_rows(ph: int) -> int:
-    """Rows of the bf16 stats pass's operand for a halo of ph pixels: 48
-    (the 4 x 6 tile), else ph rounded up to 64 (csrc/mdta_stats.cu)."""
+    """Rows of a bf16 stats pass's qkv product for a halo of ph pixels: 48
+    (the 4 x 6 tile), else ph rounded up to 64."""
     return 48 if ph <= 48 else -(-ph // 64) * 64
 
 
-STATS_TILES = ((14, 14), (6, 14), (6, 6), (4, 6))
+# interior (rows, cols) of a stats block's tile, largest first
+STATS_TILES = ((14, 14), (14, 6), (6, 6), (4, 6))
+RESIDENT_C = 96  # widest C whose W_qkv stays in the bf16 stats block (resident)
 
 
-def _stats_bytes(c: int, d: int, tile, dtype) -> int:
+class StatsPlan(NamedTuple):
+    """How mdta_stats runs at one input: the route ("narrow": the Gram in
+    the stats pass; "wide": q and k out, then the Gram kernel), the tile,
+    the stats blocks of one image (each a slot of the slot buffer), the
+    block's shared-memory bytes, and the Gram kernel's pixel slices (0 on
+    the narrow route)."""
+    route: str
+    tile: tuple
+    nslots: int
+    smem: int
+    slices: int
+
+
+def stats_route(c: int, num_heads: int) -> str:
+    """"narrow" where all heads' running Gram and norms, heads * (d^2 + 2d)
+    fp32, fit STATS_SUMS_BUDGET (d = 48 up to C = 384, d = 96 at C = 96,
+    d = 40 at C = 160), else "wide" (d = 80 at C = 320: 105 KB; d = 176
+    at C = 704; every one-head width from 160)."""
+    d = c // num_heads
+    return ("narrow" if num_heads * (d * d + 2 * d) * 4 <= STATS_SUMS_BUDGET
+            else "wide")
+
+
+def pass_rows(m: int) -> int:
+    """qkv rows of one product pass of the bf16 stats block whose product
+    has m rows: 128 for the small tiles (m <= 64), else 64
+    (csrc/mdta_stats.cu:pass_rows)."""
+    return 128 if m <= 64 else 64
+
+
+def resident(c: int, m: int) -> bool:
+    """W_qkv stays in the bf16 stats block for its life (no weight stream)
+    up to C = RESIDENT_C at the 256- and 128-row products
+    (csrc/mdta_stats.cu:resident)."""
+    return c <= RESIDENT_C and m >= 128
+
+
+def stats_tc_smem(c: int, num_heads: int, tile, wide: bool) -> int:
+    """Bytes of the bf16 stats block (csrc/mdta_stats.cu:TcCarve): x and
+    then LN1's output on the halo (stats_rows(ph) rows of tc_ld(C) bf16),
+    the weight ring (4 chunks of 64 rows, or 3 of 128, by WEIGHT_CHUNK
+    columns) or, resident, all 3C rows of W_qkv and a pass of zero rows,
+    one pass's qkv (ph x (rows + 8) fp32), q and k of the interior
+    pixel-major in bf16 (narrow only), the running sums, the taps' partial
+    norms (512 fp32)."""
+    d = c // num_heads
     th, tw = tile
     ph, pi = (th + 2) * (tw + 2), th * tw
-    if dtype == torch.bfloat16:
-        return stats_rows(ph) * tc_ld(c) * 2 + stats_tc_bytes(ph, pi, d)
+    m = stats_rows(ph)
+    np_ = pass_rows(m)
+    ring = ((3 * c + np_) * tc_ld(c) * 2 if resident(c, m)
+            else (4 if np_ == 64 else 3) * np_ * tc_ld(WEIGHT_CHUNK) * 2)
+    sld = 2 * d if wide else d * d + 2 * d
+    qk = 0 if wide else 2 * -(-pi // 16) * 16 * tc_ld(d) * 2
+    return (m * tc_ld(c) * 2 + ring + ph * (np_ + 8) * 4 + qk
+            + num_heads * sld * 4 + 512 * 4)
+
+
+def stats_f32_smem(c: int, num_heads: int, tile) -> int:
+    """Bytes of the float32 stats block (csrc/mdta_stats.cu:stats_kernel):
+    q and k of the interior (pi x 2d fp32), the qkv chunk of the halo (ph x
+    64 fp32), the product staging tiles, the halo's LN mean and rstd (fp32)
+    and flat pixel indices (int32)."""
+    d = c // num_heads
+    th, tw = tile
+    ph, pi = (th + 2) * (tw + 2), th * tw
     return (pi * 2 * d + ph * QKV_CHUNK + GEMM_STAGE_FLOATS + 2 * ph) * 4 + ph * 4
 
 
-def stats_tile(d: int, c: int = 0, dtype=torch.float32) -> tuple[int, int]:
-    """Interior (rows, cols) of one stats block's tile for head width d:
-    large for the d = 48 stacks, smaller where the fp32 q and k of the tile
-    would outgrow shared memory (4 x 6 = 24 pixels above d = 352: at the
-    one-head d = 704 block their 24 * 1408 fp32 take 135 KB). In bfloat16,
-    where LN1's output of the whole halo (C channels) is staged for the
-    tensor cores, the next smaller of STATS_TILES while that one does not
-    fit at width c (6 x 14 for the d = 48 heads at C = 192 and 384)."""
-    if d <= 64:
-        i = 0
-    elif d <= 96:
-        i = 1
-    elif d <= 352:
-        i = 2
-    else:
-        i = 3
+def stats_smem(c: int, num_heads: int, dtype=torch.float32, tile=None) -> int:
+    """Shared-memory bytes of one stats block at `tile` (by default the
+    largest that fits, stats_tile)."""
+    tile = tile or stats_tile(c, num_heads, dtype)
     if dtype == torch.bfloat16:
-        while i + 1 < len(STATS_TILES) and _stats_bytes(
-                c, d, STATS_TILES[i], dtype) > SMEM_LIMIT:
-            i += 1
-    return STATS_TILES[i]
+        return stats_tc_smem(c, num_heads, tile,
+                             stats_route(c, num_heads) == "wide")
+    return stats_f32_smem(c, num_heads, tile)
 
 
-def stats_smem(c: int, num_heads: int, dtype=torch.float32) -> int:
-    """Shared-memory bytes of one stats block; csrc/mdta_stats.cu carves its
-    dynamic shared memory in this order. float32 (stats_kernel): q and k of
-    the interior pixels (pi x 2d fp32), the qkv chunk of the halo pixels
-    (ph x 64 fp32), the two product staging tiles, the halo's LN mean and
-    rstd (fp32) and its flat pixel indices (int32). bfloat16
-    (stats_tc_kernel): LN1's output on the halo (stats_rows(ph) rows of
-    tc_ld(C) bf16), then stats_tc_bytes."""
+def _tiles(h: int, w: int, tile) -> int:
+    return -(-h // tile[0]) * -(-w // tile[1])
+
+
+def stats_tile(c: int, num_heads: int, dtype=torch.float32, b=None, h=None,
+               w=None) -> tuple[int, int]:
+    """The stats block's tile: of STATS_TILES that fit SMEM_LIMIT, the one
+    whose busiest block (stats_plan's slots) does the least work, counted as
+    its tiles times (product rows + TILE_OVERHEAD_ROWS), the larger tile on
+    a tie; without an image, the largest. Raises when none fits."""
+    fit = [t for t in STATS_TILES
+           if stats_smem(c, num_heads, dtype, t) <= SMEM_LIMIT]
+    if not fit:
+        raise ValueError(f"mdta_stats: C={c}, heads={num_heads} fits no tile")
+    if b is None:
+        return fit[0]
+
+    def cost(t):
+        n = _tiles(h, w, t)
+        rows = stats_rows((t[0] + 2) * (t[1] + 2)) + TILE_OVERHEAD_ROWS
+        return -(-n // _slots(b, n)) * rows
+
+    return min(fit, key=cost)
+
+
+def _slots(b: int, tiles: int) -> int:
+    """Stats blocks of one image: about one an SM over the batch, at most
+    one a tile."""
+    return min(tiles, max(1, NUM_SMS // b))
+
+
+def gram_slices(b: int, h: int, w: int, c: int, num_heads: int) -> int:
+    """Pixel slices of the wide route's Gram: enough for about 2 NUM_SMS
+    blocks over the batch's heads and output tiles, at most
+    GRAM_MAX_SLICES and at least GRAM_MIN_SPAN pixels each."""
     d = c // num_heads
-    return _stats_bytes(c, d, stats_tile(d, c, dtype), dtype)
+    blocks = b * num_heads * -(-d // GRAM_TILE) ** 2
+    return max(1, min(GRAM_MAX_SLICES, -(-2 * NUM_SMS // blocks),
+                      -(-h * w // GRAM_MIN_SPAN)))
 
 
-def stats_slots(b: int, h: int, w: int, c: int, num_heads: int,
-                dtype=torch.float32) -> int:
-    """Slots of one (image, head): the stats blocks of it, each summing the
-    tiles slot, slot + nslots, ... into its own partial Gram. One a tile
-    while the partial Grams fit STATS_BUDGET (every narrow head), else
-    enough for about STATS_BLOCKS blocks: the buffer is at most
-    max(STATS_BUDGET, (STATS_BLOCKS + b * heads) slots) and does not grow
-    with the image."""
-    d = c // num_heads
-    th, tw = stats_tile(d, c, dtype)
-    tiles = -(-h // th) * -(-w // tw)
-    per_slot = 4 * b * num_heads * (d * d + 2 * d)
-    return min(tiles, max(-(-STATS_BLOCKS // (b * num_heads)),
-                          STATS_BUDGET // per_slot))
+@functools.lru_cache(maxsize=None)
+def stats_plan(b: int, h: int, w: int, c: int, num_heads: int,
+               dtype=torch.float32) -> StatsPlan:
+    """The route, tile, slots and Gram slices of mdta_stats at an input of
+    (b, h, w, c): about one block an SM over the batch (NUM_SMS // b an
+    image, at most one a tile), each walking its image's tiles."""
+    route = stats_route(c, num_heads)
+    tile = stats_tile(c, num_heads, dtype, b, h, w)
+    nslots = _slots(b, _tiles(h, w, tile))
+    return StatsPlan(route, tile, nslots, stats_smem(c, num_heads, dtype, tile),
+                     gram_slices(b, h, w, c, num_heads) if route == "wide" else 0)
 
 
 def stats_partial_bytes(b: int, h: int, w: int, c: int, num_heads: int,
                         dtype=torch.float32) -> int:
-    """Bytes of the kernel's partial-Gram buffer (B, heads, nslots, d^2 + 2d)
-    fp32 for an input of (b, h, w, c)."""
+    """Bytes of the stats pass's slot buffer (B, heads, nslots, sld) fp32,
+    sld = d^2 + 2d (narrow) or 2d (wide), plus the wide route's Gram slices
+    (B, heads, slices, d^2) fp32, at an input of (b, h, w, c). Neither grows
+    with the image."""
     d = c // num_heads
-    return (4 * b * num_heads * stats_slots(b, h, w, c, num_heads, dtype)
-            * (d * d + 2 * d))
+    plan = stats_plan(b, h, w, c, num_heads, dtype)
+    sld = d * d + 2 * d if plan.route == "narrow" else 2 * d
+    return 4 * b * num_heads * (plan.nslots * sld + plan.slices * d * d)
 
 
 def _launch(x, lnw, lnb, wqkv, wdw, num_heads, bias_free, eps):
     b, h, w, c = x.shape
     d = c // num_heads
-    th, tw = stats_tile(d, c, x.dtype)
-    smem = stats_smem(c, num_heads, x.dtype)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"mdta_stats: C={c}, heads={num_heads} needs {smem} "
-                         f"bytes of shared memory (> {SMEM_LIMIT})")
-    nslots = stats_slots(b, h, w, c, num_heads, x.dtype)
-    n = d * d + 2 * d
+    plan = stats_plan(b, h, w, c, num_heads, x.dtype)
+    wide = plan.route == "wide"
+    (th, tw), code = plan.tile, build.dtype_code(x)
+    _check_carving(code, th, tw, c, num_heads, int(wide), plan.smem)
     v = torch.empty_like(x)
-    part = torch.empty((b, num_heads, nslots, n), device=x.device,
+    q, k = (torch.empty_like(x), torch.empty_like(x)) if wide else (v, v)
+    sld = 2 * d if wide else d * d + 2 * d
+    part = torch.empty((b, num_heads, plan.nslots, sld), device=x.device,
                        dtype=torch.float32)
-    stats = torch.empty((b, num_heads, n), device=x.device, dtype=torch.float32)
+    stats = torch.empty((b, num_heads, d * d + 2 * d), device=x.device,
+                        dtype=torch.float32)
     fn = build.function("mdta_stats_launch",
-                        [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 9
+                        [_I] + [_P] * 10 + [_I] * 10
                         + [ctypes.c_float, ctypes.c_longlong, _P])
     with build.on_card_of(x):
-        code = fn(build.dtype_code(x), x.data_ptr(), lnw.data_ptr(),
+        code = fn(code, x.data_ptr(), lnw.data_ptr(),
                   None if lnb is None else lnb.data_ptr(), wqkv.data_ptr(),
-                  wdw.data_ptr(), v.data_ptr(), part.data_ptr(),
-                  stats.data_ptr(), b, h, w, c, num_heads, th, tw, nslots,
-                  int(bias_free), eps, smem, build.stream_of(x))
+                  wdw.data_ptr(), v.data_ptr(), q.data_ptr(), k.data_ptr(),
+                  part.data_ptr(), stats.data_ptr(), b, h, w, c, num_heads,
+                  th, tw, plan.nslots, int(bias_free), int(wide), eps,
+                  plan.smem, build.stream_of(x))
     build.check(code, "mdta_stats")
+    mdta_stats.launches += 1
+    if wide:
+        _gram_into(q, k, num_heads, plan.slices, stats)
     return v, stats
+
+
+@functools.lru_cache(maxsize=None)
+def _check_carving(code, th, tw, c, num_heads, wide, smem):
+    """Raise unless the kernel carves `smem` bytes for this block (once a
+    shape: both sides are pure functions of it)."""
+    carved = build.function("mdta_stats_smem", [_I] * 6, ctypes.c_longlong)(
+        code, th, tw, c, num_heads, wide)
+    if carved != smem:
+        raise RuntimeError(f"mdta_stats: the kernel carves {carved} bytes, "
+                           f"stats_smem computed {smem}")
 
 
 def mdta_stats(x, ln_w, ln_b, w_qkv, w_dw, num_heads: int, *,
@@ -190,7 +301,9 @@ def mdta_stats(x, ln_w, ln_b, w_qkv, w_dw, num_heads: int, *,
     weight, (3C, C, 1, 1) or (3C, C); w_dw: the depthwise weight, (3C, 1, 3,
     3) or (3C, 9). Returns v (B, H, W, C) in x's dtype and stats (B, heads,
     d*d + 2d) float32: [Gram q^T k (d x d) | ||q||^2 (d) | ||k||^2 (d)] per
-    head, summed over the image.
+    head, summed over the image. A launch of the stats kernel counts in
+    `mdta_stats.launches`; on the wide route the Gram kernel's in
+    `mdta_gram.launches`.
     """
     b, h, w, c = x.shape
     if c % num_heads or (c // num_heads) % 4:
@@ -207,12 +320,81 @@ def mdta_stats(x, ln_w, ln_b, w_qkv, w_dw, num_heads: int, *,
             raise TypeError("mdta_stats: weights must match x's device and dtype")
     check_tc_width(x, c, num_heads, "mdta_stats")
     args = [None if t is None else t.contiguous() for t in args]
-    out = _launch(*args, num_heads, bias_free, eps)
-    mdta_stats.launches += 1
-    return out
+    return _launch(*args, num_heads, bias_free, eps)
 
 
 mdta_stats.launches = 0
+
+
+def _gram_into(q, k, num_heads, slices, stats):
+    b, h, w, c = q.shape
+    d = c // num_heads
+    part = torch.empty((b, num_heads, slices, d * d), device=q.device,
+                       dtype=torch.float32)
+    fn = build.function("mdta_gram_launch", [_I] + [_P] * 4 + [_I] * 5 + [_P])
+    with build.on_card_of(q):
+        code = fn(build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+                  part.data_ptr(), stats.data_ptr(), b, h * w, c, num_heads,
+                  slices, build.stream_of(q))
+    build.check(code, "mdta_gram")
+    mdta_gram.launches += 1
+
+
+def mdta_gram(q, k, num_heads: int):
+    """The wide route's Gram kernel alone: q^T k of each head over all
+    pixels of NHWC q and k (B, H, W, C) in the dtype that enters the Gram
+    (bf16 or float32). Returns (B, heads, d, d) float32."""
+    b, h, w, c = q.shape
+    d = c // num_heads
+    if q.device.type == "cpu":
+        return mdta_gram_plain(q, k, num_heads)
+    if k.shape != q.shape or k.device != q.device or k.dtype != q.dtype:
+        raise TypeError("mdta_gram: k must match q's shape, device and dtype")
+    if c % num_heads or d % 4:
+        raise ValueError(f"mdta_gram: head width {c}/{num_heads} must be a "
+                         "multiple of 4")
+    check_tc_width(q, c, num_heads, "mdta_gram")
+    q, k = q.contiguous(), k.contiguous()
+    stats = torch.empty((b, num_heads, d * d + 2 * d), device=q.device,
+                        dtype=torch.float32)
+    _gram_into(q, k, num_heads, gram_slices(b, h, w, c, num_heads), stats)
+    return stats[..., : d * d].reshape(b, num_heads, d, d)
+
+
+mdta_gram.launches = 0
+
+
+def mdta_gram_plain(q, k, num_heads: int):
+    """The same Gram in plain PyTorch (fp32 sums of q and k as given)."""
+    b, h, w, c = q.shape
+    d = c // num_heads
+    return torch.einsum("bphi,bphj->bhij",
+                        q.float().reshape(b, h * w, num_heads, d),
+                        k.float().reshape(b, h * w, num_heads, d))
+
+
+def _qkv_plain(x, ln_w, ln_b, w_qkv, w_dw, bias_free, eps):
+    """LN1 (rounded to x's dtype), the 1x1 qkv and the taps, fp32."""
+    c = x.shape[-1]
+    y = layernorm_nhwc(x.float(), ln_w, ln_b, bias_free=bias_free, eps=eps)
+    y = y.to(x.dtype).float()
+    qkv = dwconv3x3_nhwc(y @ w_qkv.reshape(3 * c, c).float().t(),
+                         w_dw.reshape(3 * c, 9).float())
+    return qkv.split(c, dim=-1)
+
+
+def stats_pass_plain(x, ln_w, ln_b, w_qkv, w_dw, num_heads: int, *,
+                     bias_free: bool = False, eps: float = 1e-5):
+    """The wide route's stats pass in plain PyTorch: v, q and k (B, H, W, C)
+    in x's dtype (q and k as they enter the Gram) and the squared norms of
+    the unrounded q and k, (B, heads, 2d) float32."""
+    b, h, w, c = x.shape
+    d = c // num_heads
+    q, k, v = _qkv_plain(x, ln_w, ln_b, w_qkv, w_dw, bias_free, eps)
+    norms = torch.cat([t.reshape(b, h * w, num_heads, d).square().sum(1)
+                       for t in (q, k)], dim=-1)
+    dt = x.dtype
+    return v.to(dt).contiguous(), q.to(dt), k.to(dt), norms
 
 
 def mdta_stats_plain(x, ln_w, ln_b, w_qkv, w_dw, num_heads: int, *,
@@ -222,11 +404,7 @@ def mdta_stats_plain(x, ln_w, ln_b, w_qkv, w_dw, num_heads: int, *,
     b, h, w, c = x.shape
     d = c // num_heads
     dt = x.dtype
-    y = layernorm_nhwc(x.float(), ln_w, ln_b, bias_free=bias_free, eps=eps)
-    y = y.to(dt).float()
-    qkv = dwconv3x3_nhwc(y @ w_qkv.reshape(3 * c, c).float().t(),
-                         w_dw.reshape(3 * c, 9).float())
-    q, k, v = qkv.split(c, dim=-1)
+    q, k, v = _qkv_plain(x, ln_w, ln_b, w_qkv, w_dw, bias_free, eps)
     q = q.reshape(b, h * w, num_heads, d)
     k = k.reshape(b, h * w, num_heads, d)
     gram = torch.einsum("bphi,bphj->bhij", q.to(dt).float(), k.to(dt).float())

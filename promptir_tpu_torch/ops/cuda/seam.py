@@ -31,6 +31,11 @@ def seam(y, skip):
     if skip.device != y.device or skip.dtype != y.dtype:
         raise TypeError("seam: skip must match y's device and dtype")
     y, skip = y.contiguous(), skip.contiguous()
+    per_piece = 16 // y.element_size()  # values of one 16-byte copy
+    if c % per_piece or y.data_ptr() % 16 or skip.data_ptr() % 16:
+        raise ValueError(f"seam: the kernel moves 16-byte pieces: c ({c}) "
+                         f"must be a multiple of {per_piece} and y and skip "
+                         "16-byte aligned")
     out = torch.empty((b, 2 * hc, 2 * wc, 2 * c), device=y.device,
                       dtype=y.dtype)
     fn = build.function("seam_launch", [_I, _P, _P, _P] + [_I] * 4 + [_P])

@@ -133,26 +133,38 @@ def test_apply_smem_fits_every_served_width():
 
 
 def test_stats_buffer_does_not_grow_with_the_image():
-    """The partial-Gram buffer with one slot a tile was 381 MB at one head,
-    d = 704 and a 256 px input (48 tiles), and would have been 5.6 GB at
-    1024 px (704 tiles). The slots keep one a tile while the buffer fits
-    STATS_BUDGET and cap it otherwise."""
-    slot = 4 * (704 * 704 + 2 * 704)
-    assert mdta.stats_partial_bytes(4, 32, 32, 704, 1) == 4 * 48 * slot
-    assert mdta.stats_partial_bytes(4, 128, 128, 704, 1) == 4 * 66 * slot
-    assert mdta.stats_partial_bytes(4, 128, 128, 704, 4) <= mdta.STATS_BUDGET
-    # every served shape of PR 5's buckets keeps one slot a tile
-    for b, h, w, c, heads in [(4, 32, 32, 704, 4), (4, 128, 128, 160, 4),
-                              (4, 256, 256, 48, 1), (4, 32, 32, 384, 8)]:
-        th, tw = mdta.stats_tile(c // heads)
-        assert mdta.stats_slots(b, h, w, c, heads) == -(-h // th) * -(-w // tw)
-    for b, h, w, c, heads in [(1, 8, 8, 48, 1), (6, 512, 512, 48, 1),
-                              (1, 1024, 1024, 704, 1)]:
-        size = mdta.stats_partial_bytes(b, h, w, c, heads)
-        d = c // heads
-        assert 1 <= mdta.stats_slots(b, h, w, c, heads)
-        assert size <= max(mdta.STATS_BUDGET, (mdta.STATS_BLOCKS + b * heads)
-                           * 4 * (d * d + 2 * d))
+    """mdta_stats' scratch: one slot of d^2 + 2d fp32 (narrow) or 2d (wide)
+    a stats block and head, about one block an SM over the batch, plus the
+    wide route's Gram slices (d^2 fp32 each, at most GRAM_MAX_SLICES). The
+    partial-Gram buffer with one slot a tile was 381 MB at one head, d = 704
+    and a 256 px input; the wide route now writes q and k (each x's size)
+    and keeps a few d^2 slices instead. Neither buffer grows with the image:
+    the same bytes at 256 and 4096 px."""
+    d = 704
+    per_slice = 4 * d * d
+    # one head, d = 704, B4 256 px (32 x 32 at the latent): one Gram slice
+    # an image, 33 slots of 2d norms
+    plan = mdta.stats_plan(4, 32, 32, 704, 1, torch.bfloat16)
+    assert plan.route == "wide" and plan.nslots == 33 and plan.slices == 1
+    assert mdta.stats_partial_bytes(4, 32, 32, 704, 1, torch.bfloat16) == (
+        4 * (33 * 4 * 2 * d + per_slice))
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, c, heads in [(1, 48, 1), (4, 96, 2), (6, 384, 8), (4, 704, 4),
+                            (8, 160, 1), (4, 704, 1)]:
+            small, big = (mdta.stats_partial_bytes(b, n, n, c, heads, dtype)
+                          for n in (256, 4096))
+            plan = mdta.stats_plan(b, 4096, 4096, c, heads, dtype)
+            dh = c // heads
+            sld = dh * dh + 2 * dh if plan.route == "narrow" else 2 * dh
+            assert small == big, (b, c, heads, dtype)
+            assert b * plan.nslots <= mdta.NUM_SMS
+            assert plan.slices <= mdta.GRAM_MAX_SLICES
+            assert big == 4 * b * heads * (plan.nslots * sld
+                                           + plan.slices * dh * dh)
+    # a block's running sums fit its budget on the narrow route: the slot
+    # buffer is at most NUM_SMS of them
+    assert mdta.stats_partial_bytes(1, 4096, 4096, 384, 8) <= (
+        mdta.NUM_SMS * mdta.STATS_SUMS_BUDGET)
 
 
 @pytest.mark.parametrize("c,heads,bias_free", [(48, 1, False), (64, 2, True)])

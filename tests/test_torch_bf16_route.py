@@ -253,7 +253,7 @@ def test_cast_weight_is_made_once(mode):
 def test_trained_bf16_model_serves_through_the_packed_weights(monkeypatch):
     """A promptir with float32 weights computing in bf16 (`train=True`),
     storage-less, served under torch.inference_mode and then under no_grad
-    through a recording library: the chained route's wrappers take the packed
+    through a recording library: the served route's wrappers take the packed
     copy of every block's GDFN weights, made in the first forward only."""
     from promptir_tpu_torch.models.blocks import TransformerBlock
     from promptir_tpu_torch.ops.cuda import build
@@ -272,6 +272,9 @@ def test_trained_bf16_model_serves_through_the_packed_weights(monkeypatch):
         if name == "tail_stats_smem":
             return lambda dtype, th, tw, c, d: megablock._smem(
                 c, c // d, (th, tw), BF16)
+        if name == "mdta_stats_smem":
+            return lambda dtype, th, tw, c, heads, wide: mdta.stats_smem(
+                c, heads, BF16, (th, tw))
         return lambda *args: log.append(name) or 0
 
     monkeypatch.setattr(build, "function", function)
@@ -286,8 +289,11 @@ def test_trained_bf16_model_serves_through_the_packed_weights(monkeypatch):
             y = model(x)
         assert y.shape == (1, 3, 64, 64) and y.dtype == torch.float32
     assert len(packs) == n_blocks == 19
+    # every block alone (the default route): 19 stats passes and tails a
+    # forward, the Gram kernel at the two wide noise_level widths
     assert [log.count(n) for n in ("mdta_stats_launch", "block_tail_launch",
-                                   "tail_stats_launch")] == [3 * 11] * 2 + [3 * 8]
+                                   "tail_stats_launch", "mdta_gram_launch")] == [
+        3 * 19, 3 * 19, 0, 3 * 2]
 
 SOLO = [(48, 1), (96, 2), (192, 4), (384, 8), (96, 1), (704, 4), (320, 4),
         (160, 4), (704, 1), (384, 1), (320, 1), (192, 1), (160, 1)]
@@ -335,6 +341,9 @@ def test_bf16_wrappers_take_the_packed_weights(monkeypatch):
         if name == "tail_stats_smem":
             return lambda dtype, th, tw, c, d: megablock._smem(
                 c, c // d, (th, tw), BF16 if dtype == 1 else torch.float32)
+        if name == "mdta_stats_smem":
+            return lambda dtype, th, tw, c, heads, wide: mdta.stats_smem(
+                c, heads, BF16 if dtype == 1 else torch.float32, (th, tw))
         return lambda *args: log.append((name, args[0])) or 0
 
     monkeypatch.setattr(build, "function", function)

@@ -15,8 +15,13 @@ compares it with on the card) against the JAX side on the same numpy inputs:
     the unfused JAX composition xla_ln_gdfn(xla_ln_mdta(x))
     (promptir_tpu/ops/pallas/autodiff.py:78,89);
   * the seam against the Pallas `shuffle_concat_pad` in interpret mode after
-    unpadding, bit for bit.
+    unpadding, bit for bit;
+  * mdta_stats' route-and-tile rule at every shape of the four paths, the
+    wide route's stats pass and Gram composing to mdta_stats_plain bit for
+    bit, and the wrappers' launch arguments with the library mocked.
 """
+
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -187,11 +192,34 @@ def test_kernel_wrappers_reject_bad_shapes():
         seam.seam(torch.zeros(1, 2, 2, 8), torch.zeros(1, 4, 5, 2))
 
 
-def test_stats_tile_fits_every_served_width():
+def served_stats_shapes():
+    """(B, H, W, C, heads) of every mdta_stats launch of the four paths:
+    both served models at B4 256x256 and 256x192, PromptIR's training forward
+    at B6 128x128 and its tile forward at B8 128x128."""
+    def promptir(b, h, w):
+        return [(b, h // s, w // s, c, heads) for s, c, heads in [
+            (1, 48, 1), (2, 96, 2), (4, 192, 4), (8, 384, 8), (8, 704, 4),
+            (4, 320, 4), (2, 160, 4), (1, 96, 1)]]
+
+    def xr(b, h, w):
+        return [(b, h // s, w // s, c, 1) for s, c in [
+            (1, 48), (2, 96), (4, 192), (8, 384), (8, 704), (4, 320), (2, 160),
+            (1, 96)]]
+
+    return (promptir(4, 256, 256) + promptir(4, 256, 192) + xr(4, 256, 256)
+            + xr(4, 256, 192) + promptir(6, 128, 128) + promptir(8, 128, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stats_tile_fits_every_served_width(dtype):
     """Every (C, heads) that the forwards of promptir and of the training
     config of promptxrestormerir give mdta_stats, and every width that
     reaches ln_gdfn, fits one block's shared memory with the tile the
-    wrappers pick (one-head widths reach d = 704 at prompt3)."""
+    wrappers pick (one-head widths reach d = 704 at prompt3), at every shape
+    of the four paths. The route splits where stats_route says: narrow while
+    all heads' d x d sums and norms fit STATS_SUMS_BUDGET (d = 48 up to
+    C = 384, 96 at C = 96, 40 at C = 160), wide otherwise (d = 80 at
+    C = 320, 176 at C = 704, every one-head width from 160)."""
     from promptir_tpu_torch import create_model
     from promptir_tpu_torch.ops.attention import MDTA
     from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn_smem
@@ -211,9 +239,115 @@ def test_stats_tile_fits_every_served_width():
             elif isinstance(mod, GDFN):
                 ffn.add(mod.project_out.weight.shape[0])
     assert (704, 1) in stats and (704, 4) in stats and 704 in ffn
+    assert stats == {(c, heads) for _, _, _, c, heads in served_stats_shapes()}
+    narrow = {(48, 1), (96, 2), (192, 4), (384, 8), (96, 1), (160, 4)}
     for c, heads in sorted(stats):
-        smem = mdta.stats_smem(c, heads)
-        assert smem <= mdta.SMEM_LIMIT, (c, heads, mdta.stats_tile(c // heads), smem)
+        d = c // heads
+        assert mdta.stats_route(c, heads) == (
+            "narrow" if (c, heads) in narrow else "wide"), (c, heads)
+        fits = heads * (d * d + 2 * d) * 4 <= mdta.STATS_SUMS_BUDGET
+        assert fits == ((c, heads) in narrow)
+        smem = mdta.stats_smem(c, heads, dtype)
+        assert smem <= mdta.SMEM_LIMIT, (c, heads, smem)
+    for b, h, w, c, heads in served_stats_shapes():
+        plan = mdta.stats_plan(b, h, w, c, heads, dtype)
+        th, tw = plan.tile
+        assert plan.tile in mdta.STATS_TILES
+        assert plan.smem == mdta.stats_smem(c, heads, dtype, plan.tile)
+        assert plan.smem <= mdta.SMEM_LIMIT
+        tiles = -(-h // th) * -(-w // tw)
+        assert 1 <= plan.nslots <= tiles and b * plan.nslots <= mdta.NUM_SMS
+        assert (plan.slices > 0) == (plan.route == "wide")
     for c in sorted(ffn):
         assert ln_gdfn_smem(c) <= mdta.SMEM_LIMIT, c
-    assert mdta.stats_tile(704) == (4, 6)
+    # the largest tile that fits: 14 x 14 at the d = 48 level 1; at the
+    # one-head d = 704, 4 x 6 in float32 (its pi x 2d fp32 q and k stay in
+    # the block) and 6 x 6 in bf16 (q and k leave it)
+    assert mdta.stats_tile(48, 1, dtype) == (14, 14)
+    assert mdta.stats_tile(704, 1, dtype) == (
+        (6, 6) if dtype == torch.bfloat16 else (4, 6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,heads", [(48, 2), (320, 4)])
+def test_stats_pass_and_gram_compose_to_mdta_stats(c, heads, dtype):
+    """The wide route's two kernels' plain versions, the stats pass (v, q
+    and k in x's dtype, the fp32 norms) then the Gram of q and k, give
+    mdta_stats_plain bit for bit, on a non-square batch-2 input at a narrow
+    and a wide width."""
+    w = torch_weights(block_weights(c, heads, seed=c + 1))
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 6, 10, c)).astype(np.float32)).to(dtype)
+    args = [w[k].to(dtype) for k in ("ln1w", "ln1b", "wqkv", "wdwa")]
+    v, q, k, norms = mdta.stats_pass_plain(x, *args, heads)
+    assert q.dtype == k.dtype == v.dtype == dtype and q.shape == x.shape
+    gram = mdta.mdta_gram_plain(q, k, heads)
+    d = c // heads
+    v0, stats0 = mdta.mdta_stats_plain(x, *args, heads)
+    assert torch.equal(v, v0)
+    assert torch.equal(torch.cat([gram.reshape(2, heads, d * d), norms], -1),
+                       stats0)
+    assert mdta.stats_route(c, heads) == ("wide" if c == 320 else "narrow")
+    launches = mdta.mdta_gram.launches
+    assert torch.equal(mdta.mdta_gram(q, k, heads), gram)  # the CPU path
+    assert mdta.mdta_gram.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,heads", [(4, 256, 256, 48, 1),
+                                           (2, 20, 30, 96, 2),
+                                           (4, 32, 32, 704, 4),
+                                           (4, 64, 64, 192, 1)])
+def test_stats_wrapper_launches_by_the_plan(monkeypatch, b, h, w, c, heads,
+                                            dtype):
+    """With storage-less tensors and a recording library, mdta_stats passes
+    the stats kernel the route, tile, slots and shared memory of
+    stats_plan, and on the wide route launches the Gram kernel with its
+    slices; each launch counts once."""
+    from promptir_tpu_torch.ops.cuda import build
+
+    calls = []
+    monkeypatch.setattr(build, "on_card_of", lambda t: contextlib.nullcontext())
+    monkeypatch.setattr(build, "stream_of", lambda t: 9)
+    monkeypatch.setattr(build, "check", lambda code, what: None)
+
+    def function(name, argtypes, restype=None):
+        if name == "mdta_stats_smem":
+            return lambda dt, th, tw, cc, hh, wide: mdta.stats_smem(
+                cc, hh, dtype, (th, tw))
+        return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(build, "function", function)
+
+    def z(*s):
+        return torch.zeros(*s, device="meta", dtype=dtype)
+
+    x = z(b, h, w, c)
+    before = (mdta.mdta_stats.launches, mdta.mdta_gram.launches)
+    v, stats = mdta.mdta_stats(x, z(c), z(c), z(3 * c, c), z(3 * c, 9), heads)
+    plan = mdta.stats_plan(b, h, w, c, heads, dtype)
+    wide = plan.route == "wide"
+    d = c // heads
+    assert [n for n, _ in calls] == (["mdta_stats_launch"]
+                                     + ["mdta_gram_launch"] * wide)
+    args = calls[0][1]
+    assert args[0] == (1 if dtype == torch.bfloat16 else 0)
+    assert args[11:21] == (b, h, w, c, heads, *plan.tile, plan.nslots, 0,
+                           int(wide))
+    assert args[22] == plan.smem and args[23] == 9
+    if wide:
+        gram = calls[1][1]
+        assert gram[5:10] == (b, h * w, c, heads, plan.slices) and gram[-1] == 9
+    assert (mdta.mdta_stats.launches, mdta.mdta_gram.launches) == (
+        before[0] + 1, before[1] + wide)
+    assert v.shape == x.shape and stats.shape == (b, heads, d * d + 2 * d)
+
+
+def test_seam_kernel_path_takes_16_byte_pieces():
+    """The seam kernel moves 16 bytes a copy: on a card tensor (here
+    storage-less) a bf16 width that is not a multiple of 8 is refused
+    before any launch."""
+    y = torch.zeros(1, 2, 2, 16, device="meta", dtype=torch.bfloat16)
+    skip = torch.zeros(1, 4, 4, 4, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        seam.seam(y, skip)

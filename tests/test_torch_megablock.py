@@ -8,10 +8,10 @@
     within 1e-4; the attention built from the stats within 3e-4, because the
     Pallas kernel rounds q and k to bf16 before the Gram
     (promptir_tpu/ops/pallas/mdta.py:107-113) and the port keeps them fp32;
-  * `run_stack` on a reduced PromptIR without autograd: the same output as
-    the per-block route of the nn.Sequential stacks and as the JAX model,
-    with one mdta_stats, n - 1 tail_stats and one block_tail per stack; under
-    autograd no tail_stats;
+  * `run_stack` on a reduced PromptIR with `fused_ffn=True` and without
+    autograd: the same output as the per-block route of the nn.Sequential
+    stacks and as the JAX model, with one mdta_stats, n - 1 tail_stats and
+    one block_tail per stack; under autograd, and by default, no tail_stats;
   * the wrapper's launch path on a storage-less tensor: it launches inside
     its tensor's card and counts the launch.
 """
@@ -192,7 +192,7 @@ class Spy:
 def per_block_route(monkeypatch):
     """PromptIR's stacks run as the nn.Sequential of blocks."""
     monkeypatch.setattr(promptir_model, "run_stack",
-                        lambda stack, xh: blocks.nhwc(stack(blocks.nchw(xh))))
+                        lambda stack, xh, chain: blocks.nhwc(stack(blocks.nchw(xh))))
 
 
 def test_run_stack_matches_per_block_route_and_jax(monkeypatch):
@@ -200,7 +200,7 @@ def test_run_stack_matches_per_block_route_and_jax(monkeypatch):
     jmodel = jax_create_model("promptir", **STACK)
     variables = jmodel.init(jax.random.PRNGKey(3), jnp.asarray(x))
     ref = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
-    model = create_model("promptir", device="cpu", **STACK)
+    model = create_model("promptir", device="cpu", fused_ffn=True, **STACK)
     model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2))
     spy = Spy(monkeypatch)
@@ -228,12 +228,39 @@ def test_run_stack_under_autograd_runs_per_block(monkeypatch):
     stack = model.encoder_level2
     xh = torch.rand(1, 8, 12, stack[0].norm1.body.weight.shape[0])
     with torch.no_grad():
-        y = blocks.run_stack(stack, xh)
+        y = blocks.run_stack(stack, xh, chain=True)
     assert spy.calls == {"mdta_stats": 1, "tail_stats": len(stack) - 1,
                          "block_tail": 1}
     with torch.no_grad():
         y_seq = blocks.nhwc(stack(blocks.nchw(xh)))
     torch.testing.assert_close(y, y_seq, rtol=0, atol=0)
+
+
+def test_promptir_chains_its_stacks_only_with_fused_ffn(monkeypatch):
+    """By default every block of served PromptIR runs alone (mdta_stats,
+    then block_tail: 47 of each at full depth); `fused_ffn=True` chains the
+    level stacks through tail_stats (11 mdta_stats, 36 tail_stats, 11
+    block_tail). Both give the same output."""
+    torch.manual_seed(0)
+    model = create_model("promptir", device="cpu", **STACK)
+    assert model.fused_ffn is False
+    n_blocks = sum(isinstance(m, blocks.TransformerBlock)
+                   for m in model.modules())
+    x = torch.rand(1, 3, 16, 24)
+    spy = Spy(monkeypatch)
+    with torch.no_grad():
+        y = model(x)
+    assert spy.calls == {"mdta_stats": n_blocks, "tail_stats": 0,
+                         "block_tail": n_blocks}
+    chained = create_model("promptir", device="cpu", fused_ffn=True, **STACK)
+    chained.load_state_dict(model.state_dict(), strict=True)
+    spy = Spy(monkeypatch)
+    with torch.no_grad():
+        y_chain = chained(x)
+    n = sum(len(getattr(model, s)) for s in STACKS)
+    assert spy.calls == {"mdta_stats": 8 + 3, "tail_stats": n - 8,
+                         "block_tail": 8 + 3}
+    torch.testing.assert_close(y_chain, y, rtol=1e-5, atol=1e-5)
 
 
 def test_single_block_stack_takes_block_forward(monkeypatch):

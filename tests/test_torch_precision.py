@@ -134,6 +134,9 @@ def test_every_wrapper_launches_inside_its_card(monkeypatch):
     def function(name, argtypes, restype=None):
         if name == "block_tail_smem":
             return lambda dtype, c: 0
+        if name == "mdta_stats_smem":
+            return lambda dtype, th, tw, c, heads, wide: mdta.stats_smem(
+                c, heads, torch.float32, (th, tw))
         return lambda *args: log.append(("launch", name, args[-1])) or 0
 
     monkeypatch.setattr(build, "function", function)

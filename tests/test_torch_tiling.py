@@ -6,8 +6,9 @@ and holds the port against the JAX tiler on the same inputs and weights:
   * an identity model blends to the JAX tiler's output bit for bit (the
     same sums in the same order) and to clip(x) within 1e-6 (a sum of three
     equal values over 3 need not round back exactly);
-  * a reduced PromptIR, two blocks in its first and last level stacks so
-    that the tiles run the chained route, against JAX's tiled_inference at
+  * a reduced PromptIR with `fused_ffn=True`, two blocks in its first and
+    last level stacks so that the tiles run the chained route, against JAX's
+    tiled_inference at
     80x72 with tile 32, overlap 8 and chunk 3, fp32, within 1e-4 (the
     whole-model tolerance of test_torch_model.py);
   * the engine serves an oversized request through the tiler exactly as a
@@ -104,7 +105,7 @@ def chained():
     fn = jax.jit(lambda p, v: jmodel.apply(p, v))
     ref = np.asarray(jtiling.tiled_inference(fn, variables, jnp.asarray(x),
                                              **TILED))
-    model = create_model("promptir", device="cpu", **CHAINED)
+    model = create_model("promptir", device="cpu", fused_ffn=True, **CHAINED)
     model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
     return x, model, ref
 
