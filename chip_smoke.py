@@ -13,14 +13,17 @@ each printed with the seconds since start:
   2. the build of every kernel source (one nvcc per source, all started
      together), with ptxas register and shared memory use, and the
      tensor-core instructions (HMMA/HGMMA) of each kernel in the built
-     library (cuobjdump): the bf16 tail, stats and Gram kernels must hold
-     some;
+     library (cuobjdump): the bf16 tail, stats, Gram, LN+GDFN and apply
+     kernels must hold some;
   3. each kernel against its plain PyTorch version on the card, in float32
      (TF32 off) and bfloat16: at every shape a batch-4 forward of either
      model at the serving run's 256x256 and 256x192 buckets gives it, and
      at every shape of the training step (batch 6 at 128x128); mdta_stats
      twice at each (the two launches bit-identical), the Gram kernel at
-     every wide-route shape; the seam bit-exact; the stats pass's scratch at
+     every wide-route shape; ln_gdfn and the apply (ln_mdta) launched twice
+     at each in bf16 (the two outputs bit-identical), and also at ragged
+     shapes (B2 37x53: ln_gdfn at C = 96 and 704, the apply at C = 192 with
+     4 heads); the seam bit-exact; the stats pass's scratch at
      four sizes; and the merged tail + stats kernel (tail_stats) at every
      block pair of the promptir stacks at both serving buckets and at the
      tiler's B8 128x128, against its plain version and against the
@@ -53,7 +56,10 @@ each printed with the seconds since start:
   9. each kernel timed with CUDA events beside its plain version, the one
      PyTorch call that computes the same function where there is one, and
      its bound, at every shape of a 256x256 serving forward of each model,
-     of the training forward and of the tiled path's chunk; mdta_stats per
+     of the training forward and of the tiled path's chunk; ln_gdfn and the
+     apply per shape with their plans and, beside the wrappers' CUDA-event
+     time, their device time from a short torch.profiler window over the
+     same launches; mdta_stats per
      shape with its route and tile, block_tail per shape with its tile, the
      Gram kernel at the wide shapes; tail_stats at every block pair of the
      promptir stacks at B4 256x256 and B8 128x128, with its tile, beside
@@ -181,9 +187,17 @@ GOLDEN_TOL = 2e-4
 FORWARD_TOL_BF16 = 1.5625e-2
 # the bf16 kernels that must hold tensor-core instructions (HMMA or HGMMA):
 # tail_stats's three kernels (tail_a's, the merged one), block_tail's two,
-# mdta_stats' stats pass and its Gram kernel
+# mdta_stats' stats pass and its Gram kernel, ln_gdfn's one pass and the
+# apply's
 TENSOR_CORE_KERNELS = ("tail_a_tc_kernel", "tail_stats_tc_kernel",
-                       "gdfn_out_tc_kernel", "stats_tc_kernel", "gram_tc_kernel")
+                       "gdfn_out_tc_kernel", "stats_tc_kernel", "gram_tc_kernel",
+                       "ln_gdfn_tc_kernel", "mdta_apply_tc_kernel")
+# phase 3's ragged shapes (H and W multiples of no tile), batch 2: (shape,
+# kernel checked beside mdta_stats)
+RAGGED = [((37, 53, 96, 1), "ln_gdfn"), ((37, 53, 704, 1), "ln_gdfn"),
+          ((37, 53, 192, 4), "ln_mdta")]
+# kernels launched twice at every bf16 check, the two outputs bit-identical
+TWICE = ("ln_gdfn", "ln_mdta")
 # the chained route (PromptIR's fused_ffn) stays off by default unless
 # tail_stats takes at most CHAIN_RATIO of block_tail + mdta_stats at every
 # chain shape and at most CHAIN_FORWARD_MS a bf16 promptir B4 256x256 forward
@@ -321,6 +335,7 @@ def checked_shapes():
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(s, TRAIN_BATCH, ("mdta_stats", "ln_mdta", "ln_gdfn"))
                   for s, _ in block_shapes(*TRAIN_HW)]
+        shapes += [(s, 2, ("mdta_stats", k)) for s, k in RAGGED]
         out.append((dtype, shapes, (*TRAIN_HW, TRAIN_BATCH)))
     return out
 
@@ -400,20 +415,26 @@ def check_kernels(mdta, block, gdfn, seam, megablock):
                 msg += f"; mdta_gram {e:.2e} (rel {r:.2e})"
             attn = mdta.attn_from_stats(st0, a["temp"])
             outs = [v]
-            pairs = {
-                "block_tail": lambda: (run_tail(block.block_tail, a, v0, attn),
-                                       run_tail(block.block_tail_plain, a, v0, attn)),
-                "ln_mdta": lambda: (run_apply(mdta.mdta_apply, a, v0, attn),
-                                    run_apply(mdta.mdta_apply_plain, a, v0, attn)),
-                "ln_gdfn": lambda: (run_ln_gdfn(gdfn.ln_gdfn, a),
-                                    run_ln_gdfn(gdfn.ln_gdfn_plain, a)),
+            pairs = {  # (kernel, plain version)
+                "block_tail": (lambda: run_tail(block.block_tail, a, v0, attn),
+                               lambda: run_tail(block.block_tail_plain, a, v0, attn)),
+                "ln_mdta": (lambda: run_apply(mdta.mdta_apply, a, v0, attn),
+                            lambda: run_apply(mdta.mdta_apply_plain, a, v0, attn)),
+                "ln_gdfn": (lambda: run_ln_gdfn(gdfn.ln_gdfn, a),
+                            lambda: run_ln_gdfn(gdfn.ln_gdfn_plain, a)),
             }
             for k in kinds[1:]:
-                out, out0 = pairs[k]()
+                out, out0 = pairs[k][0](), pairs[k][1]()
                 torch.cuda.synchronize()
                 e, r = rel_err(out, out0)
                 record(k, dtype, shape, e, r)
                 msg += f"; {k} {e:.2e} (rel {r:.2e})"
+                if dtype == torch.bfloat16 and k in TWICE:
+                    out1 = pairs[k][0]()  # a second launch
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, out1):
+                        fail(f"two {k} launches differ at {shape} {dtype}")
+                    msg += ", two launches bit-identical"
                 outs.append(out)
             say(msg)
             if not all(torch.isfinite(t).all() for t in outs):
@@ -929,6 +950,41 @@ def time_ms(fn, reps=20, warmup=3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
 
 
+def profiled_ms(fn, reps=10, windows=2) -> float:
+    """Device time of one fn() in ms: the sum of the kernels' device times
+    in a torch.profiler window over `reps` calls (after a warm-up call),
+    over the calls; no host time. The larger of `windows` windows: a window
+    now and then loses kernel records (it reads low, even 0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = 0.0
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+        best = max(best, total / reps / 1e3)
+    return best
+
+
+def plan_text(mdta, gdfn, k, shape, batch) -> str:
+    """The bf16 plan of ln_gdfn or the apply at one shape."""
+    h, w, c, heads = shape
+    if k == "ln_gdfn":
+        p = gdfn.ln_gdfn_plan(batch, h, w, c, int(c * 2.66))
+        return f"tile {p.tile[0]}x{p.tile[1]}, split {p.split}"
+    p = mdta.apply_plan(batch, h, w, c, heads)
+    return (f"{p.pixels} px x {p.cols} cols, attn {p.heads_staged} heads x "
+            f"{p.attn_rows} rows, {p.slots} blocks an image, W_proj "
+            + ("resident" if p.resident else "streamed"))
+
+
 def block_work(shape, nbytes, batch=BATCH):
     """(operations, bytes) of the stats and tail functions at one shape:
     each input read once, each output written once."""
@@ -1119,8 +1175,13 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
             for k in kernels:
                 ms, pms = time_ms(fns[k][0]), time_ms(fns[k][1])
                 b, by = bound_ms(*work[k], dtype)
+                dev = ""
+                if k in TWICE:
+                    dms = profiled_ms(fns[k][0])
+                    dev = (f", device {dms:.4f} ms, "
+                           f"{plan_text(mdta, gdfn, k, shape, batch)}")
                 say(f"time {k:10s} B{batch} {shape} bf16: {ms:.3f} ms (plain "
-                    f"{pms:.3f} ms, bound {b:.4f} ms by {by}) x{n} per "
+                    f"{pms:.3f} ms, bound {b:.4f} ms by {by}{dev}) x{n} per "
                     f"{path} forward")
                 if k == "block_tail":
                     tails.append((path, shape, batch, n, ms, b, by))
@@ -1128,6 +1189,8 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                     stats_rows.append((path, shape, batch, n, ms, pms, b, by))
                 t = tot[path].setdefault(k, dict(ms=0.0, plain_ms=0.0, ops=0,
                                                  bytes=0, library_ms=None))
+                if k in TWICE:
+                    t["device_ms"] = t.get("device_ms", 0.0) + n * dms
                 t["ms"] += n * ms
                 t["plain_ms"] += n * pms
                 t["ops"] += n * work[k][0]
@@ -1204,8 +1267,12 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                                  bound_ms=b, bound_by=by,
                                  library_ms=t["library_ms"])
             lib = t["library_ms"]
+            dev = ""
+            if "device_ms" in t:
+                by_path[path]["device_ms"] = t["device_ms"]
+                dev = f" (device {t['device_ms']:.3f} ms)"
             say(f"time {k:10s} per {path} forward (bf16): "
-                f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+                f"{t['ms']:.3f} ms{dev}, plain {t['plain_ms']:.3f} ms, library "
                 f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound {b:.4f} "
                 f"ms by {by}")
         ops = sum(tot[p][k]["ops"] for p in by_path)

@@ -6,10 +6,10 @@
 // the tail in two kernels at the hidden tensor:
 //   tail_a (pointwise): attn apply, out-projection, residual, LN2, W1 (C->2F);
 //          writes x2 and the hidden h, both in T. Its first two steps are
-//          attn_apply_project of mdta_apply.cuh, which ln_mdta.cu runs alone;
+//          attn_apply_project of mdta_apply.cuh (ln_mdta.cu's in float32);
 //   tail_b (spatial tile with a 1-pixel halo of h): depthwise 3x3, the exact
 //          erf gate, W2 (F->C) and the residual x2. This is gdfn_out of
-//          gdfn.cuh, which ln_gdfn.cu shares, as it shares steps 3-4 of
+//          gdfn.cuh, which ln_gdfn.cu's float32 route shares, with steps 3-4 of
 //          tail_a (ln_tile, project_in).
 // Against the single-pass TPU kernel the split writes h (2F values a pixel)
 // and x2 (C) and reads them back, h with its halo: about 2 * (2F + C) extra

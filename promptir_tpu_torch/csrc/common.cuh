@@ -210,6 +210,70 @@ __device__ __forceinline__ void warp_mma_t_k16(const bf16* A, int lda, const bf1
   }
 }
 
+// A lane's ldmatrix offsets, in elements, into a warp's operand tiles of
+// warp_mma_k16 (row-major, stride ld): the A fragments' row (lane & 15) and
+// column ((lane >> 4) * 8), and the B fragment pairs' row (lane & 7) +
+// ((lane >> 4) << 3) and column ((lane >> 3) & 1) * 8 (the single B
+// fragment of an odd NT reads the first 16 lanes' addresses of the same
+// formula with row lane & 7).
+__device__ __forceinline__ int lane_a_off(int ld) {
+  const int lane = threadIdx.x & 31;
+  return (lane & 15) * ld + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int lane_b_off(int ld) {
+  const int lane = threadIdx.x & 31;
+  return ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ int lane_b1_off(int ld) {
+  const int lane = threadIdx.x & 31;
+  return (lane & 7) * ld + ((lane >> 3) & 1) * 8;
+}
+
+__device__ __forceinline__ void ldsm_x4_at(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_at(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// KS k16 steps of a warp's (16 MT) x (8 NT) tile, acc += A B^T over k in
+// [0, 16 KS), the same instructions as KS calls of warp_mma_k16 but from
+// shared-memory byte addresses computed once: a = the warp's first A row
+// plus lane_a_off, b = its first B row plus lane_b_off, b1 = plus
+// lane_b1_off; lda, ldb the row strides in bytes. No branch between the
+// steps, so a step's ldmatrix may issue while the last step multiplies.
+template <int MT, int NT, int KS>
+__device__ __forceinline__ void warp_mma_steps(uint32_t a, uint32_t lda, uint32_t b, uint32_t b1,
+                                               uint32_t ldb, float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) ldsm_x4_at(af[i], a + i * 16 * lda + s * 32);
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      if (j + 1 < NT) {
+        uint32_t bf[4];
+        ldsm_x4_at(bf, b + j * 8 * ldb + s * 32);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
+          mma_bf16(acc[i][j + 1], af[i], bf[2], bf[3]);
+        }
+      } else {
+        uint32_t bf[2];
+        ldsm_x2_at(bf, b1 + j * 8 * ldb + s * 32);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], af[i], bf[0], bf[1]);
+      }
+    }
+  }
+}
+
 template <int MT, int NT>
 __device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
 #pragma unroll
@@ -320,6 +384,22 @@ template <class K>
 __host__ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// allow_smem for Kernel at the largest size a block may opt in to, once a
+// device: later launches of any size up to it make no driver call for it.
+constexpr int kMaxBlockSmem = 232448;  // bytes of shared memory one H100 block may opt in to
+
+template <auto Kernel>
+__host__ inline cudaError_t allow_smem_once() {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 64 && done[dev]) return cudaSuccess;
+  err = allow_smem(Kernel, kMaxBlockSmem);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 }  // namespace pk

@@ -1,5 +1,5 @@
 // Pieces of the gated depthwise feed-forward (GDFN) shared by block_tail.cu,
-// ln_gdfn.cu and tail_stats.cu. The float32 route:
+// tail_stats.cu and, in float32, ln_gdfn.cu. The float32 route:
 //   ln_tile      the channel LayerNorm of a pixel tile held in shared memory;
 //   project_in   the W1 product (C -> 2F) of that tile to the hidden tensor h;
 //   gdfn_gate    the depthwise 3x3 taps of h at one pixel and the exact-erf
@@ -14,8 +14,8 @@
 //                  register accumulators: h of each chunk of 32 gate
 //                  channels staged on the region's 1-pixel halo, each gate
 //                  computed once (gdfn_gate) into a bf16 tile and multiplied
-//                  into all C outputs. gdfn_out_tc (block_tail's and
-//                  ln_gdfn's second kernel) and tail_stats.cu both take
+//                  into all C outputs. gdfn_out_tc (block_tail's second
+//                  kernel) and tail_stats.cu both take
 //                  their W2 product from it;
 //   gdfn_out_tc    the spatial kernel around gdfn_w2: an 8 x 8 tile (4 x 8
 //                  above C = 384, for the registers), the residual, out.

@@ -1,5 +1,5 @@
-// The MDTA apply step, shared by block_tail.cu (tail_a's steps 1-2) and
-// ln_mdta.cu (the whole kernel):
+// The MDTA apply step, block_tail.cu's tail_a steps 1-2 (and, in float32,
+// the whole of ln_mdta.cu; its bf16 kernel has its own code):
 //   av = attn v per head, rounded through T;
 //   x2 = x + W_proj av, rounded through T; written out, and kept in shared
 //        memory when the caller goes on from it (block_tail's LN2).

@@ -24,10 +24,11 @@ import torch.nn.functional as F
 from promptir_tpu_torch.ops.conv import dwconv3x3_nhwc
 from promptir_tpu_torch.ops.cuda import build, packed
 from promptir_tpu_torch.ops.cuda.mdta import (
+    PIXELS,
+    PROJ_WBUF,
     SMEM_LIMIT,
     check_tc_width,
     kernel_attn,
-    ln_mdta_smem,
     mdta_apply_plain,
     tc_ld,
     tc_wbuf,
@@ -65,10 +66,11 @@ def gdfn_out_tile(c: int):
 
 def tail_tc_smem(c: int) -> tuple[int, int]:
     """Shared-memory bytes of the bf16 tail's two kernels at width c:
-    tail_a_tc (the apply's carving: v then x2 then LN2(x2), attn v, the
-    weight double buffer) and gdfn_out_tc (w2_bytes on its tile)."""
+    tail_a_tc (64 pixels: v then x2 then LN2(x2), attn v, each 64 x
+    tc_ld(C) bf16, and the weight double buffer) and gdfn_out_tc (w2_bytes
+    on its tile)."""
     tile, cols = gdfn_out_tile(c)
-    return ln_mdta_smem(c, torch.bfloat16), w2_bytes(*tile, cols)
+    return 2 * PIXELS * tc_ld(c) * 2 + PROJ_WBUF * 2, w2_bytes(*tile, cols)
 
 
 def tail_operands(x, attn, w1, wdw, w2, f: int, what: str):

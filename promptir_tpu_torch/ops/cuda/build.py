@@ -15,6 +15,7 @@ and ``torch.cuda.synchronize()`` would not report it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -141,14 +142,19 @@ def dtype_code(t) -> int:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream on t's card, as the launchers take it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream on t's card, as the launchers take it (the
+    raw handle: a Stream object costs a few microseconds of host time a
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def on_card_of(t):
     """Context that makes t's card the current device around a launch: the
     launchers start their kernels, and set their shared-memory limit
-    (common.cuh:allow_smem), on the current device."""
+    (common.cuh:allow_smem), on the current device. Nothing to do when it
+    already is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
     return torch.cuda.device(t.device)
 
 

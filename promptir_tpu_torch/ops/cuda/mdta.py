@@ -47,7 +47,7 @@ SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may opt in to
 NUM_SMS = 132  # SMs of the H100 SXM
 GEMM_STAGE_FLOATS = 2 * 32 * 65  # gemm_tile's two kTileK x kLd staging tiles
 QKV_CHUNK = 64  # qkv rows of one product pass (kTileN; the bf16 route's too)
-PIXELS = 64  # pixels of a bf16 apply, tail_a or ln_gdfn_a block (kPT)
+PIXELS = 64  # pixels of a bf16 tail_a block (kPT)
 PRE_LD = 72  # row stride of the bf16 stats passes' qkv chunk (kPreLd)
 WEIGHT_CHUNK = 64  # k depth of a streamed weight chunk of mdta_stats (kKC)
 # a tile's product rows stand for this many more in stats_tile's cost: the
@@ -428,19 +428,157 @@ def attn_from_stats(stats, temperature):
 
 
 def apply_mp(c: int) -> int:
-    """16-pixel groups of one apply block's tile: 64 pixels up to C = 256,
-    else 32 (more blocks for the narrow deep levels), as block_tail's
-    tail_a."""
+    """16-pixel groups of one float32 apply block's tile: 64 pixels up to
+    C = 256, else 32 (more blocks for the narrow deep levels), as
+    block_tail's tail_a."""
     return 4 if c <= 256 else 2
 
 
+APPLY_PIXELS = (64, 32)  # pixels of a bf16 apply tile (the instantiations)
+APPLY_MAX_COLS = 192  # output columns of a bf16 apply block, at most (NT 6)
+APPLY_RING = 3  # stages of the bf16 apply's W_proj ring (csrc/ln_mdta.cu:kNS)
+APPLY_ATTN_BUDGET = 64 << 10  # bytes of attn staged at once, all heads if they fit
+APPLY_MAX_SPLIT = 16  # column blocks of one pixel tile, at most
+# the apply plan's cost: a tile's chain of latencies (v and x in, the
+# products, the stores) counted as APPLY_LATENCY_BYTES more bytes than it
+# moves, and APPLY_SLAB_BYTES more for each slab of attn staged, each SM
+# moving 1/NUM_SMS of the card's rate
+APPLY_LATENCY_BYTES = 48 << 10
+APPLY_SLAB_BYTES = 24 << 10
+
+
+class ApplyPlan(NamedTuple):
+    """How the bf16 apply runs at one input: pixels a tile, output columns
+    a block (the C outputs split over ceil(C / cols) blocks), the heads and
+    rows of attn staged at a time (a slab), the persistent blocks of an
+    image and column block (each walking every slots-th tile), whether
+    W_proj's rows stay resident in the block, the block's shared-memory
+    bytes."""
+    pixels: int
+    cols: int
+    heads_staged: int
+    attn_rows: int
+    slots: int
+    resident: bool
+    smem: int
+
+
+def apply_weight_smem(c: int, cols: int) -> tuple[bool, int]:
+    """(resident, bytes) of the bf16 apply block's W_proj rows: resident
+    (32 ceil(cols / 32) rows of C rounded up to 64, + 8, bf16) where that
+    takes no more room than the ring (APPLY_RING x 32 ceil(cols / 32) x
+    tc_ld(64) bf16), else the ring (csrc/ln_mdta.cu:apply_tc_bytes)."""
+    npc = 32 * -(-cols // 32)
+    res = npc * (-(-c // 64) * 64 + 8) * 2
+    ring = APPLY_RING * npc * tc_ld(64) * 2
+    return (True, res) if res <= ring else (False, ring)
+
+
+def apply_base_smem(c: int, pixels: int, cols: int) -> int:
+    """Bytes of one bf16 apply block besides its slab of attn: v and attn v
+    (pixels x tc_ld(C) bf16 each), x then x2 of its columns (pixels x (cols
+    + 8) bf16), W_proj's rows (apply_weight_smem); with W_proj resident, a
+    second buffer of v and of x (the next tile's, in flight)."""
+    resident, wbytes = apply_weight_smem(c, cols)
+    return ((2 + resident) * pixels * tc_ld(c) * 2
+            + (1 + resident) * pixels * (cols + 8) * 2 + wbytes)
+
+
+def attn_slab(c: int, heads: int, room: int = APPLY_ATTN_BUDGET):
+    """(heads, rows) of attn a bf16 apply block stages at a time within
+    `room` bytes (at most APPLY_ATTN_BUDGET): all heads, d rounded up to 16
+    rows of tc_ld(d) bf16 each, where they fit, else the most rows of one
+    head (a multiple of 16); None where not even 16 rows fit."""
+    d = c // heads
+    d16 = -(-d // 16) * 16
+    row = tc_ld(d) * 2
+    room = min(room, APPLY_ATTN_BUDGET)
+    if heads * d16 * row <= room:
+        return heads, d16
+    rows = min(d16, room // row // 16 * 16)
+    return (1, rows) if rows >= 16 else None
+
+
+def _apply_slots(b: int, tiles: int, colblocks: int, smem: int) -> int:
+    """Persistent blocks of one image and column block: about one wave
+    (NUM_SMS x blocks an SM by shared memory, at most 2) over the launch,
+    at most one a tile."""
+    occ = max(1, min(2, 233472 // (smem + 1024)))
+    return max(1, min(tiles, -(-NUM_SMS * occ // (b * colblocks))))
+
+
+def _apply_cost(b, h, w, c, heads, pixels, cols, slab, slots, smem,
+                resident):
+    """The plan's cost of a bf16 apply launch in bytes of one SM: its waves
+    of NUM_SMS x occ blocks (occ: blocks an SM by shared memory, at most 2),
+    each wave the bytes its occ blocks move through one SM (each of the
+    block's tiles: v and its x and x2 columns; W_proj's rows of the block
+    and the image's attn in fp32, once a block where resident or held whole,
+    else once a tile) plus, for the block's tiles, APPLY_LATENCY_BYTES a
+    tile and APPLY_SLAB_BYTES a slab of attn staged (slab: heads, rows)."""
+    d = c // heads
+    tiles = -(-h * w // pixels)
+    occ = max(1, min(2, 233472 // (smem + 1024)))
+    waves = -(-b * slots * -(-c // cols) // (NUM_SMS * occ))
+    per_block = -(-tiles // slots)
+    once = slab == (heads, -(-d // 16) * 16)
+    slabs = heads // slab[0] * -(-d // slab[1])
+    moved = (per_block * pixels * (c + 2 * cols) * 2
+             + (1 if resident else per_block) * cols * c * 2
+             + (1 if once else per_block) * c * d * 4)
+    return waves * (occ * moved + per_block * APPLY_LATENCY_BYTES
+                     + (1 if once else per_block * slabs) * APPLY_SLAB_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def apply_plan(b: int, h: int, w: int, c: int, heads: int) -> ApplyPlan:
+    """Tiles, column blocks and persistent blocks of the bf16 apply at an
+    input of (b, h, w, c): of APPLY_PIXELS, column counts (C split into 1
+    to APPLY_MAX_SPLIT blocks, a multiple of 8, at most APPLY_MAX_COLS)
+    whose block, with the largest slab of attn that fits (attn_slab), fits
+    SMEM_LIMIT, and blocks an image (about one wave, _apply_slots, or one a
+    tile): the blocks that hold all of attn before those that stage it in
+    slabs; of those that hold it, the least _apply_cost, on a tie the fewer
+    blocks. Where none holds it (C = 704 with 4 heads), the widest column
+    blocks first: every block stages the image's attn in slabs from L2, and
+    fewer blocks stage less of it, which _apply_cost does not see. Raises
+    when none fits."""
+    best = None
+    tiles_of = {p: -(-h * w // p) for p in APPLY_PIXELS}
+    for pixels in APPLY_PIXELS:
+        for split in range(1, APPLY_MAX_SPLIT + 1):
+            cols = -(-c // split // 8) * 8
+            if cols > APPLY_MAX_COLS or cols < 8:
+                continue
+            base = apply_base_smem(c, pixels, cols)
+            slab = attn_slab(c, heads, SMEM_LIMIT - base)
+            if slab is None:
+                continue
+            smem = base + slab[0] * slab[1] * tc_ld(c // heads) * 2
+            colblocks = -(-c // cols)
+            resident = apply_weight_smem(c, cols)[0]
+            tiles = tiles_of[pixels]
+            whole = slab == (heads, -(-(c // heads) // 16) * 16)
+            for slots in {_apply_slots(b, tiles, colblocks, smem), tiles}:
+                key = (not whole, 0 if whole else -cols,
+                       _apply_cost(b, h, w, c, heads, pixels, cols, slab,
+                                   slots, smem, resident),
+                       b * slots * colblocks)
+                if best is None or key < best[0]:
+                    best = (key, ApplyPlan(pixels, cols, *slab, slots,
+                                           resident, smem))
+    if best is None:
+        raise ValueError(f"mdta_apply: bf16 has no block for C={c}, "
+                         f"heads={heads}")
+    return best[1]
+
+
 def ln_mdta_smem(c: int, dtype=torch.float32) -> int:
-    """Shared-memory bytes of one apply block (csrc/ln_mdta.cu). float32: attn
-    v of its pixels (C x 16 mp fp32) and the product staging tiles;
-    bfloat16: v (then x2) and attn v of 64 pixels (64 x tc_ld(C) bf16
-    each) and the weight double buffer."""
+    """Shared-memory bytes of one apply block (csrc/ln_mdta.cu). float32:
+    attn v of its pixels (C x 16 mp fp32) and the product staging tiles;
+    bfloat16: the one-head block of apply_plan at one 64 x 64 image."""
     if dtype == torch.bfloat16:
-        return 2 * PIXELS * tc_ld(c) * 2 + PROJ_WBUF * 2
+        return apply_plan(1, 64, 64, c, 1).smem
     return (c * 16 * apply_mp(c) + GEMM_STAGE_FLOATS) * 4
 
 
@@ -453,8 +591,8 @@ def check_tc_width(x, c: int, heads: int, what: str) -> None:
 
 
 def kernel_attn(attn, x):
-    """attn as the kernels read it: rounded to x's dtype, contiguous (once
-    a launch, d^2 values a head)."""
+    """attn as block_tail's kernels read it: rounded to x's dtype,
+    contiguous (once a launch, d^2 values a head)."""
     return attn.to(x.dtype).contiguous()
 
 
@@ -463,10 +601,11 @@ def mdta_apply(v, x, attn, w_proj):
 
     v, x: (B, H, W, C); attn: (B, heads, d, d) float32 from
     `attn_from_stats`; w_proj: (C, C[,1,1]). Returns (B, H, W, C) in x's
-    dtype. A launch counts in `ln_mdta.launches`.
+    dtype. A launch counts in `ln_mdta.launches`. In bfloat16 the kernel
+    reads attn in float32 and rounds it to bfloat16 as it stages it.
     """
     b, h, w, c = x.shape
-    wproj = w_proj.reshape(c, c)
+    wproj = w_proj if w_proj.dim() == 2 else w_proj.reshape(c, c)
     if x.device.type == "cpu":
         return mdta_apply_plain(v, x, attn, wproj)
     heads = attn.shape[1]
@@ -481,19 +620,23 @@ def mdta_apply(v, x, attn, w_proj):
     if attn.device != x.device:
         raise TypeError("mdta_apply: attn must be on x's device")
     check_tc_width(x, c, heads, "mdta_apply")
-    smem = ln_mdta_smem(c, x.dtype)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"mdta_apply: C={c} needs {smem} bytes of shared "
-                         f"memory (> {SMEM_LIMIT})")
-    v, x, wproj = (t.contiguous() for t in (v, x, wproj))
-    attn = kernel_attn(attn, x)
+    if x.dtype == torch.bfloat16:
+        mp, cols, ha, ar, slots, res, smem = apply_plan(b, h, w, c, heads)
+    else:
+        mp, cols, ha, ar, slots, res = apply_mp(c), c, heads, c // heads, 1, 0
+        smem = ln_mdta_smem(c, x.dtype)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"mdta_apply: C={c} needs {smem} bytes of "
+                             f"shared memory (> {SMEM_LIMIT})")
+    v, x, attn, wproj = (t.contiguous() for t in (v, x, attn, wproj))
     x2 = torch.empty_like(x)
-    fn = build.function("ln_mdta_launch", [_I] + [_P] * 5 + [_I] * 6
+    fn = build.function("ln_mdta_launch", [_I] + [_P] * 5 + [_I] * 11
                         + [ctypes.c_longlong, _P])
     with build.on_card_of(x):
         code = fn(build.dtype_code(x), v.data_ptr(), x.data_ptr(),
                   attn.data_ptr(), wproj.data_ptr(), x2.data_ptr(), b, h, w,
-                  c, heads, apply_mp(c), smem, build.stream_of(x))
+                  c, heads, mp, cols, ha, ar, slots, int(res), smem,
+                  build.stream_of(x))
     build.check(code, "ln_mdta")
     ln_mdta.launches += 1
     return x2

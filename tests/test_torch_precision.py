@@ -110,15 +110,20 @@ class FakeDevice:
 
 
 def test_stream_and_device_of_any_card(monkeypatch):
+    """A launch on card 1 makes card 1 current around it (and changes
+    nothing when it already is) and takes card 1's current stream."""
     log = []
     monkeypatch.setattr(torch.cuda, "device", lambda d: FakeDevice(log, d))
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: (
-        log.append(("stream", d)), types.SimpleNamespace(cuda_stream=7))[1])
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: (
+        log.append(("stream", i)), 7)[1], raising=False)
     t = types.SimpleNamespace(device=torch.device("cuda", 1))
-    with build.on_card_of(t):
-        assert build.stream_of(t) == 7
+    for current in (0, 1):
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+        with build.on_card_of(t):
+            assert build.stream_of(t) == 7
     card = torch.device("cuda", 1)
-    assert log == [("enter", card), ("stream", card), ("exit", card)]
+    assert log == [("enter", card), ("stream", 1), ("exit", card),
+                   ("stream", 1)]
 
 
 def test_every_wrapper_launches_inside_its_card(monkeypatch):
