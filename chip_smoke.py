@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Four main paths are driven: serving PromptIR (`promptir`, each block
+Five main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
 with `fused_ffn=True`) and the X-Restormer family's PromptXRestormer
 (`promptxrestormerir`, the reference's training config), serving PromptIR
-through the overlap-blend tiler (`tiled`), and training PromptIR. Phases,
+through the overlap-blend tiler (`tiled`), training PromptIR, and the
+evaluation entry points (`eval`: all-in-one evaluation, demo, HTTP
+server). Phases,
 each printed with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
@@ -17,8 +19,11 @@ each printed with the seconds since start:
      kernels must hold some;
   3. each kernel against its plain PyTorch version on the card, in float32
      (TF32 off) and bfloat16: at every shape a batch-4 forward of either
-     model at the serving run's 256x256 and 256x192 buckets gives it, and
-     at every shape of the training step (batch 6 at 128x128); mdta_stats
+     model at the serving run's 256x256 and 256x192 buckets gives it, at
+     every shape of the training step (batch 6 at 128x128), and at every
+     shape of phase 10's forwards (eval_forwards: B1 at the test sets'
+     padded sizes for promptir and the default promptxrestormerir, the
+     demo's B1 and B8 tiles, the server's B4); mdta_stats
      twice at each (the two launches bit-identical), the Gram kernel at
      every wide-route shape; ln_gdfn and the apply (ln_mdta) launched twice
      at each in bf16 (the two outputs bit-identical), and also at ragged
@@ -64,7 +69,18 @@ each printed with the seconds since start:
      Gram kernel at the wide shapes; tail_stats at every block pair of the
      promptir stacks at B4 256x256 and B8 128x128, with its tile, beside
      the two-kernel sequence it replaces, and the chained route's decision
-     (CHAIN_RATIO, CHAIN_FORWARD_MS).
+     (CHAIN_RATIO, CHAIN_FORWARD_MS);
+ 10. the user-facing inference surface on a synthetic PNG corpus at the
+     all-in-one test sets' sizes (BSD68 481x321 and 321x481, Rain100L,
+     SOTS outdoor 550x413; the targets written by the port's save_image,
+     the rest with every PNG row filter), with seed-0 full-depth promptir
+     weights saved as a Lightning .ckpt: cli/test.py --mode 3 in fp32
+     through the kernels (10 forwards, exact launches), cli/psnr.py on its
+     dumped sigma-15 PNGs, the same run in bf16 timed, --mode 1 with
+     promptxrestormerir (ln_gdfn on the path), cli/demo.py plain and tiled,
+     and cli/serve.py's HTTP server answering two PNG requests; each run
+     held against the same run through the plain route (forward by
+     forward, or on the uint8 images it writes).
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 
@@ -80,12 +96,15 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import pathlib
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from types import SimpleNamespace
 from unittest import mock
 
@@ -131,6 +150,23 @@ def xr_block_shapes(h, w):
         ((h // 4, w // 4, 320, 1), 1),       # prompt2
         ((h // 2, w // 2, 160, 1), 1),       # prompt1
         ((h, w, 96, 1), 6),                  # decoder_level1, refinement
+    ]
+
+
+def xr_eval_block_shapes(h, w):
+    """(H, W, C, heads) of the 47 X-blocks of an h x w forward of the
+    default promptxrestormerir (the CLIs' config: num_blocks (4, 6, 6, 8),
+    4 refinement blocks, channel heads (1, 2, 4, 8), the prompt blocks one
+    head), with how many blocks run at each."""
+    return [
+        ((h, w, 48, 1), 4),                  # encoder_level1
+        ((h // 2, w // 2, 96, 2), 12),       # encoder_level2, decoder_level2
+        ((h // 4, w // 4, 192, 4), 12),      # encoder_level3, decoder_level3
+        ((h // 8, w // 8, 384, 8), 8),       # latent
+        ((h // 8, w // 8, 704, 1), 1),       # prompt3
+        ((h // 4, w // 4, 320, 1), 1),       # prompt2
+        ((h // 2, w // 2, 160, 1), 1),       # prompt1
+        ((h, w, 96, 1), 8),                  # decoder_level1, refinement
     ]
 
 
@@ -206,6 +242,31 @@ CHAIN_RATIO, CHAIN_FORWARD_MS = 0.9, 32.0
 # kernel-route gradients against plain-route gradients, float32 (TF32 off):
 # max |difference| over max |plain| of each parameter's gradient
 GRAD_TOL = 1e-3
+# phase 10's corpus, (H, W): BSD68's landscape and portrait (Rain100L's
+# pairs take the landscape) and SOTS outdoor; mode 3 runs 3 sigmas x 2 + 2
+# derain + 2 dehaze forwards
+EVAL_BSD = [(321, 481), (481, 321)]
+EVAL_SOTS = (413, 550)
+EVAL_FORWARDS = 10
+# every image's PSNR (dB) and SSIM through the kernels against the plain
+# route, fp32; the offline PSNR of the dumped (truncated uint8) PNGs against
+# the runner's float PSNR
+EVAL_PSNR_TOL, EVAL_SSIM_TOL, EVAL_OFFLINE_TOL = 1e-3, 1e-5, 0.05
+# each forward of the evaluation runs through the kernels against the same
+# run through the plain route: fp32 max |difference| over max |plain| as the
+# goldens (GOLDEN_TOL); bf16 max |difference| FORWARD_TOL_BF16, which on the
+# uint8 images that the demo writes (truncated) and the server returns
+# (rounded) allows ceil(FORWARD_TOL_BF16 * 255) steps
+EVAL_STEPS_BF16 = math.ceil(FORWARD_TOL_BF16 * 255)
+# a bf16 evaluation through the kernels and the same evaluation through the
+# plain route, each against the fp32 evaluation of the same images through
+# the kernels: the kernels' max and mean |difference| at most these
+# multiples of the plain route's (the kernels no less exact than the plain
+# bf16 composition). FORWARD_TOL_BF16 holds PromptIR's two bf16 routes
+# together; the default promptxrestormerir's 47 X-blocks (OCAB in plain
+# bf16 between the kernels) leave them ~2e-2 apart while each lies ~3e-2
+# from fp32 with equal means
+BF16_MAX_RATIO, BF16_MEAN_RATIO = 1.25, 1.05
 
 
 def say(msg: str) -> None:
@@ -318,11 +379,29 @@ def seam_inputs(h, w, dtype, gen, batch=BATCH):
     return y, skip
 
 
+def up_to(n, base):
+    return -(-n // base) * base
+
+
+def eval_forwards():
+    """(batch, H, W, models) of phase 10's forwards: mode 3 at the crop-16
+    sizes flip-padded to 64 (promptxrestormerir's mode 1 runs at Rain100L's;
+    checked at all three), the demo at promptir's pad base 8 and in chunks
+    of TILE_CHUNK tiles, the server's batches of BATCH (its max_batch) at
+    the uncropped BSD68 sizes padded to 8."""
+    crops = [(h // 16 * 16, w // 16 * 16) for h, w in EVAL_BSD + [EVAL_SOTS]]
+    both = ("promptir", "promptxrestormerir")
+    return ([(1, up_to(h, 64), up_to(w, 64), both) for h, w in crops]
+            + [(1, up_to(h, 8), up_to(w, 8), both[:1]) for h, w in crops[:2]]
+            + [(TILE_CHUNK, TILE, TILE, both[:1])]
+            + [(BATCH, up_to(h, 8), up_to(w, 8), both[:1]) for h, w in EVAL_BSD])
+
+
 def checked_shapes():
     """(dtype, shapes, seam size) of the kernel checks in the order their
     inputs are drawn: the serving buckets first, in the order of earlier
-    runs (so their inputs repeat), then the training step's shapes. A shape
-    is (shape, batch, kernels checked)."""
+    runs (so their inputs repeat), then the training step's shapes, then
+    phase 10's. A shape is (shape, batch, kernels checked)."""
     out = []
     serving = ("mdta_stats", "block_tail")
     for dtype in (torch.float32, torch.bfloat16):
@@ -337,6 +416,13 @@ def checked_shapes():
                   for s, _ in block_shapes(*TRAIN_HW)]
         shapes += [(s, 2, ("mdta_stats", k)) for s, k in RAGGED]
         out.append((dtype, shapes, (*TRAIN_HW, TRAIN_BATCH)))
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, h, w, models in eval_forwards():
+            shapes = [(s, b, serving) for s, _ in block_shapes(h, w)]
+            if "promptxrestormerir" in models:
+                shapes += [(s, b, serving + ("ln_gdfn",))
+                           for s, _ in xr_eval_block_shapes(h, w)]
+            out.append((dtype, shapes, (h, w, b)))
     return out
 
 
@@ -1287,6 +1373,478 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     return recs
 
 
+# ----------------------------------------------------------- phase 10
+
+def scene01(hw, seed):
+    """A synthetic gradient plus noise (tests/test_cli_eval.py), HWC in
+    [0, 1]."""
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.meshgrid(np.linspace(0, 200, h), np.linspace(0, 200, w),
+                         indexing="ij")
+    img = np.stack([xx, yy, (xx + yy) / 2], -1) + rng.normal(0, 12, (h, w, 3))
+    return (img.clip(0, 255) / 255.0).astype(np.float32)
+
+
+def png_mixed_filters(rgb):
+    """PNG bytes of HWC uint8 RGB with row y under filter y % 5 (None, Sub,
+    Up, Average, Paeth in turn), as adaptive encoders (libpng, PIL) mix
+    them: what the reader meets in real test sets. The port's own writer
+    uses None only."""
+    h, w, _ = rgb.shape
+    x = rgb.astype(np.int16).reshape(h, 3 * w)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, 3:], b[1:], c[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    f = np.arange(h) % 5
+    pred = np.choose(f[:, None], [np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    rows = np.concatenate([f[:, None], (x - pred) & 0xFF], 1).astype(np.uint8)
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def write_corpus(root):
+    """The all-in-one test sets' shapes (H x W) as PNG: BSD68's landscape
+    and portrait, two Rain100L pairs, two SOTS-outdoor pairs. After crop-16
+    and the flip pad to 64 the forwards run at 320x512, 512x320 and
+    448x576. The targets go through the port's save_image (None rows); the
+    clean BSD68 images and the degraded inputs are written with every row
+    filter (png_mixed_filters) and must read back bit for bit. Returns the
+    host's milliseconds to read a 481x321 file of each kind (median of 5)."""
+    from promptir_tpu_torch.utils.image_io import save_image, to_uint8
+    from promptir_tpu_torch.utils.png import read_png
+
+    files = [("bsd68/1.png", EVAL_BSD[0], 0), ("bsd68/2.png", EVAL_BSD[1], 1)]
+    for i in range(2):
+        files += [(f"rain100l/input/rain-{i + 1}.png", EVAL_BSD[0], 10 + i),
+                  (f"rain100l/target/rain-{i + 1}.png", EVAL_BSD[0], 20 + i),
+                  (f"sots/input/{i + 1:04d}_0.9_0.2.png", EVAL_SOTS, 30 + i),
+                  (f"sots/target/{i + 1:04d}.png", EVAL_SOTS, 40 + i)]
+    for rel, hw, seed in files:
+        path = root / rel
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if "/target/" in rel:
+            save_image(str(path), scene01(hw, seed))
+            continue
+        u8 = to_uint8(scene01(hw, seed))
+        path.write_bytes(png_mixed_filters(u8))
+        if not np.array_equal(read_png(str(path)), u8):
+            fail(f"{rel}: the PNG reader misreads rows of mixed filters")
+    ms = {}
+    for kind, rel in [("every filter", "bsd68/1.png"),
+                      ("save_image's", "rain100l/target/rain-1.png")]:
+        ts = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            read_png(str(root / rel))
+            ts.append(time.perf_counter() - t0)
+        ms[kind] = sorted(ts)[2] * 1e3
+    return ms
+
+
+@contextlib.contextmanager
+def forward_spy():
+    """Record each forward of the evaluation runner (eval/runner.py's
+    forward_nhwc): its output, copied to the host, and its seconds (the
+    card synchronised around it)."""
+    from promptir_tpu_torch.eval import runner
+
+    rec = SimpleNamespace(outputs=[], seconds=0.0)
+    real = runner.forward_nhwc
+
+    def forward(model, x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = real(model, x)
+        torch.cuda.synchronize()
+        rec.seconds += time.perf_counter() - t0
+        rec.outputs.append(y.cpu())
+        return y
+
+    with mock.patch.object(runner, "forward_nhwc", forward):
+        yield rec
+
+
+def outputs_apart(rec, rec_p, what):
+    """Max |kernel - plain| over the pairs of forwards two evaluation runs
+    recorded, and max |plain|."""
+    if len(rec.outputs) != len(rec_p.outputs) or not rec.outputs:
+        fail(f"{what}: {len(rec.outputs)} forwards through the kernels, "
+             f"{len(rec_p.outputs)} plain")
+    if not all(torch.isfinite(y).all() for y in rec.outputs):
+        fail(f"{what}: non-finite output")
+    err = max((y - y0).abs().max().item()
+              for y, y0 in zip(rec.outputs, rec_p.outputs))
+    return err, max(y0.abs().max().item() for y0 in rec_p.outputs)
+
+
+def bf16_parity(rec, rec_p, rec32, what):
+    """The bf16 runs through the kernels (rec) and the plain route (rec_p)
+    against the fp32 run (rec32) through the kernels, forward by forward:
+    a line to print; fails unless the kernels' max and mean |difference|
+    stay within BF16_MAX_RATIO and BF16_MEAN_RATIO of the plain route's."""
+    stats = []
+    for r in (rec, rec_p):
+        d = [(a - b).abs() for a, b in zip(r.outputs, rec32.outputs)]
+        if len(d) != len(rec32.outputs):
+            fail(f"{what}: {len(d)} bf16 forwards, {len(rec32.outputs)} fp32")
+        stats.append((max(x.max().item() for x in d),
+                      sum(x.sum().item() for x in d) / sum(x.numel() for x in d)))
+    (mk, ak), (mp, ap) = stats
+    if not (mk <= BF16_MAX_RATIO * mp and ak <= BF16_MEAN_RATIO * ap):
+        fail(f"{what}: the kernels' bf16 forwards are {mk:.4e} (max) / "
+             f"{ak:.4e} (mean) from fp32, the plain route's {mp:.4e} / "
+             f"{ap:.4e}")
+    return (f"against the fp32 run, max / mean |difference| through the "
+            f"kernels {mk:.4e} / {ak:.4e}, through the plain route {mp:.4e} / "
+            f"{ap:.4e} (ratios at most {BF16_MAX_RATIO} / {BF16_MEAN_RATIO})")
+
+
+def per_image(res):
+    """[(PSNR, SSIM)] of every image of a cli.test result, set by set."""
+    return [m for r in res.values() for m in r["images"].values()]
+
+
+def xr_per_forward(port, mdta):
+    """Launches of KERNELS per forward of the default promptxrestormerir
+    (the CLI's config): each X-block runs mdta_stats, block_tail and ln_gdfn
+    once, and the Gram kernel where its width and heads take the wide
+    route."""
+    from promptir_tpu_torch.models.xrestormer import XTransformerBlock
+
+    model = port.create_model("promptxrestormerir", device="cpu")
+    blocks = [m for m in model.modules() if isinstance(m, XTransformerBlock)]
+    got = sorted((b.norm1.body.weight.numel(), b.channel_attn.num_heads)
+                 for b in blocks)
+    if got != sorted(s[2:] for s, n in xr_eval_block_shapes(64, 64)
+                     for _ in range(n)):
+        fail(f"xr_eval_block_shapes is not the default promptxrestormerir's "
+             f"(C, heads): {got}")
+    wide = sum(mdta.stats_route(b.norm1.body.weight.numel(),
+                                b.channel_attn.num_heads) == "wide"
+               for b in blocks)
+    n = len(blocks)
+    return [n, n, n, 0, 0, 0, wide], n
+
+
+def demo_forwards(hw_list, tile, overlap, chunk):
+    """Forwards of the demo's tiled path over images of (H, W) after crop-16
+    (eval/tiling.py: the image reflect-padded to 64, tiles in chunks)."""
+    from promptir_tpu_torch.eval.padding import target_size
+    from promptir_tpu_torch.eval.tiling import tile_positions
+
+    n = 0
+    for h, w in hw_list:
+        ph, pw = target_size(h, w, 64)
+        if h <= tile and w <= tile:
+            n += 1
+            continue
+        tiles = (len(tile_positions(ph, tile, tile - overlap))
+                 * len(tile_positions(pw, tile, tile - overlap)))
+        n += -(-tiles // chunk)
+    return n
+
+
+def post_png(url, body):
+    """POST PNG bytes; (reply bytes, seconds)."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(url, data=body, method="POST",
+                                 headers={"Content-Type": "image/png"})
+    with urllib.request.urlopen(req, timeout=600) as r:
+        data = r.read()
+    return data, time.perf_counter() - t0
+
+
+def serve_http(root, counters, reset, card):
+    """cli/serve.py's server on port 0 in a thread (bf16, max_batch 4): two
+    PNG requests (BSD68's two orientations), each reply decoded to its
+    input's size, within one uint8 step of engine.restore on the same image
+    and within EVAL_STEPS_BF16 of engine.restore through the plain route;
+    /stats' compiled_shapes. Returns the launches of the requests."""
+    import threading
+    import urllib.request
+
+    from promptir_tpu_torch.cli import serve as serve_cli
+    from promptir_tpu_torch.utils.png import decode_png, encode_png, read_png
+
+    args = serve_cli.build_parser().parse_args(
+        ["--port", "0", "--max_batch", "4", "--dtype", "bfloat16",
+         "--device", "cuda", "--ckpt_name", str(root / "promptir.ckpt")])
+    httpd, engine = serve_cli.make_server(args)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def restored_u8(im):
+        y = engine.restore(im.astype(np.float32) / 255.0)
+        return (np.clip(y, 0.0, 1.0) * 255.0).round().astype(int)
+
+    try:
+        imgs = [read_png(str(root / "bsd68" / n)) for n in ("1.png", "2.png")]
+        batches0 = engine.stats()["batches"]
+        reset()
+        replies, secs = [], []
+        for im in imgs:
+            data, s = post_png(url + "/restore", encode_png(im))
+            replies.append(decode_png(data, name="reply"))
+            secs.append(s)
+        ran = counters()
+        batches = engine.stats()["batches"] - batches0
+        with urllib.request.urlopen(url + "/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        for im, out in zip(imgs, replies):
+            if out.shape != im.shape:
+                fail(f"the server replied {out.shape} to a {im.shape} image")
+        steps = max(int(np.abs(restored_u8(im) - out).max())
+                    for im, out in zip(imgs, replies))
+        with plain_route():
+            steps_plain = max(int(np.abs(restored_u8(im) - out).max())
+                              for im, out in zip(imgs, replies))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.close()
+        th.join(timeout=60)
+    reset()  # the engine.restore comparisons are not the main path
+    say(f"eval: serve.py on port 0 (bf16, max_batch 4, {health['backend']}, "
+        f"pad_base {health['pad_base']}): POST /restore "
+        f"{'x'.join(map(str, imgs[0].shape[:2]))} {secs[0] * 1e3:.1f} ms, "
+        f"{'x'.join(map(str, imgs[1].shape[:2]))} {secs[1] * 1e3:.1f} ms "
+        f"(round trips, PNG both ways) on {card}; replies at most {steps} uint8 "
+        f"step from engine.restore and {steps_plain} from engine.restore "
+        f"through the plain route (tolerance {EVAL_STEPS_BF16}); "
+        f"compiled_shapes {stats['compiled_shapes']}; launches {LAUNCH_NAMES} "
+        f"{ran}")
+    if th.is_alive():
+        fail("the server thread did not stop")
+    if steps > 1 or steps_plain > EVAL_STEPS_BF16 or stats["compiled_shapes"] < 1:
+        fail(f"the server's replies are {steps} steps from engine.restore, "
+             f"{steps_plain} from the plain route's, compiled_shapes "
+             f"{stats['compiled_shapes']}")
+    if ran != [n * batches for n in PATHS["promptir"][2]]:
+        fail(f"the server launched {ran} != {PATHS['promptir'][2]} x {batches}")
+    return ran
+
+
+def evaluate(port, mdta, counters, reset, card):
+    """Phase 10: the user-facing inference surface on the card, on a
+    synthetic corpus at the test sets' sizes with seed-0 full-depth promptir
+    weights in the Lightning layout. Every run through the kernels is held
+    against the same run through the plain route, forward by forward.
+    Returns the launches of its main path: the fp32 and bf16 all-in-one
+    runs, the X-Restormer run, the demo and the server."""
+    from promptir_tpu_torch.cli import demo as demo_cli
+    from promptir_tpu_torch.cli import psnr as psnr_cli
+    from promptir_tpu_torch.cli import test as test_cli
+    from promptir_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    root = ROOT / "logs" / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        read_ms = write_corpus(root)
+        say("eval: corpus written; reading a 481x321 PNG on the host: "
+            + ", ".join(f"{k} rows {v:.2f} ms" for k, v in read_ms.items())
+            + " (median of 5)")
+        torch.manual_seed(0)
+        model = port.create_model("promptir", device="cuda")
+        torch.save({"state_dict": {"net." + k: v.cpu() for k, v in
+                                   model.state_dict().items()}},
+                   root / "promptir.ckpt")
+        del model
+        paths = ["--denoise_path", str(root / "bsd68"),
+                 "--derain_path", str(root / "rain100l"),
+                 "--dehaze_path", str(root / "sots"),
+                 "--ckpt_name", str(root / "promptir.ckpt"), "--device", "cuda"]
+        total = [0] * len(KERNELS)
+
+        def run(argv, out, plain=False):
+            before = counters()
+            with forward_spy() as rec, (plain_route() if plain
+                                        else contextlib.nullcontext()):
+                res = test_cli.main([*argv, "--output_path", str(root / out)])
+            torch.cuda.synchronize()
+            if plain and counters() != before:
+                fail("the plain route launched kernels")
+            return res, rec
+
+        # fp32 through the kernels, then the same run through the plain route
+        want = [EVAL_FORWARDS * n for n in PATHS["promptir"][2]]
+        fp32 = ["--mode", "3", "--dtype", "float32", *paths]
+        reset()
+        res, rec32 = run(fp32, "out_fp32")
+        ran = counters()
+        if ran != want:
+            fail(f"mode-3 fp32 evaluation launched {ran} != {want}")
+        total = [a + b for a, b in zip(total, ran)]
+        res_p, rec_p = run(fp32, "out_plain", plain=True)
+        m, m_p = per_image(res), per_image(res_p)
+        if len(m) != EVAL_FORWARDS or len(m_p) != EVAL_FORWARDS:
+            fail(f"mode 3 evaluated {len(m)} and {len(m_p)} images, not "
+                 f"{EVAL_FORWARDS}")
+        dp = max(abs(a[0] - b[0]) for a, b in zip(m, m_p))
+        ds = max(abs(a[1] - b[1]) for a, b in zip(m, m_p))
+        err, top = outputs_apart(rec32, rec_p, "mode-3 fp32")
+        say("eval: cli.test --mode 3 fp32 (TF32 off), full-depth promptir "
+            f"seed-0 weights from a Lightning .ckpt, {EVAL_FORWARDS} images "
+            "(forwards at 320x512, 512x320, 448x576): "
+            + ", ".join(f"{k} {v['psnr']:.4f} dB / {v['ssim']:.5f}"
+                        for k, v in res.items())
+            + f"; {sum(r['seconds'] for r in res.values()):.2f} s through the "
+            f"kernels, {sum(r['seconds'] for r in res_p.values()):.2f} s plain; "
+            f"against the plain route forward by forward: max |difference| "
+            f"{err:.3e} (rel {err / top:.3e}, tolerance {GOLDEN_TOL}), image by "
+            f"image: max |PSNR difference| {dp:.3e} dB (tolerance "
+            f"{EVAL_PSNR_TOL}), max |SSIM difference| {ds:.3e} "
+            f"({EVAL_SSIM_TOL}); launches {LAUNCH_NAMES} {ran}")
+        if not np.isfinite(m).all():
+            fail("non-finite PSNR or SSIM")
+        if not (err <= GOLDEN_TOL * top and dp <= EVAL_PSNR_TOL
+                and ds <= EVAL_SSIM_TOL):
+            fail(f"the kernels' evaluation is off the plain route's by {err:.3e} "
+                 f"(max |plain| {top:.3e}), {dp:.3e} dB PSNR, {ds:.3e} SSIM")
+        for sub, name, hw in [("denoise_15", "1", EVAL_BSD[0]),
+                              ("denoise_15", "2", EVAL_BSD[1]),
+                              ("dehaze", "0001_0.9_0.2", EVAL_SOTS)]:
+            got = read_png(str(root / "out_fp32" / sub / f"{name}.png")).shape[:2]
+            if got != tuple(s // 16 * 16 for s in hw):
+                fail(f"{sub}/{name}.png is {got}, not the crop-16 size of {hw}")
+
+        # the offline PSNR of the dumped sigma-15 images against the clean set
+        off = psnr_cli.main(["--restored", str(root / "out_fp32" / "denoise_15"),
+                             "--gt", str(root / "bsd68"), "--device", "cuda"])
+        gap = abs(off["psnr"] - res["denoise_15"]["psnr"])
+        say(f"eval: cli.psnr on the dumped denoise_15 PNGs: {off['psnr']:.4f} dB "
+            f"/ {off['ssim']:.5f} against the runner's "
+            f"{res['denoise_15']['psnr']:.4f} dB: {gap:.4f} dB apart (PNG "
+            f"quantization; tolerance {EVAL_OFFLINE_TOL})")
+        if not gap <= EVAL_OFFLINE_TOL:
+            fail(f"offline PSNR {gap:.4f} dB from the runner's")
+
+        # bf16: a warm-up run of the same images, the timed run, then the
+        # same run through the plain route
+        bf16 = ["--mode", "3", "--dtype", "bfloat16", *paths]
+        run(bf16, "out_bf16")
+        reset()
+        res, rec = run(bf16, "out_bf16")
+        ran = counters()
+        if ran != want:
+            fail(f"mode-3 bf16 evaluation launched {ran} != {want}")
+        total = [a + b for a, b in zip(total, ran)]
+        secs = sum(r["seconds"] for r in res.values())
+        _, rec_p = run(bf16, "out_bf16_plain", plain=True)
+        err, top = outputs_apart(rec, rec_p, "mode-3 bf16")
+        parity = bf16_parity(rec, rec_p, rec32, "mode-3 bf16")
+        say("eval: cli.test --mode 3 bf16: "
+            + ", ".join(f"{k} {v['psnr']:.4f} dB / {v['ssim']:.5f}"
+                        for k, v in res.items())
+            + f"; {EVAL_FORWARDS} images in {secs:.3f} s after a warm-up run, "
+            f"{EVAL_FORWARDS / secs:.2f} images/s (PNG loads and dumps "
+            f"included; the forwards {rec.seconds:.3f} s) on {card}; against "
+            f"the plain route forward by forward: max |difference| {err:.4e} "
+            f"(tolerance {FORWARD_TOL_BF16}, max |plain| {top:.4f}); {parity}; "
+            f"launches {LAUNCH_NAMES} {ran}")
+        if not err <= FORWARD_TOL_BF16:
+            fail(f"the bf16 evaluation is off the plain route's by {err:.4e}")
+
+        # the X-Restormer family: mode 1 (Rain100L), default config, random
+        # weights from seed 0: fp32 through the kernels against the plain
+        # route (the reference of the bf16 runs), then the bf16 run (the main
+        # path) and the same through the plain route
+        per_fwd, n_blocks = xr_per_forward(port, mdta)
+        xr = ["--mode", "1", "--model", "promptxrestormerir", "--derain_path",
+              str(root / "rain100l"), "--device", "cuda"]
+        _, rec32 = run([*xr, "--dtype", "float32"], "out_xr_fp32")
+        _, rec32_p = run([*xr, "--dtype", "float32"], "out_xr_fp32_plain",
+                         plain=True)
+        err32, top32 = outputs_apart(rec32, rec32_p, "promptxrestormerir fp32")
+        reset()
+        res, rec = run([*xr, "--dtype", "bfloat16"], "out_xr")
+        ran = counters()
+        n = len(rec.outputs)
+        _, rec_p = run([*xr, "--dtype", "bfloat16"], "out_xr_plain", plain=True)
+        err, top = outputs_apart(rec, rec_p, "promptxrestormerir mode 1")
+        parity = bf16_parity(rec, rec_p, rec32, "promptxrestormerir mode 1")
+        say(f"eval: cli.test --mode 1 --model promptxrestormerir (default "
+            f"config, random weights from seed 0): fp32 through the kernels "
+            f"against the plain route forward by forward: max |difference| "
+            f"{err32:.3e} (rel {err32 / top32:.3e}, tolerance {GOLDEN_TOL}); bf16 "
+            f"derain {res['derain']['psnr']:.4f} dB / "
+            f"{res['derain']['ssim']:.5f}, {n} forwards in "
+            f"{res['derain']['seconds']:.3f} s, against the plain route: max "
+            f"|difference| {err:.4e} (max |plain| {top:.4f}), {parity}; "
+            f"{n_blocks} X-blocks, each mdta_stats, block_tail and ln_gdfn "
+            f"once, {per_fwd[-1]} on the wide route: {per_fwd} per forward; "
+            f"launches {LAUNCH_NAMES} {ran}")
+        if n != 2 or ran != [n * k for k in per_fwd]:
+            fail(f"the X-Restormer evaluation launched {ran} != {n} x {per_fwd}")
+        if not err32 <= GOLDEN_TOL * top32:
+            fail(f"the X-Restormer fp32 evaluation is off the plain route's by "
+                 f"{err32:.3e} (max |plain| {top32:.3e})")
+        total = [a + b for a, b in zip(total, ran)]
+
+        # the demo, plain and tiled, bf16, each against the same demo through
+        # the plain route
+        crops = [tuple(s // 16 * 16 for s in hw) for hw in EVAL_BSD]
+        names = ("1.png", "2.png")
+        for extra, forwards in [
+                ([], len(crops)),
+                (["--tile", "--tile_size", str(TILE), "--tile_overlap",
+                  str(TILE_OVERLAP)], demo_forwards(crops, TILE, TILE_OVERLAP, 8))]:
+            out = root / ("demo_tiled" if extra else "demo")
+            argv = ["--test_path", str(root / "bsd68"), "--dtype", "bfloat16",
+                    "--ckpt_name", str(root / "promptir.ckpt"), "--device",
+                    "cuda", *extra]
+            reset()
+            t0 = time.perf_counter()
+            demo_cli.main([*argv, "--output_path", str(out)])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            ran = counters()
+            with plain_route():
+                demo_cli.main([*argv, "--output_path", f"{out}_plain"])
+            if counters() != ran:
+                fail("the plain route launched kernels")
+            imgs = [read_png(str(out / k)) for k in names]
+            steps = max(int(np.abs(a.astype(int) - read_png(
+                f"{out}_plain/{k}")).max()) for a, k in zip(imgs, names))
+            sizes = [a.shape[:2] for a in imgs]
+            say(f"eval: cli.demo {' '.join(extra) or 'plain'} bf16 on the two "
+                f"BSD68-shaped images: outputs {sizes} in {secs:.2f} s (model "
+                f"load included), at most {steps} uint8 steps from the plain "
+                f"route's (tolerance {EVAL_STEPS_BF16}); {forwards} forwards, "
+                f"launches {LAUNCH_NAMES} {ran}")
+            if sizes != crops:
+                fail(f"the demo wrote {sizes}, not {crops}")
+            if steps > EVAL_STEPS_BF16:
+                fail(f"the demo's images are {steps} steps from the plain "
+                     "route's")
+            if ran != [forwards * k for k in PATHS["promptir"][2]]:
+                fail(f"the demo launched {ran} != {forwards} x "
+                     f"{PATHS['promptir'][2]}")
+            total = [a + b for a, b in zip(total, ran)]
+
+        total = [a + b for a, b in zip(
+            total, serve_http(root, counters, reset, card))]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"eval: phase 10 took {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{LAUNCH_NAMES} {total}")
+    return total
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> None:
@@ -1352,6 +1910,8 @@ def main() -> None:
     demo()
     reset()
     recs = time_kernels(mdta, block, gdfn, seam, megablock, reset)
+    reset()
+    launches["eval"] = evaluate(port, mdta, counters, reset, card)
 
     replaces = {
         "mdta_stats": ("promptir_tpu_torch/csrc/mdta_stats.cu",

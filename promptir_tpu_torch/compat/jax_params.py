@@ -7,6 +7,9 @@ numpy-convertible arrays with HWIO conv kernels, (in, out) dense kernels,
 into names (`encoder_level1_0`) and no LayerNorm `body` wrapper. The target
 model's own state_dict keys say where each tensor goes, so names such as
 `down1_2`, which are not Sequential indices, are never split.
+`load_params_npz` reads the flat `.npz` that the JAX package's
+`train/checkpoints.py:save_params_npz` writes ('/'-joined paths) back into
+that tree, so a model trained by the JAX package loads into the port.
 """
 
 from __future__ import annotations
@@ -31,6 +34,19 @@ def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
     if merged[-1] == "weight" and ndim in (2, 4):
         merged[-1] = "kernel"
     return tuple(merged)
+
+
+def load_params_npz(path: str) -> Dict[str, Any]:
+    """The nested flax parameter tree of a JAX `save_params_npz` file."""
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = data[key]
+    return tree
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):

@@ -30,7 +30,7 @@ def tile_positions(size: int, tile: int, stride: int) -> list[int]:
     return pos
 
 
-def _forward(model, x):
+def forward_nhwc(model, x):
     """NHWC in, NHWC float32 out, through the NCHW module."""
     return model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float()
 
@@ -48,7 +48,7 @@ def _tiled_forward(model, x, tile: int, overlap: int, chunk: int):
     for s in range(0, n_pad, chunk):
         part = coords[s:s + chunk]
         tiles = torch.cat([x[:, i:i + tile, j:j + tile] for i, j in part])
-        out = _forward(model, tiles).reshape(len(part), b, tile, tile, c)
+        out = forward_nhwc(model, tiles).reshape(len(part), b, tile, tile, c)
         for k, (i, j) in enumerate(part):
             if s + k < n:
                 acc[:, i:i + tile, j:j + tile] += out[k]
@@ -71,7 +71,7 @@ def tiled_inference(model: torch.nn.Module, x, tile: int = 128,
     with torch.inference_mode():
         xp = pad_to_multiple_reflect(x, bucket)
         if h <= tile and w <= tile:
-            y = _forward(model, xp).clamp(0.0, 1.0)
+            y = forward_nhwc(model, xp).clamp(0.0, 1.0)
         else:
             y = _tiled_forward(model, xp, tile, overlap, chunk)
         return y[:, :h, :w]

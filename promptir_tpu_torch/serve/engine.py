@@ -182,7 +182,8 @@ class InferenceEngine:
             "mean_batch_fill": s["batch_fill_sum"] / b,
             "mean_latency_s": s["latency_sum_s"] / n,
             "max_latency_s": s["latency_max_s"],
-            "buckets": buckets,
+            # the JAX engine's key: the padded shapes run so far
+            "compiled_shapes": buckets,
             "queue_depth": self._q.qsize() + len(self._pending),
             "inflight": inflight,
         }

@@ -38,3 +38,74 @@ def test_port_has_files():
 def test_no_jax_imports(path):
     bad = sorted(set(imported_roots(path)) & BANNED)
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+NEW_MODULES = [
+    "promptir_tpu_torch.utils.png", "promptir_tpu_torch.utils.image_io",
+    "promptir_tpu_torch.data.augment", "promptir_tpu_torch.data.datasets",
+    "promptir_tpu_torch.eval.runner", "promptir_tpu_torch.compat.torch_ckpt",
+    "promptir_tpu_torch.cli.test", "promptir_tpu_torch.cli.demo",
+    "promptir_tpu_torch.cli.psnr", "promptir_tpu_torch.cli.serve",
+]
+# Blocks JAX, PIL and the JAX package, imports the evaluation surface and
+# runs each entry point once on the CPU, so that an import inside a
+# function body (which the AST scan above sees, but a mistake could hide
+# behind a name built at run time) fails here too.
+BLOCKED_RUN = """
+import importlib, json, os, sys, threading, urllib.request
+for name in ("jax", "jaxlib", "flax", "PIL", "promptir_tpu"):
+    sys.modules[name] = None
+import numpy as np
+for m in {modules!r}:
+    importlib.import_module(m)
+from promptir_tpu_torch.cli import demo, psnr, serve, test
+from promptir_tpu_torch.utils.image_io import save_image
+from promptir_tpu_torch.utils.png import decode_png, encode_png
+tiny = ["--num_blocks", "1", "1", "1", "1", "--num_refinement_blocks", "1",
+        "--device", "cpu"]
+d = {workdir!r}
+rng = np.random.default_rng(0)
+for sub in ("clean", "rain/input", "rain/target", "haze/input", "haze/target"):
+    os.makedirs(os.path.join(d, sub))
+save_image(os.path.join(d, "clean", "a.png"), rng.random((20, 36, 3)))
+save_image(os.path.join(d, "rain", "input", "rain-1.png"), rng.random((20, 36, 3)))
+save_image(os.path.join(d, "rain", "target", "rain-1.png"), rng.random((20, 36, 3)))
+save_image(os.path.join(d, "haze", "input", "1_0.9_0.2.png"), rng.random((20, 36, 3)))
+save_image(os.path.join(d, "haze", "target", "1.png"), rng.random((20, 36, 3)))
+out = os.path.join(d, "out")
+r = test.main(["--mode", "3", "--pad_base", "16", "--denoise_path",
+               os.path.join(d, "clean"), "--derain_path", os.path.join(d, "rain"),
+               "--dehaze_path", os.path.join(d, "haze"), "--output_path", out,
+               *tiny])
+demo.main(["--test_path", os.path.join(d, "clean"), "--output_path",
+           os.path.join(d, "demo"), *tiny])
+psnr.main(["--restored", os.path.join(out, "derain"), "--gt",
+           os.path.join(d, "rain", "target"), "--device", "cpu"])
+httpd, engine = serve.make_server(serve.build_parser().parse_args(
+    ["--port", "0", "--max_batch", "1", *tiny]))
+th = threading.Thread(target=httpd.serve_forever, daemon=True)
+th.start()
+req = urllib.request.Request(
+    f"http://127.0.0.1:{{httpd.server_address[1]}}/restore",
+    data=encode_png(np.zeros((9, 11, 3), np.uint8)), method="POST")
+with urllib.request.urlopen(req, timeout=60) as resp:
+    shape = decode_png(resp.read()).shape
+httpd.shutdown()
+httpd.server_close()
+engine.close()
+print(json.dumps({{"sets": sorted(r), "served": list(shape)}}))
+"""
+
+
+def test_entry_points_run_with_jax_and_pil_blocked(tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    code = BLOCKED_RUN.format(modules=NEW_MODULES, workdir=str(tmp_path))
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=300,
+                       capture_output=True, text=True)
+    assert p.returncode == 0, p.stderr[-3000:]
+    got = json.loads(p.stdout.strip().splitlines()[-1])
+    assert got == {"sets": ["dehaze", "denoise_15", "denoise_25", "denoise_50",
+                            "derain"], "served": [9, 11, 3]}

@@ -64,7 +64,8 @@ def test_odd_sizes_come_back_cropped_and_batched(model):
         assert 0.0 <= out.min() and out.max() <= 1.0
         np.testing.assert_allclose(out, direct(model, im), atol=1e-5)
     # buckets: 24x32 (first two), 24x40, 32x32
-    assert s["requests"] == 4 and s["buckets"] == 3 and s["inflight"] == 0
+    assert (s["requests"] == 4 and s["compiled_shapes"] == 3
+            and s["inflight"] == 0)
 
 
 def test_overload_raises(model):
@@ -144,7 +145,7 @@ def test_tiled_path_is_not_ported(model):
     assert out.shape == big.shape
     np.testing.assert_array_equal(out, ref)
     assert s["tiled_requests"] == 1 and s["requests"] == 1
-    assert s["buckets"] == 0
+    assert s["compiled_shapes"] == 0
 
 
 def test_rejects_wrong_channels(model):

@@ -137,4 +137,4 @@ def test_engine_tiled_path_matches_jax(chained):
     np.testing.assert_allclose(out_small, whole[0].permute(1, 2, 0).numpy(),
                                atol=1e-5)
     assert s["tiled_requests"] == 1 and s["requests"] == 2
-    assert s["batches"] == 2 and s["buckets"] == 1
+    assert s["batches"] == 2 and s["compiled_shapes"] == 1

@@ -184,7 +184,7 @@ def test_engine_serves_odd_sizes_cropped_with_pad_base_64(served):
         np.testing.assert_allclose(out, ref[:im.shape[0], :im.shape[1]],
                                    atol=1e-5)
     # buckets: 64x128 (first and third), 64x64
-    assert s["requests"] == 3 and s["buckets"] == 2
+    assert s["requests"] == 3 and s["compiled_shapes"] == 2
 
 
 def test_forward_off_the_pad_base_raises(served):
