@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Five main paths are driven: serving PromptIR (`promptir`, each block
+Six main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
 with `fused_ffn=True`) and the X-Restormer family's PromptXRestormer
 (`promptxrestormerir`, the reference's training config), serving PromptIR
-through the overlap-blend tiler (`tiled`), training PromptIR, and the
-evaluation entry points (`eval`: all-in-one evaluation, demo, HTTP
-server). Phases,
+through the overlap-blend tiler (`tiled`), training PromptIR and
+PromptXRestormer (`train`), the evaluation entry points (`eval`:
+all-in-one evaluation, demo, HTTP server) and the training entry point
+over the all-in-one corpora (`train_cli`). Phases,
 each printed with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
@@ -55,7 +56,9 @@ each printed with the seconds since start:
      128x128 synthetic patches in float32 (TF32 off) and in bf16 compute
      with float32 weights; launches per step, the loss, step time and peak
      memory; then the bf16-computing model served through the engine, its
-     GDFN weights packed in the first forward only;
+     GDFN weights packed in the first forward only; then full-depth
+     promptxrestormerir in its training config, bf16 compute, the same
+     steps (its loss must fall too);
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
@@ -80,7 +83,22 @@ each printed with the seconds since start:
      promptxrestormerir (ln_gdfn on the path), cli/demo.py plain and tiled,
      and cli/serve.py's HTTP server answering two PNG requests; each run
      held against the same run through the plain route (forward by
-     forward, or on the uint8 images it writes).
+     forward, or on the uint8 images it writes);
+ 11. the training entry point (promptir_tpu_torch/cli/train.py) over a
+     corpus of the five tasks in the reference's layout: two denoise images
+     at 481x321 (a PNG of every row filter, a BMP), one rain pair as such
+     PNGs, the committed 550x413 JPEG haze pair (139 samples, 23 steps of
+     B6 128x128); full-depth promptir in bf16 for one epoch with the
+     epoch-end evaluation (a two-image BSD68-like and a one-pair
+     Rain100L-like set) and the profiler window, then `--epochs 2 --resume
+     latest`; exact launches per step, finite losses, a checkpoint an
+     epoch, the evaluation's metrics logged; the step's ms and images/s,
+     the host's wait between steps and the profiler's trace export, the
+     loader alone over a stratified sixth of the corpus (samples/s, split
+     by task), each sample's time in the loader's threads during training,
+     and whether the loader keeps up; the host's decode of a JPEG
+     and a BMP; every committed JPEG fixture decoded bit for bit as the
+     PIL decode stored beside it.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 
@@ -211,6 +229,10 @@ BATCH = 4
 # (promptir_tpu/config.py: TrainConfig.batch_size, DataConfig.patch_size)
 TRAIN_BATCH, TRAIN_HW = 6, (128, 128)
 TRAIN_PER_STEP = [47, 0, 47, 1, 47, 0, 2]  # launches of one step's forward
+# promptxrestormerir's 31 X-blocks under autograd: LnMdta (stats, apply) and
+# the channel FFN's LnGdfn, then the spatial FFN's LnGdfn; 15 on the wide
+# route (PATHS)
+XR_TRAIN_PER_STEP = [31, 0, 62, 0, 31, 0, 15]
 TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # per dtype; the warm-up steps are untimed
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
@@ -248,6 +270,13 @@ GRAD_TOL = 1e-3
 EVAL_BSD = [(321, 481), (481, 321)]
 EVAL_SOTS = (413, 550)
 EVAL_FORWARDS = 10
+# phase 11's corpus: two denoise images and one rain pair at BSD68's size,
+# the committed 550x413 JPEG haze pair: 2 x 9 + 120 + 1 samples, 23 steps
+# of B6 an epoch
+TRAIN_CLI_HW = (321, 481)
+TRAIN_CLI_SAMPLES = 2 * 9 + 120 + 1
+TRAIN_CLI_STEPS = TRAIN_CLI_SAMPLES // TRAIN_BATCH
+JPEG_FIXTURES = ROOT / "tests" / "torch_fixtures" / "jpeg"
 # every image's PSNR (dB) and SSIM through the kernels against the plain
 # route, fp32; the offline PSNR of the dumped (truncated uint8) PNGs against
 # the runner's float PSNR
@@ -890,7 +919,8 @@ def check_grads(port, counters, reset):
 def train(port, counters, reset, card):
     """Full-depth PromptIR: AdamW steps on one fixed batch of six 128x128
     synthetic patches, float32 (TF32 off) and bf16 compute with float32
-    weights. Returns the launches over the whole run."""
+    weights; then full-depth promptxrestormerir in its training config, bf16
+    compute. Returns the launches over the whole run."""
     from promptir_tpu_torch.data.loader import TrainLoader
     from promptir_tpu_torch.data.synthetic import SyntheticTrainDataset
     from promptir_tpu_torch.train.state import TrainState, make_optimizer
@@ -902,10 +932,13 @@ def train(port, counters, reset, card):
     reset()
     total = [0] * len(KERNELS)
     served = [0] * len(KERNELS)
-    for dtype in (torch.float32, torch.bfloat16):
+    runs = [("promptir", {}, torch.float32, TRAIN_PER_STEP),
+            ("promptir", {}, torch.bfloat16, TRAIN_PER_STEP),
+            ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP)]
+    for name, kw, dtype, per_step in runs:
         torch.manual_seed(0)
-        model = port.create_model("promptir", device="cuda", dtype=dtype,
-                                  train=True)
+        model = port.create_model(name, device="cuda", dtype=dtype,
+                                  train=True, **kw)
         n_params = sum(p.numel() for p in model.parameters())
         st = TrainState(model, make_optimizer(model.parameters()))
         step = make_train_step(model)
@@ -921,26 +954,26 @@ def train(port, counters, reset, card):
             t1.record()
             torch.cuda.synchronize()
             ran = [a - b for a, b in zip(counters(), before)]
-            if ran != TRAIN_PER_STEP:
-                fail(f"training step {i} ({dtype}) launched {ran} != "
-                     f"{TRAIN_PER_STEP}")
+            if ran != per_step:
+                fail(f"{name} training step {i} ({dtype}) launched {ran} != "
+                     f"{per_step}")
             total = [a + b for a, b in zip(total, ran)]
             losses.append(metrics["train_loss"].item())
             if i >= TRAIN_WARMUP:
                 times.append(t0.elapsed_time(t1))
         peak = torch.cuda.max_memory_allocated()
         ms = float(np.median(times))
-        say(f"train: full-depth promptir ({n_params} params, fp32 weights) "
+        say(f"train: full-depth {name} ({n_params} params, fp32 weights) "
             f"{str(dtype)[6:]} compute, AdamW lr 2e-4, B{TRAIN_BATCH} "
             f"{TRAIN_HW[0]}x{TRAIN_HW[1]} on one fixed batch: loss "
             f"{', '.join(f'{v:.5f}' for v in losses)}; step {ms:.1f} ms "
             f"(median of {len(times)} after {TRAIN_WARMUP} warm-up, CUDA "
             f"events), {TRAIN_BATCH * 1e3 / ms:.2f} images/s, peak memory "
             f"{peak / 2**30:.2f} GiB on {card}; launches "
-            f"{LAUNCH_NAMES} per step {TRAIN_PER_STEP}")
+            f"{LAUNCH_NAMES} per step {per_step}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            fail(f"training loss did not fall on a fixed batch: {losses}")
-        if dtype == torch.bfloat16:
+            fail(f"{name} training loss did not fall on a fixed batch: {losses}")
+        if name == "promptir" and dtype == torch.bfloat16:
             served = serve_trained(model, counters, card)
         del model, st, step
         torch.cuda.empty_cache()
@@ -1845,6 +1878,335 @@ def evaluate(port, mdta, counters, reset, card):
     return total
 
 
+# ----------------------------------------------------------- phase 11
+
+def bmp_bytes(rgb):
+    """A 24-bit bottom-up BI_RGB BMP of HWC uint8 RGB, rows padded to 4
+    bytes, as image tools write them."""
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, stride * h, 2835,
+                       2835, 0, 0)
+    return (b"BM" + struct.pack("<IHHI", 54 + stride * h, 0, 0, 54) + info
+            + rows.tobytes())
+
+
+def check_jpeg_fixtures():
+    """Decode every committed JPEG fixture on the host with the port's
+    decoder and hold it bit for bit against PIL's decode stored beside it
+    (tests/torch_fixtures/jpeg/decodes.npz: the array, or for the 550x413
+    haze pair its SHA-256). Returns the files checked."""
+    import hashlib
+
+    from promptir_tpu_torch.utils.jpeg import read_jpeg
+
+    with np.load(JPEG_FIXTURES / "decodes.npz") as z:
+        want = {k: z[k] for k in z.files}
+    names = sorted(k.split(":", 1)[-1] for k in want if not k.startswith("shape:"))
+    for rel in names:
+        got = read_jpeg(str(JPEG_FIXTURES / rel))
+        if rel in want:
+            same = np.array_equal(got, want[rel])
+        else:
+            same = (list(got.shape) == list(want["shape:" + rel]) and
+                    hashlib.sha256(got.tobytes()).hexdigest()
+                    == str(want["sha256:" + rel]))
+        if not same:
+            fail(f"the JPEG decoder disagrees with PIL's decode of {rel}")
+    return names
+
+
+def write_train_corpus(root):
+    """The reference's training layout (tests/test_data_pipeline.py:36-61)
+    at BSD68's size: two denoise images (a PNG with every row filter, a
+    BMP), one rain pair as PNG with every row filter, the committed 550x413
+    JPEG haze pair; a two-image BSD68-like and a one-pair Rain100L-like set
+    for the epoch-end evaluation. 2 x 9 + 120 + 1 samples."""
+    from promptir_tpu_torch.utils.image_io import to_uint8
+
+    lists = {"noisy/denoise.txt": "a.png\nb.bmp\n",
+             "rainy/rainTrain.txt": "rainy/rain-1.png\n",
+             "hazy/hazy_outside.txt": "synthetic/0001_0.8_0.2.jpg\n"}
+    for rel, text in lists.items():
+        (root / "data_dir" / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / "data_dir" / rel).write_text(text)
+    u8 = lambda seed: to_uint8(scene01(TRAIN_CLI_HW, seed))  # noqa: E731
+    files = {"denoise/a.png": png_mixed_filters(u8(50)),
+             "denoise/b.bmp": bmp_bytes(u8(51)),
+             "derain/rainy/rain-1.png": png_mixed_filters(u8(52)),
+             "derain/gt/norain-1.png": png_mixed_filters(u8(53)),
+             "bsd/1.png": png_mixed_filters(u8(54)),
+             "bsd/2.png": png_mixed_filters(u8(55)),
+             "rain100l/input/rain-1.png": png_mixed_filters(u8(56)),
+             "rain100l/target/rain-1.png": png_mixed_filters(u8(57))}
+    for rel, data in files.items():
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_bytes(data)
+    shutil.copytree(JPEG_FIXTURES / "dehaze", root / "dehaze")
+
+
+@contextlib.contextmanager
+def step_spy(counters):
+    """Record each train step that cli/train.py's Trainer runs: the
+    launches, the CUDA-event ms, the loss, the host clock at its start and
+    end (the card synchronised after each step) and the host seconds until
+    the step had been enqueued; each sample's `get` in the loader's threads
+    ({de_type: [ms]}); and the seconds of the profiler window's close (its
+    trace export)."""
+    from promptir_tpu_torch.data.datasets import PromptTrainDataset
+    from promptir_tpu_torch.train import trainer as trainer_mod
+
+    rec = SimpleNamespace(ran=[], ms=[], loss=[], start=[], end=[], host=[],
+                          get={}, export_s=[])
+    real = trainer_mod.make_train_step
+    real_get = PromptTrainDataset.get
+    real_close = trainer_mod.ProfilerWindow.close
+
+    def make(model, grad_accum=1):
+        fn = real(model, grad_accum)
+
+        def step(state, batch):
+            rec.start.append(time.perf_counter())
+            before = counters()
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            metrics = fn(state, batch)
+            t1.record()
+            rec.host.append(time.perf_counter() - rec.start[-1])
+            torch.cuda.synchronize()
+            rec.ran.append([a - b for a, b in zip(counters(), before)])
+            rec.ms.append(t0.elapsed_time(t1))
+            rec.loss.append(metrics["train_loss"].item())
+            rec.end.append(time.perf_counter())
+            return metrics
+
+        return step
+
+    def get(self, idx, rng):
+        t0 = time.perf_counter()
+        out = real_get(self, idx, rng)
+        rec.get.setdefault(out[0], []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def close(self):
+        t0, had = time.perf_counter(), self.prof is not None
+        real_close(self)
+        if had:
+            rec.export_s.append(time.perf_counter() - t0)
+
+    with mock.patch.object(trainer_mod, "make_train_step", make), \
+            mock.patch.object(PromptTrainDataset, "get", get), \
+            mock.patch.object(trainer_mod.ProfilerWindow, "close", close):
+        yield rec
+
+
+def loader_sixth(dataset):
+    """The training loader with no model (its default four threads) over a
+    stratified sixth of the corpus: the first ceil(n/6) samples of each
+    task, 24 of the 139, one batch for each thread. Returns (seconds,
+    samples, {de_type: [ms of each sample's get in its thread]}, {de_type:
+    ms of one sample alone, median of up to 3, no other thread running})."""
+    from promptir_tpu_torch.data.loader import TrainLoader
+
+    by_task = {}
+    for smp in dataset.samples:
+        by_task.setdefault(smp.de_type, []).append(smp)
+    dataset.samples = [smp for group in by_task.values()
+                       for smp in group[:-(-len(group) // 6)]]
+    per_task, alone = {}, {}
+    real = dataset.get
+    for i, smp in enumerate(dataset.samples):
+        if len(alone.setdefault(smp.de_type, [])) < 3:
+            t0 = time.perf_counter()
+            real(i, np.random.default_rng(i))
+            alone[smp.de_type].append((time.perf_counter() - t0) * 1e3)
+    alone = {k: float(np.median(v)) for k, v in alone.items()}
+
+    def get(i, rng):
+        t0 = time.perf_counter()
+        out = real(i, rng)
+        per_task.setdefault(out[0], []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    loader = TrainLoader(dataset, batch_size=TRAIN_BATCH, seed=0,
+                         pin_memory=True)
+    with mock.patch.object(dataset, "get", get):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader.epoch(0)) * TRAIN_BATCH
+        dt = time.perf_counter() - t0
+    if n != len(dataset.samples):
+        fail(f"the loader made {n} of {len(dataset.samples)} samples")
+    return dt, n, per_task, alone
+
+
+def train_cli(counters, reset, card):
+    """Phase 11: cli/train.py on the card over a corpus of the five tasks
+    in the reference's layout (PNG, BMP and JPEG), full-depth promptir, bf16
+    compute, B6 128x128: one epoch with the epoch-end evaluation and the
+    profiler window, then `--epochs 2 --resume latest`. Returns the
+    launches of both runs."""
+    import json as json_mod
+
+    from promptir_tpu_torch.cli import train as train_cli_mod
+    from promptir_tpu_torch.data.datasets import PromptTrainDataset
+    from promptir_tpu_torch.train.trainer import PROFILE_STEPS
+    from promptir_tpu_torch.utils.bmp import read_bmp
+    from promptir_tpu_torch.utils.jpeg import read_jpeg
+
+    t_phase = time.perf_counter()
+    names = check_jpeg_fixtures()
+    root = ROOT / "logs" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        write_train_corpus(root)
+        jpg = root / "dehaze" / "synthetic" / "0001_0.8_0.2.jpg"
+        ms = {}
+        for kind, fn, path in [("JPEG 550x413", read_jpeg, jpg),
+                               ("BMP 481x321", read_bmp, root / "denoise" / "b.bmp")]:
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn(str(path))
+                ts.append(time.perf_counter() - t0)
+            ms[kind] = sorted(ts)[2] * 1e3
+        say(f"train_cli: {len(names)} committed JPEG fixtures decode bit for "
+            "bit as PIL's stored decode; decode on the host " + ", ".join(
+                f"{k} {v:.2f} ms" for k, v in ms.items()) + " (median of 5)")
+        argv = ["--dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
+                "--patch_size", str(TRAIN_HW[0]),
+                "--data_file_dir", f"{root}/data_dir/",
+                "--denoise_dir", f"{root}/denoise/",
+                "--derain_dir", f"{root}/derain/",
+                "--dehaze_dir", f"{root}/dehaze/",
+                "--eval_denoise_path", str(root / "bsd"),
+                "--eval_derain_path", str(root / "rain100l"),
+                "--ckpt_dir", str(root / "ckpt"), "--log_dir", str(root / "logs")]
+        # eval: 2 BSD68-like images at sigma 15 and 1 Rain100L-like pair,
+        # B1 forwards at 320x512 after crop-16 and the flip pad to 64
+        eval_launches = [3 * n for n in PATHS["promptir"][2]]
+        total = [0] * len(KERNELS)
+        runs = []
+        for extra in (["--epochs", "1", "--profile_dir", str(root / "prof")],
+                      ["--epochs", "2", "--resume", "latest"]):
+            reset()
+            t0 = time.perf_counter()
+            with step_spy(counters) as rec:
+                trainer = train_cli_mod.main(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ran = counters()
+            runs.append((trainer, rec, wall))
+            if len(trainer.dataset) != TRAIN_CLI_SAMPLES:
+                fail(f"the corpus gave {len(trainer.dataset)} samples, not "
+                     f"{TRAIN_CLI_SAMPLES}")
+            if len(rec.ran) != TRAIN_CLI_STEPS:
+                fail(f"an epoch ran {len(rec.ran)} steps, not {TRAIN_CLI_STEPS}")
+            for i, r in enumerate(rec.ran):
+                if r != TRAIN_PER_STEP:
+                    fail(f"cli/train.py step {i} launched {r} != {TRAIN_PER_STEP}")
+            want = [TRAIN_CLI_STEPS * a + b
+                    for a, b in zip(TRAIN_PER_STEP, eval_launches)]
+            if ran != want:
+                fail(f"cli/train.py launched {ran} != {want} (steps and the "
+                     "epoch-end evaluation)")
+            if not all(np.isfinite(rec.loss)):
+                fail(f"cli/train.py gave a loss that is not finite: {rec.loss}")
+            total = [a + b for a, b in zip(total, ran)]
+        (first, rec1, wall1), (second, rec2, wall2) = runs
+        if second.start_epoch != 1 or second.global_step != 2 * TRAIN_CLI_STEPS:
+            fail(f"the resumed run started at epoch {second.start_epoch}, "
+                 f"step {second.global_step - TRAIN_CLI_STEPS}")
+        if second.ckpt.all_epochs() != [0, 1]:
+            fail(f"checkpoints {second.ckpt.all_epochs()}, not [0, 1]")
+        trace = root / "prof" / "train_steps_2-7.pt.trace.json"
+        if not trace.exists():
+            fail("the profiler window wrote no trace")
+        with open(root / "logs" / "metrics.jsonl") as f:
+            recs = [json_mod.loads(line) for line in f]
+        evals = [r for r in recs if "eval_psnr_denoise15" in r]
+        keys = ("eval_psnr_denoise15", "eval_ssim_denoise15",
+                "eval_psnr_derain", "eval_ssim_derain")
+        if len(evals) != 2 or not all(np.isfinite(r[k]) for r in evals
+                                      for k in keys):
+            fail(f"metrics.jsonl holds {len(evals)} evaluations, not 2 with "
+                 f"{keys}")
+        # steps kept: the first run's after the profiler window (its steps
+        # [2, 7) run under torch.profiler), the resumed run's after 2 warm-up
+        lo, hi = PROFILE_STEPS
+        kept = [(rec1, hi), (rec2, lo)]
+        step_ms = float(np.median([m for r, k in kept for m in r.ms[k:]]))
+        # the host waits between the end of a step and the start of the next
+        # for the loader and the trainer's own work (after step hi - 1 of the
+        # first run: the profiler's trace export, timed); within a step, it
+        # enqueues the work (host) while the loader's threads hold the GIL
+        gap_export = rec1.start[hi] - rec1.end[hi - 1]
+        gaps = [b - a for r in (rec1, rec2) for a, b in zip(r.end, r.start[1:])]
+        gaps.remove(gap_export)
+        epoch_s = [r.end[-1] - r.start[0] for r in (rec1, rec2)]
+        wall_ms = [(b - a) * 1e3 for r, k in kept
+                   for a, b in list(zip(r.start, r.end))[k:]]
+        host_ms = [h * 1e3 for r, k in kept for h in r.host[k:]]
+        quart = lambda v: "/".join(  # noqa: E731
+            f"{x:.1f}" for x in np.percentile(v, [25, 50, 75, 100]))
+        say(f"train_cli: cli/train.py, full-depth promptir bf16, "
+            f"{TRAIN_CLI_SAMPLES} samples (2 x 9 denoise over PNG and BMP, "
+            f"120 rain PNG pairs, 1 JPEG haze pair) in {TRAIN_CLI_STEPS} "
+            f"steps of B{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]} an epoch: "
+            f"losses {rec1.loss[0]:.5f} .. {rec2.loss[-1]:.5f}, all finite; "
+            f"step {step_ms:.1f} ms (median of CUDA events over "
+            f"{len(wall_ms)} steps: the first run's profiled steps [{lo}, {hi}) "
+            f"and its warm-up, the resumed run's {lo} warm-up left out), "
+            f"{TRAIN_BATCH * 1e3 / step_ms:.2f} images/s; a step's host wall "
+            f"p25/p50/p75/max {quart(wall_ms)} ms, until enqueued "
+            f"{quart(host_ms)} ms; an epoch's steps {epoch_s[0]:.2f} / "
+            f"{epoch_s[1]:.2f} s (first / resumed run), "
+            f"{TRAIN_CLI_STEPS * TRAIN_BATCH / epoch_s[1]:.2f} images/s end to "
+            f"end; the profiler's trace export {rec1.export_s[0]:.2f} s of the "
+            f"{gap_export:.2f} s gap after step {hi - 1}; the host waited "
+            f"between the other steps {sum(gaps):.2f} s in all (median "
+            f"{np.median(gaps) * 1e3:.1f} ms, max {max(gaps) * 1e3:.1f}); runs "
+            f"{wall1:.1f} / {wall2:.1f} s with model build and evaluation; eval "
+            f"PSNR denoise15 / derain {evals[-1]['eval_psnr_denoise15']:.4f} / "
+            f"{evals[-1]['eval_psnr_derain']:.4f} dB; checkpoints "
+            f"{second.ckpt.all_epochs()}, resumed at epoch {second.start_epoch}"
+            f"; trace {trace.stat().st_size} bytes; on {card}")
+        ds = PromptTrainDataset(
+            data_file_dir=f"{root}/data_dir/", denoise_dir=f"{root}/denoise/",
+            derain_dir=f"{root}/derain/", dehaze_dir=f"{root}/dehaze/",
+            patch_size=TRAIN_HW[0])
+        dt, n, per_task, alone = loader_sixth(ds)
+        rate = n / dt
+        in_training = {}
+        for r in (rec1, rec2):
+            for k, v in r.get.items():
+                in_training.setdefault(k, []).extend(v)
+        got = [m for v in in_training.values() for m in v]
+        capacity = 4 * 1e3 * len(got) / sum(got)
+        tasks = {0: "denoise_15 (PNG, BMP)", 1: "denoise_25", 2: "denoise_50",
+                 3: "derain (2 PNG)", 4: "dehaze (2 JPEG)"}
+        need = TRAIN_BATCH * 1e3 / step_ms
+        med = lambda d: ", ".join(  # noqa: E731
+            f"{tasks[k]} {np.median(v):.1f} ({len(v)})" for k, v in sorted(d.items()))
+        say(f"train_cli: the loader alone (4 threads, no model) over a "
+            f"stratified sixth of the corpus: {n} samples in {dt:.2f} s, "
+            f"{rate:.1f} samples/s against the step's {need:.1f} images/s: "
+            + ("keeps up" if rate >= need else
+               f"starves the card ({need / rate:.2f}x too slow)")
+            + f"; per sample in its thread, median ms (count): {med(per_task)}"
+            + "; one sample alone on one thread, median ms: " + ", ".join(
+                f"{tasks[k]} {v:.1f}" for k, v in sorted(alone.items()))
+            + f"; during the two training runs, per sample in its thread: "
+            f"{med(in_training)}, so 4 threads make {capacity:.1f} samples/s "
+            f"(4 x 1000 / the mean ms); on {card}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say(f"train_cli: phase 11 took {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {LAUNCH_NAMES} {total}")
+    return total
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> None:
@@ -1912,6 +2274,8 @@ def main() -> None:
     recs = time_kernels(mdta, block, gdfn, seam, megablock, reset)
     reset()
     launches["eval"] = evaluate(port, mdta, counters, reset, card)
+    reset()
+    launches["train_cli"] = train_cli(counters, reset, card)
 
     replaces = {
         "mdta_stats": ("promptir_tpu_torch/csrc/mdta_stats.cu",

@@ -2,20 +2,34 @@
 
 Counterpart of promptir_tpu/config.py, which covers the reference's
 options.py field for field. This copy holds the fields the port's trainer
-reads; the dataset directories, the evaluation options and the mesh,
-remat and tiling knobs wait for the modules that read them (ROADMAP.md
-Queue 1).
+and cli/train.py read, with the JAX package's defaults; the evaluation
+options and the mesh, remat and tiling knobs wait for the modules that
+read them (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import List, Optional
 
 
 @dataclass
 class DataConfig:
+    data_file_dir: str = "data_dir/"
+    denoise_dir: str = "data/Train/Denoise/"
+    derain_dir: str = "data/Train/Derain/"
+    dehaze_dir: str = "data/Train/Dehaze/"
+    de_type: List[str] = field(
+        default_factory=lambda: [
+            "denoise_15",
+            "denoise_25",
+            "denoise_50",
+            "derain",
+            "dehaze",
+        ]
+    )
+    patch_size: int = 128
     num_workers: int = 4  # loader threads
 
 
@@ -32,6 +46,7 @@ class TrainConfig:
     grad_clip: Optional[float] = None  # global-norm clip; None: none
     seed: int = 0
     ckpt_dir: str = "ckpt/train_all"
+    wandb_project: Optional[str] = None  # JSONL only when wandb is missing
     log_dir: str = "logs/"
     eval_every_epochs: int = 1
 
@@ -40,6 +55,7 @@ class TrainConfig:
 class SystemConfig:
     device: str = "cuda"  # "cpu" runs the kernels' plain versions
     compute_dtype: str = "float32"  # or "bfloat16" (float32 master weights)
+    profile_dir: Optional[str] = None  # torch.profiler trace of steps 2-7
 
 
 @dataclass

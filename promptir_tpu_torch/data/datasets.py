@@ -1,38 +1,162 @@
-"""The test sets: sample lists and per-sample loading on the host.
+"""Dataset definitions: sample lists and per-sample loading on the host.
 
-Counterpart of the test datasets of promptir_tpu/data/datasets.py
-(reference utils/dataset_utils.py:178-341), read through the port's PNG
-codec (utils/png.py) in place of PIL:
+Counterpart of promptir_tpu/data/datasets.py (reference
+utils/dataset_utils.py), read through the port's own codecs
+(utils/image_io.py: PNG, JPEG and BMP, told apart by their magic bytes) in
+place of PIL:
+  * `PromptTrainDataset` (:15-175): the all-in-one training mix. Denoise
+    ids from data_dir/noisy/denoise.txt filtered against the denoise dir
+    listing, x3 per sigma; derain ids from rainy/rainTrain.txt x120; haze
+    ids from hazy/hazy_outside.txt. Ground-truth paths by the reference's
+    string surgery (`derain_gt_name`, `dehaze_gt_name`). A denoise sample is
+    center-crop-16, a random patch, a dihedral mode and uint8 noise; a
+    paired sample a joint random patch and mode;
   * `DenoiseTestDataset`: a clean directory (BSD68, Urban100); Gaussian
     noise at `sigma` is added when a sample is fetched, from
-    `np.random.default_rng(seed + idx)`, so the noisy inputs are the JAX
-    package's bit for bit;
+    `np.random.default_rng(seed + idx)`;
   * `DerainDehazeDataset`: input/ -> target/ pairs (Rain100L, SOTS
-    outdoor); the dehaze target is the part of the name before '_', as PNG;
+    outdoor, whose hazy inputs are JPEG); the dehaze target is the part of
+    the name before '_', as PNG;
   * `TestSpecificDataset`: the demo's directory or single file.
-Every image is center-cropped to a multiple of 16 first. Only PNG is read:
-a JPEG (or any other format) raises a ValueError naming the file. The
-training dataset waits for training on real corpora (ROADMAP.md Queue 1).
+Every draw comes from the numpy Generator passed in, in the JAX package's
+order, so the samples are the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence
 
 import numpy as np
 
-from promptir_tpu_torch.data.augment import crop_to_multiple
-from promptir_tpu_torch.data.degradations import add_gaussian_noise
-from promptir_tpu_torch.utils.png import read_png
+from promptir_tpu_torch.data.augment import (
+    crop_to_multiple,
+    random_augmentation,
+    random_crop,
+)
+from promptir_tpu_torch.data.degradations import (
+    DE_TYPES,
+    SIGMA_BY_TYPE,
+    add_gaussian_noise,
+)
+from promptir_tpu_torch.utils.image_io import read_image
 
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """Load an image file as HWC uint8 RGB (PNG only; others raise)."""
-    return read_png(path)
+    """Load a PNG, JPEG or BMP file as HWC uint8 RGB (by its magic bytes;
+    any other format raises a ValueError naming the file)."""
+    return read_image(path)
+
+
+def derain_gt_name(rainy_name: str) -> str:
+    """'<root>/rainy/rain-X.png' -> '<root>/gt/norain-X.png'."""
+    return rainy_name.split("rainy")[0] + "gt/norain-" + rainy_name.split("rain-")[-1]
+
+
+def dehaze_gt_name(hazy_name: str) -> str:
+    """'.../synthetic/<n>_<params>.jpg' -> '.../original/<n>.jpg'."""
+    dir_name = hazy_name.split("synthetic")[0] + "original/"
+    name = hazy_name.split("/")[-1].split("_")[0]
+    suffix = "." + hazy_name.split(".")[-1]
+    return dir_name + name + suffix
+
+
+@dataclass
+class Sample:
+    degraded_path: Optional[str]  # None => synthesize from clean
+    clean_path: str
+    de_type: int
+
+
+@dataclass
+class PromptTrainDataset:
+    """Mixed all-in-one training set with the reference's replication.
+
+    It follows the JAX package's numpy path (`use_native=False`) and has no
+    `use_native` field: the JAX package's native sample preparation
+    (native/fused_augment.cpp) draws its noise from a stream of its own, so
+    it cannot match the numpy path bit for bit, and the port keeps the path
+    that the tests hold against the JAX package.
+    """
+
+    data_file_dir: str
+    denoise_dir: str
+    derain_dir: str
+    dehaze_dir: str
+    de_type: Sequence[str] = (
+        "denoise_15",
+        "denoise_25",
+        "denoise_50",
+        "derain",
+        "dehaze",
+    )
+    patch_size: int = 128
+    seed: int = 0
+    samples: List[Sample] = field(default_factory=list, init=False)
+
+    def __post_init__(self):
+        self.samples = []
+        if any(t.startswith("denoise") for t in self.de_type):
+            ref_file = os.path.join(self.data_file_dir, "noisy/denoise.txt")
+            with open(ref_file) as f:
+                wanted = {line.strip() for line in f}
+            names = [n for n in sorted(os.listdir(self.denoise_dir))
+                     if n in wanted]
+            for task in ("denoise_15", "denoise_25", "denoise_50"):
+                if task in self.de_type:
+                    for _ in range(3):  # x3 replication per sigma
+                        self.samples += [
+                            Sample(None, os.path.join(self.denoise_dir, n),
+                                   DE_TYPES[task])
+                            for n in names
+                        ]
+        if "derain" in self.de_type:
+            rel = self._list("rainy/rainTrain.txt")
+            for _ in range(120):  # x120 replication
+                self.samples += [
+                    Sample(self.derain_dir + r,
+                           derain_gt_name(self.derain_dir + r),
+                           DE_TYPES["derain"])
+                    for r in rel
+                ]
+        if "dehaze" in self.de_type:
+            self.samples += [
+                Sample(self.dehaze_dir + r, dehaze_gt_name(self.dehaze_dir + r),
+                       DE_TYPES["dehaze"])
+                for r in self._list("hazy/hazy_outside.txt")
+            ]
+
+    def _list(self, rel: str) -> List[str]:
+        with open(os.path.join(self.data_file_dir, rel)) as f:
+            return [line.strip() for line in f]
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def get(self, idx: int, rng: np.random.Generator):
+        """Returns (de_type, degraded, clean) as float32 HWC in [0,1]."""
+        s = self.samples[idx]
+        p = self.patch_size
+        if s.de_type in SIGMA_BY_TYPE:
+            clean = crop_to_multiple(load_image_rgb(s.clean_path), 16)
+            (clean_patch,) = random_crop(rng, p, clean)
+            clean_patch = random_augmentation(rng, clean_patch)[0]
+            degraded = add_gaussian_noise(rng, clean_patch,
+                                          SIGMA_BY_TYPE[s.de_type])
+        else:
+            degraded_img = crop_to_multiple(load_image_rgb(s.degraded_path), 16)
+            clean_img = crop_to_multiple(load_image_rgb(s.clean_path), 16)
+            degraded, clean_patch = random_crop(rng, p, degraded_img, clean_img)
+            degraded, clean_patch = random_augmentation(rng, degraded,
+                                                        clean_patch)
+        return (
+            s.de_type,
+            degraded.astype(np.float32) / 255.0,
+            clean_patch.astype(np.float32) / 255.0,
+        )
 
 
 @dataclass

@@ -3,13 +3,16 @@
 Counterpart of promptir_tpu/train/trainer.py, the reference's Lightning
 setup (train.py:303-341) on one device: the train step of step.py, the
 per-epoch warmup-cosine learning rate, a checkpoint every epoch, an
-epoch-end evaluation hook (train.py:134-172), JSONL metric logging and a
-SIGTERM/SIGINT guard that checkpoints and returns. Data parallelism and the
-profiler window of the JAX trainer are not ported yet (ROADMAP.md).
+epoch-end evaluation hook (train.py:134-172), JSONL (and wandb) metric
+logging, a SIGTERM/SIGINT guard that checkpoints and returns, and the
+profiler window: with `cfg.system.profile_dir` set, a torch.profiler trace
+of the global steps [2, 7) of the first epoch run, written there as a
+Chrome trace. Data parallelism is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Optional
 
@@ -26,6 +29,46 @@ from promptir_tpu_torch.train.state import TrainState, make_optimizer, set_learn
 from promptir_tpu_torch.train.step import make_eval_step, make_train_step
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PROFILE_STEPS = (2, 7)  # the profiler window, global steps [start, stop)
+
+
+class ProfilerWindow:
+    """torch.profiler over the train steps whose global step lies in
+    PROFILE_STEPS (the JAX trainer's jax.profiler window), CPU activity and,
+    on the card, CUDA kernels. The trace goes to `out_dir` as
+    `train_steps_2-7.pt.trace.json` when the window closes: at its last
+    step, or at the end of a run too short to reach it."""
+
+    def __init__(self, out_dir: Optional[str], device: torch.device):
+        self.out_dir, self.device = out_dir, device
+        self.prof = None
+        self.done = not out_dir
+
+    def before_step(self, step: int) -> None:
+        if self.done or self.prof is not None or step < PROFILE_STEPS[0]:
+            return
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.start()
+
+    def after_step(self, step: int) -> None:
+        if self.prof is not None and step >= PROFILE_STEPS[1]:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, "train_steps_{}-{}.pt.trace.json"
+                            .format(*PROFILE_STEPS))
+        self.prof.export_chrome_trace(path)
+        self.prof, self.done = None, True
+        print(f"profiler trace written to {path}")
 
 
 class Trainer:
@@ -69,7 +112,8 @@ class Trainer:
             cfg.train.lr, cfg.train.warmup_epochs, cfg.train.cosine_max_epochs
         )
         self.ckpt = CheckpointManager(cfg.train.ckpt_dir)
-        self.logger = MetricLogger(cfg.train.log_dir)
+        self.logger = MetricLogger(cfg.train.log_dir, cfg.train.wandb_project)
+        self.profiler = ProfilerWindow(cfg.system.profile_dir, self.device)
         self.start_epoch = 0
         # pass a guard to share it (cooperative shutdown, tests); by default
         # fit() installs one for its own duration
@@ -103,6 +147,7 @@ class Trainer:
         try:
             self._fit_epochs(guard)
         finally:
+            self.profiler.close()
             # an installed but orphaned handler would swallow SIGTERM and
             # Ctrl-C for the rest of the process
             if own_guard:
@@ -116,7 +161,9 @@ class Trainer:
             t0 = time.time()
             losses = []
             for batch in self.loader.epoch(epoch):
+                self.profiler.before_step(self.global_step)
                 metrics = self.step_fn(self.state, batch)
+                self.profiler.after_step(self.global_step)
                 losses.append(metrics["train_loss"])
                 if guard.preempted():
                     self._save_preempted(epoch)
@@ -127,6 +174,7 @@ class Trainer:
                                     self.global_step)
             epoch_loss = (float(torch.stack(losses).mean()) if losses
                           else float("nan"))
+            self.profiler.close()  # a first epoch shorter than the window
             dt = time.time() - t0
             imgs = len(self.loader) * cfg.train.batch_size
             print(f"epoch {epoch}: loss {epoch_loss:.4f} lr {lr:.2e} "

@@ -6,8 +6,10 @@ promptir_tpu/data/native.py:decode_png_rgb): 8-bit gray, gray+alpha,
 palette, RGB and RGBA, non-interlaced, with all five row filters. Every
 image reads back as HWC uint8 RGB, as PIL's `convert("RGB")` gives it: gray
 is replicated, a palette index looked up, alpha dropped. Anything else
-(JPEG, BMP, 16-bit or sub-byte samples, Adam7 interlacing) raises a
-ValueError that names the file and what it does not support.
+(16-bit or sub-byte samples, Adam7 interlacing, a file that is not PNG)
+raises a ValueError that names the file and what it does not support.
+JPEG and BMP have readers of their own (utils/jpeg.py, utils/bmp.py);
+utils/image_io.py:read_image picks one by the file's magic bytes.
 
 The writer emits RGB at 8 bits with filter 0 (none) on every row.
 """
@@ -115,8 +117,8 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int,
 def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """Decode PNG bytes to HWC uint8 RGB. `name` goes into the errors."""
     if data[:len(SIGNATURE)] != SIGNATURE:
-        raise ValueError(f"{name}: {_kind(data)} is not supported: the port "
-                         "reads PNG only (8-bit, non-interlaced)")
+        raise ValueError(f"{name}: {_kind(data)} is not supported by the PNG "
+                         "reader (image_io.read_image reads JPEG and BMP)")
     ihdr, plte, idat = None, None, []
     for kind, payload in _chunks(data, name):
         if kind == b"IHDR":

@@ -1,4 +1,5 @@
-"""The port's test datasets against the JAX package's, on a PNG corpus.
+"""The port's test datasets against the JAX package's, on a PNG corpus
+(and SOTS-shaped JPEG inputs).
 
 A BSD68-, Rain100L- and SOTS-shaped corpus at odd sizes, written to
 tmp_path partly by PIL's optimizing encoder (every row filter) and partly
@@ -94,12 +95,34 @@ def test_demo_loader_is_bit_identical(corpus):
 
 
 def test_jpeg_input_is_refused_naming_the_file(tmp_path):
+    """A JPEG the port's baseline decoder does not read (progressive) is
+    refused naming the file; baseline JPEG reads (the test below)."""
     path = tmp_path / "photo.jpg"
-    Image.fromarray(scene((32, 32), 0)).save(path, format="JPEG")
+    Image.fromarray(scene((32, 32), 0)).save(path, format="JPEG",
+                                             progressive=True)
     ds = datasets.TestSpecificDataset(str(path))
-    with pytest.raises(ValueError, match="JPEG is not supported") as e:
+    with pytest.raises(ValueError, match="progressive JPEG is not supported") as e:
         ds.get(0)
     assert str(path) in str(e.value)
+
+
+def test_sots_hazy_jpegs_are_bit_identical(tmp_path):
+    """SOTS outdoor's hazy inputs are JPEG (its targets PNG): both
+    packages read the same arrays, the demo loader too."""
+    for i, hw in enumerate([(53, 70), (41, 58)]):
+        inp = tmp_path / "sots" / "input" / f"{i + 1:04d}_0.9_0.2.jpg"
+        inp.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(scene(hw, 50 + i)).save(inp, quality=75 + 10 * i)
+        write(tmp_path / "sots" / "target" / f"{i + 1:04d}.png", hw, 60 + i,
+              pil=True)
+    kw = dict(dehaze_path=str(tmp_path / "sots"), task="dehaze")
+    mine, ref = datasets.DerainDehazeDataset(**kw), jds.DerainDehazeDataset(**kw)
+    for i in range(2):
+        assert_same(mine.get(i), ref.get(i))
+    inputs = str(tmp_path / "sots" / "input")
+    mine, ref = datasets.TestSpecificDataset(inputs), jds.TestSpecificDataset(inputs)
+    for i in range(2):
+        assert_same(mine.get(i), ref.get(i))
 
 
 @pytest.mark.parametrize("hw,base", [((43, 61), 16), ((321, 481), 16),

@@ -46,8 +46,12 @@ NEW_MODULES = [
     "promptir_tpu_torch.eval.runner", "promptir_tpu_torch.compat.torch_ckpt",
     "promptir_tpu_torch.cli.test", "promptir_tpu_torch.cli.demo",
     "promptir_tpu_torch.cli.psnr", "promptir_tpu_torch.cli.serve",
+    "promptir_tpu_torch.utils.jpeg", "promptir_tpu_torch.utils.bmp",
+    "promptir_tpu_torch.data.patches", "promptir_tpu_torch.data.degradations",
+    "promptir_tpu_torch.cli.train",
 ]
-# Blocks JAX, PIL and the JAX package, imports the evaluation surface and
+# Blocks JAX, PIL and the JAX package, imports the evaluation and training
+# surface, reads a committed JPEG fixture and a BMP written by hand, and
 # runs each entry point once on the CPU, so that an import inside a
 # function body (which the AST scan above sees, but a mistake could hide
 # behind a name built at run time) fails here too.
@@ -58,8 +62,9 @@ for name in ("jax", "jaxlib", "flax", "PIL", "promptir_tpu"):
 import numpy as np
 for m in {modules!r}:
     importlib.import_module(m)
-from promptir_tpu_torch.cli import demo, psnr, serve, test
-from promptir_tpu_torch.utils.image_io import save_image
+import shutil, struct
+from promptir_tpu_torch.cli import demo, psnr, serve, test, train
+from promptir_tpu_torch.utils.image_io import read_image, save_image
 from promptir_tpu_torch.utils.png import decode_png, encode_png
 tiny = ["--num_blocks", "1", "1", "1", "1", "--num_refinement_blocks", "1",
         "--device", "cpu"]
@@ -93,7 +98,27 @@ with urllib.request.urlopen(req, timeout=60) as resp:
 httpd.shutdown()
 httpd.server_close()
 engine.close()
-print(json.dumps({{"sets": sorted(r), "served": list(shape)}}))
+jpg = os.path.join({fixtures!r}, "dehaze")
+shutil.copytree(jpg, os.path.join(d, "train", "dehaze"))
+bmp = (b"BM" + struct.pack("<IHHI", 14 + 40 + 8, 0, 0, 54)
+       + struct.pack("<IiiHHIIiiII", 40, 2, -1, 1, 24, 0, 8, 0, 0, 0, 0)
+       + bytes([0, 0, 255, 0, 255, 0, 0, 0]))
+open(os.path.join(d, "x.bmp"), "wb").write(bmp)
+decoded = [list(read_image(os.path.join(jpg, "original", "0001.jpg")).shape),
+           read_image(os.path.join(d, "x.bmp")).tolist()]
+for sub, text in (("noisy/denoise.txt", "a.png"), ("rainy/rainTrain.txt", ""),
+                  ("hazy/hazy_outside.txt", "synthetic/0001_0.8_0.2.jpg")):
+    os.makedirs(os.path.dirname(os.path.join(d, "lists", sub)), exist_ok=True)
+    open(os.path.join(d, "lists", sub), "w").write(text)
+trainer = train.main(["--de_type", "denoise_15", "dehaze", "--epochs", "1",
+                      "--batch_size", "2", "--patch_size", "16",
+                      "--data_file_dir", os.path.join(d, "lists") + "/",
+                      "--denoise_dir", os.path.join(d, "clean") + "/",
+                      "--dehaze_dir", os.path.join(d, "train", "dehaze") + "/",
+                      "--ckpt_dir", os.path.join(d, "ckpt"),
+                      "--log_dir", os.path.join(d, "logs"), *tiny])
+print(json.dumps({{"sets": sorted(r), "served": list(shape),
+                  "decoded": decoded, "trained": trainer.global_step}}))
 """
 
 
@@ -102,10 +127,13 @@ def test_entry_points_run_with_jax_and_pil_blocked(tmp_path):
     import subprocess
     import sys
 
-    code = BLOCKED_RUN.format(modules=NEW_MODULES, workdir=str(tmp_path))
+    code = BLOCKED_RUN.format(modules=NEW_MODULES, workdir=str(tmp_path),
+                              fixtures=str(ROOT / "tests" / "torch_fixtures" / "jpeg"))
     p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, timeout=300,
                        capture_output=True, text=True)
     assert p.returncode == 0, p.stderr[-3000:]
     got = json.loads(p.stdout.strip().splitlines()[-1])
     assert got == {"sets": ["dehaze", "denoise_15", "denoise_25", "denoise_50",
-                            "derain"], "served": [9, 11, 3]}
+                            "derain"], "served": [9, 11, 3],
+                   "decoded": [[413, 550, 3], [[[255, 0, 0], [0, 255, 0]]]],
+                   "trained": 2}

@@ -1,19 +1,22 @@
 """The port's training path against the JAX package, on the CPU.
 
-  * a reduced PromptIR's L1 loss and every parameter's gradient against
-    `jax.value_and_grad` of the JAX model (`fused_ffn=False`) on identical
-    weights, float32, and in bf16 compute with float32 weights;
+  * a reduced PromptIR's and a reduced PromptXRestormer's L1 loss and
+    every parameter's gradient against `jax.value_and_grad` of the JAX
+    model (`fused_ffn=False`) on identical weights, float32, and in bf16
+    compute with float32 weights;
   * torch's AdamW against the JAX package's optax optimizer on identical
     gradients, with and without the global-norm clip;
   * the warmup-cosine schedule value for value, the synthetic data and the
     loader's batches bit for bit;
   * the Trainer: the loss falls, a resume continues bit-identically, SIGTERM
-    saves a checkpoint that resume replays.
+    saves a checkpoint that resume replays;
+  * the metric logger sends a wandb run what the JAX logger sends it.
 """
 
 import json
 import os
 import signal
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -254,7 +257,7 @@ def test_grad_accum_averages_microbatches():
 def test_xrestormer_backward_runs_through_the_training_route():
     """The X-Restormer family builds for training too: fp32 weights, a bf16
     forward through LnMdta and LnGdfn, a finite gradient on every weight
-    (its gradients are not held against JAX yet, ROADMAP.md)."""
+    (held against JAX by the two tests below)."""
     torch.manual_seed(0)
     model = create_model("promptxrestormerir", device="cpu", train=True,
                          dtype=torch.bfloat16, **REDUCED)
@@ -263,6 +266,72 @@ def test_xrestormer_backward_runs_through_the_training_route():
     for name, p in model.named_parameters():
         assert p.dtype == torch.float32 and p.grad is not None, name
         assert torch.isfinite(p.grad).all(), name
+
+
+# the reference's training config of promptxrestormerir, one block a level
+XR_REDUCED = dict(REDUCED, channel_heads=(1, 1, 1, 1), spatial_heads=(1, 2, 4, 8))
+
+
+def xrestormer_grads(dtype):
+    """Reduced promptxrestormerir (the training config's heads, one block a
+    level), flax-initialised weights in both packages, one (2, 64, 128, 3)
+    batch: (port loss, JAX loss, port model, JAX gradients as a state
+    dict)."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(size=(2, 64, 128, 3)).astype(np.float32)
+    y = rng.uniform(size=(2, 64, 128, 3)).astype(np.float32)
+    variables = jax_create_model("promptxrestormerir", **XR_REDUCED).init(
+        jax.random.PRNGKey(1), jnp.asarray(x[:1, :, :64]))
+    jdtype = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    jmodel = jax_create_model("promptxrestormerir", dtype=jdtype, **XR_REDUCED)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jax_l1_loss(jmodel.apply({"params": p}, jnp.asarray(x)),
+                              jnp.asarray(y))))(variables["params"])
+    model = create_model("promptxrestormerir", device="cpu", train=True,
+                         dtype=dtype, **XR_REDUCED)
+    model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
+    nchw = lambda a: torch.from_numpy(a).permute(0, 3, 1, 2)  # noqa: E731
+    loss = l1_loss(model(nchw(x)), nchw(y))
+    loss.backward()
+    ref = state_dict_from_flax(
+        {"params": jax.tree.map(lambda a: np.asarray(a, np.float32), grads_j)},
+        model)
+    return loss.item(), float(loss_j), model, ref
+
+
+def xrestormer_grad_errors(model, ref):
+    """Each parameter's max |port - JAX| over its max |JAX|; every
+    parameter has a gradient."""
+    errs = {}
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, name
+        want = ref[name].numpy()
+        errs[name] = np.abs(p.grad.numpy() - want).max() / np.abs(want).max()
+    return errs
+
+
+def test_reduced_xrestormer_loss_and_grads_match_jax():
+    """fp32: the loss within 1e-6 of JAX's and every gradient within
+    GRAD_TOL of its tensor's max |grad| (probe: 2.27e-5, median 5.3e-7)."""
+    loss, loss_j, model, ref = xrestormer_grads(torch.float32)
+    assert abs(loss - loss_j) <= 1e-6 * loss_j
+    errs = xrestormer_grad_errors(model, ref)
+    assert len(errs) == len(list(model.parameters()))
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= GRAD_TOL, (worst, errs[worst])
+
+
+def test_reduced_xrestormer_bf16_grads_match_jax():
+    """bf16 compute with float32 weights in both packages (the jitted JAX
+    bf16 gradients): the loss within 2e-4 of JAX's, every gradient within
+    BF16_GRAD_TOL and the median within BF16_GRAD_MEDIAN (probe: max 0.051,
+    median 0.0031)."""
+    loss, loss_j, model, ref = xrestormer_grads(torch.bfloat16)
+    assert abs(loss - loss_j) <= 2e-4 * loss_j
+    errs = xrestormer_grad_errors(model, ref)
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= BF16_GRAD_TOL, (worst, errs[worst])
+    assert np.median(list(errs.values())) <= BF16_GRAD_MEDIAN
 
 
 def tiny_cfg(tmp_path, epochs=2):
@@ -366,3 +435,50 @@ def test_preemption_guard_latches_sigterm():
         os.kill(os.getpid(), signal.SIGTERM)
         assert guard.preempted()
     assert signal.getsignal(signal.SIGTERM) is not guard._on_signal
+
+
+class FakeWandb:
+    """A stand-in `wandb` module that records what a logger sends it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def init(self, **kw):
+        self.calls.append(("init", tuple(sorted(kw))))
+        return self
+
+    def log(self, metrics, step):
+        self.calls.append(("log", dict(metrics), step))
+
+    def finish(self):
+        self.calls.append(("finish",))
+
+
+def test_metric_logger_sends_wandb_what_jax_sends(tmp_path, monkeypatch):
+    """With `wandb_project` and `wandb` importable, each record goes to the
+    JSONL file and to the wandb run, as the JAX logger sends it; when
+    `wandb` does not import, the JSONL file alone."""
+    from promptir_tpu.train.metrics_logger import MetricLogger as JaxLogger
+    from promptir_tpu_torch.train.metrics_logger import MetricLogger
+
+    def drive(cls, out):
+        log = cls(str(out), wandb_project="p")
+        log.log({"train_loss": 0.25, "lr": 1e-4}, step=3)
+        log.close()
+        with open(out / "metrics.jsonl") as f:
+            return [{k: v for k, v in json.loads(line).items() if k != "time"}
+                    for line in f]
+
+    sent = {}
+    for name, cls in [("jax", JaxLogger), ("torch", MetricLogger)]:
+        fake = FakeWandb()
+        monkeypatch.setitem(sys.modules, "wandb", fake)
+        rows = drive(cls, tmp_path / name)
+        assert rows == [{"step": 3, "train_loss": 0.25, "lr": 1e-4}]
+        sent[name] = fake.calls
+    assert sent["torch"] == sent["jax"] == [
+        ("init", ("dir", "project")),
+        ("log", {"train_loss": 0.25, "lr": 1e-4}, 3), ("finish",)]
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import raises
+    assert drive(MetricLogger, tmp_path / "none") == [
+        {"step": 3, "train_loss": 0.25, "lr": 1e-4}]
