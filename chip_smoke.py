@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Six main paths are driven: serving PromptIR (`promptir`, each block
+Seven main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
 with `fused_ffn=True`) and the X-Restormer family's PromptXRestormer
-(`promptxrestormerir`, the reference's training config), serving PromptIR
-through the overlap-blend tiler (`tiled`), training PromptIR and
-PromptXRestormer (`train`), the evaluation entry points (`eval`:
+(`promptxrestormerir`) and PromptXRestormerEff (`promptxrestormereffir`),
+both in the reference's training config, serving PromptIR through the
+overlap-blend tiler (`tiled`), training PromptIR, PromptXRestormer and
+PromptXRestormerEff (`train`), the evaluation entry points (`eval`:
 all-in-one evaluation, demo, HTTP server) and the training entry point
-over the all-in-one corpora (`train_cli`). Phases,
-each printed with the seconds since start:
+over the all-in-one corpora through the native loader (`train_cli`).
+Phases, each printed with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
      together), with ptxas register and shared memory use, and the
@@ -45,7 +46,9 @@ each printed with the seconds since start:
      the plain versions (FORWARD_TOL_BF16);
   5. each serving path at full width (random weights from a seed, bf16)
      serving eight requests through the port's engine, with the kernels'
-     launch counts set to 0 just before each run and read just after; then
+     launch counts set to 0 just before each run and read just after;
+     promptxrestormereffir's fp32 forward (TF32 off) through the kernels
+     against the plain versions (GOLDEN_TOL); then
      full-depth PromptIR serving two 1024x768 photographs through the
      engine's tiled path (128 px tiles, overlap 32, 8 a chunk: 88 tiles in
      11 forwards an image), in float32 against the same run through the
@@ -58,13 +61,16 @@ each printed with the seconds since start:
      memory; then the bf16-computing model served through the engine, its
      GDFN weights packed in the first forward only; then full-depth
      promptxrestormerir in its training config, bf16 compute, the same
-     steps (its loss must fall too);
+     steps (its loss must fall too), and promptxrestormereffir in the same
+     config, the same steps;
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
      PyTorch call that computes the same function where there is one, and
-     its bound, at every shape of a 256x256 serving forward of each model,
-     of the training forward and of the tiled path's chunk; ln_gdfn and the
+     its bound, at every shape of a 256x256 serving forward of each model
+     (promptxrestormereffir's shapes are promptxrestormerir's: their
+     times are read again, not retaken), of the training forward and of the
+     tiled path's chunk; ln_gdfn and the
      apply per shape with their plans and, beside the wrappers' CUDA-event
      time, their device time from a short torch.profiler window over the
      same launches; mdta_stats per
@@ -76,7 +82,8 @@ each printed with the seconds since start:
  10. the user-facing inference surface on a synthetic PNG corpus at the
      all-in-one test sets' sizes (BSD68 481x321 and 321x481, Rain100L,
      SOTS outdoor 550x413; the targets written by the port's save_image,
-     the rest with every PNG row filter), with seed-0 full-depth promptir
+     the rest with every PNG row filter, each read back bit for bit by the
+     C++ reader and the plain one, both timed), with seed-0 full-depth promptir
      weights saved as a Lightning .ckpt: cli/test.py --mode 3 in fp32
      through the kernels (10 forwards, exact launches), cli/psnr.py on its
      dumped sigma-15 PNGs, the same run in bf16 timed, --mode 1 with
@@ -88,17 +95,21 @@ each printed with the seconds since start:
      corpus of the five tasks in the reference's layout: two denoise images
      at 481x321 (a PNG of every row filter, a BMP), one rain pair as such
      PNGs, the committed 550x413 JPEG haze pair (139 samples, 23 steps of
-     B6 128x128); full-depth promptir in bf16 for one epoch with the
+     B6 128x128), through the native loader (the default: the C++ PNG
+     reader and the fused crop, dihedral and noise); full-depth promptir in
+     bf16 for one epoch with the
      epoch-end evaluation (a two-image BSD68-like and a one-pair
      Rain100L-like set) and the profiler window, then `--epochs 2 --resume
      latest`; exact launches per step, finite losses, a checkpoint an
-     epoch, the evaluation's metrics logged; the step's ms and images/s,
-     the host's wait between steps and the profiler's trace export, the
-     loader alone over a stratified sixth of the corpus (samples/s, split
-     by task), each sample's time in the loader's threads during training,
-     and whether the loader keeps up; the host's decode of a JPEG
-     and a BMP; every committed JPEG fixture decoded bit for bit as the
-     PIL decode stored beside it.
+     epoch, the evaluation's metrics logged; the step's ms and images/s
+     beside the images/s end to end, the host's wait between steps and the
+     profiler's trace export, the loader alone over an epoch (samples/s,
+     split by task), each sample's time in the loader's threads during
+     training and alone (and alone on the numpy path), and whether the
+     loader keeps up; the host's decode of a JPEG and a BMP; every
+     committed JPEG fixture decoded bit for bit as the PIL decode stored
+     beside it, every PNG of the corpus by the C++ reader as by the plain
+     one, and the native samples' crops and dihedrals as numpy's.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 
@@ -188,10 +199,25 @@ def xr_eval_block_shapes(h, w):
     ]
 
 
-# the reference's training config of promptxrestormerir
-# (tests/goldens/sd_keys_promptxrestormerir.json)
+def eff_block_shapes(h, w):
+    """(H, W, C, heads) of the 31 blocks of an h x w promptxrestormereffir
+    forward (training config), with how many blocks run at each and the
+    kernels each runs: the 28 X-blocks mdta_stats, block_tail and ln_gdfn
+    (their spatial FFN), the 3 channel blocks of the prompt interaction
+    (704, 320 and 160 channels, one head) mdta_stats and block_tail."""
+    xblock = ("mdta_stats", "block_tail", "ln_gdfn")
+    return [(s, n, xblock) for s, n in xr_block_shapes(h, w)
+            if s[2] not in (704, 320, 160)] + [
+        (s, n, xblock[:2]) for s, n in xr_block_shapes(h, w)
+        if s[2] in (704, 320, 160)]
+
+
+# the reference's training config of promptxrestormerir and
+# promptxrestormereffir (tests/goldens/sd_keys_promptxrestormerir.json,
+# sd_keys_promptxrestormereffir.json)
 XR_TRAIN = dict(num_blocks=(2, 4, 4, 4), num_refinement_blocks=4,
                 channel_heads=(1, 1, 1, 1), spatial_heads=(1, 2, 4, 8))
+EFF = "promptxrestormereffir"
 KERNELS = ("mdta_stats", "block_tail", "ln_gdfn", "seam", "ln_mdta",
            "tail_stats", "mdta_gram")
 LAUNCH_NAMES = "/".join(KERNELS)
@@ -203,10 +229,13 @@ PATHS = {
     # with fused_ffn=True its 44 stacked blocks run chained (8 stacks: 8
     # mdta_stats, 36 tail_stats, 8 block_tail), its 3 noise_level blocks
     # alone; promptxrestormerir's one-head widths from 160 take the Gram
-    # kernel (15 of its 31 blocks)
+    # kernel (15 of its 31 blocks); promptxrestormereffir's 28 X-blocks run
+    # ln_gdfn too, its 3 channel blocks not, at the same widths (15 wide;
+    # tests/test_torch_prompt_xrestormer_eff.py counts them on the CPU)
     "promptir": ("promptir", {}, [47, 47, 0, 1, 0, 0, 2]),
     "promptxrestormerir": ("promptxrestormerir", XR_TRAIN,
                            [31, 31, 31, 0, 0, 0, 15]),
+    EFF: (EFF, XR_TRAIN, [31, 31, 28, 0, 0, 0, 15]),
     "promptir_chained": ("promptir", dict(fused_ffn=True),
                          [11, 11, 0, 1, 0, 36, 2]),
 }
@@ -233,7 +262,13 @@ TRAIN_PER_STEP = [47, 0, 47, 1, 47, 0, 2]  # launches of one step's forward
 # the channel FFN's LnGdfn, then the spatial FFN's LnGdfn; 15 on the wide
 # route (PATHS)
 XR_TRAIN_PER_STEP = [31, 0, 62, 0, 31, 0, 15]
-TRAIN_STEPS, TRAIN_WARMUP = 6, 2  # per dtype; the warm-up steps are untimed
+# promptxrestormereffir's 28 X-blocks as above, its 3 channel blocks LnMdta
+# and one LnGdfn each
+EFF_TRAIN_PER_STEP = [31, 0, 59, 0, 31, 0, 15]
+# per run; the warm-up steps are untimed. Four steps are too few for the
+# loss to fall: AdamW's first steps overshoot (promptxrestormereffir's
+# loss went 0.33861, 0.39534, 0.33852, 0.34022 on an H100; PERF.md)
+TRAIN_STEPS, TRAIN_WARMUP = 6, 2
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
@@ -430,7 +465,9 @@ def checked_shapes():
     """(dtype, shapes, seam size) of the kernel checks in the order their
     inputs are drawn: the serving buckets first, in the order of earlier
     runs (so their inputs repeat), then the training step's shapes, then
-    phase 10's. A shape is (shape, batch, kernels checked)."""
+    phase 10's. A shape is (shape, batch, kernels checked); the training
+    step's are promptir's and the X-Restormer family's (both X-Restormer
+    models train at the same widths)."""
     out = []
     serving = ("mdta_stats", "block_tail")
     for dtype in (torch.float32, torch.bfloat16):
@@ -442,7 +479,7 @@ def checked_shapes():
             out.append((dtype, shapes, (bh, bw, BATCH)))
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(s, TRAIN_BATCH, ("mdta_stats", "ln_mdta", "ln_gdfn"))
-                  for s, _ in block_shapes(*TRAIN_HW)]
+                  for s, _ in block_shapes(*TRAIN_HW) + xr_block_shapes(*TRAIN_HW)]
         shapes += [(s, 2, ("mdta_stats", k)) for s, k in RAGGED]
         out.append((dtype, shapes, (*TRAIN_HW, TRAIN_BATCH)))
     for dtype in (torch.float32, torch.bfloat16):
@@ -754,6 +791,40 @@ def serve(port, counters, reset, card, path):
     return ran
 
 
+def check_forward_fp32(port, counters, reset, path):
+    """Full-width `path` (seed-0 weights) in float32 with TF32 off, B4
+    256x256: the forward through the kernels against the same forward
+    through the plain versions (plain_route), max |difference| within
+    GOLDEN_TOL; the launches of one forward."""
+    from promptir_tpu_torch.precision import exact_float32
+
+    name, kwargs, per_forward = PATHS[path]
+    torch.manual_seed(0)
+    model = port.create_model(name, device="cuda", **kwargs)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(BATCH, 3, *BUCKETS[0], generator=gen, device="cuda")
+    reset()
+    with torch.inference_mode(), exact_float32(torch.float32):
+        y = model(x)
+        ran = counters()
+        with plain_route():
+            y0 = model(x)
+    torch.cuda.synchronize()
+    reset()  # a comparison, not the main path
+    err = (y - y0).abs().max().item()
+    say(f"fp32 forward: full-width {path} B{BATCH} {BUCKETS[0][0]}x"
+        f"{BUCKETS[0][1]} (TF32 off) through the kernels against the plain "
+        f"versions: max |difference| {err:.3e} (tolerance {GOLDEN_TOL}); "
+        f"launches {LAUNCH_NAMES} {ran}")
+    if ran != per_forward:
+        fail(f"the fp32 {path} forward launched {ran} != {per_forward}")
+    if not torch.isfinite(y).all() or not err <= GOLDEN_TOL:
+        fail(f"the fp32 {path} forward through the kernels is off by {err:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    return err
+
+
 def run_tiled(model, imgs):
     """The photographs through a tiled engine, submitted together: (replies,
     seconds from each submit to its reply, seconds for all, engine stats)."""
@@ -919,8 +990,9 @@ def check_grads(port, counters, reset):
 def train(port, counters, reset, card):
     """Full-depth PromptIR: AdamW steps on one fixed batch of six 128x128
     synthetic patches, float32 (TF32 off) and bf16 compute with float32
-    weights; then full-depth promptxrestormerir in its training config, bf16
-    compute. Returns the launches over the whole run."""
+    weights; then full-depth promptxrestormerir and promptxrestormereffir in
+    their training config, bf16 compute. Returns the launches over the
+    whole run."""
     from promptir_tpu_torch.data.loader import TrainLoader
     from promptir_tpu_torch.data.synthetic import SyntheticTrainDataset
     from promptir_tpu_torch.train.state import TrainState, make_optimizer
@@ -934,7 +1006,8 @@ def train(port, counters, reset, card):
     served = [0] * len(KERNELS)
     runs = [("promptir", {}, torch.float32, TRAIN_PER_STEP),
             ("promptir", {}, torch.bfloat16, TRAIN_PER_STEP),
-            ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP)]
+            ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP),
+            (EFF, XR_TRAIN, torch.bfloat16, EFF_TRAIN_PER_STEP)]
     for name, kw, dtype, per_step in runs:
         torch.manual_seed(0)
         model = port.create_model(name, device="cuda", dtype=dtype,
@@ -1253,11 +1326,13 @@ def time_gram(mdta, q, k, heads, batch, shape, dtype):
 
 def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     """Per path and kernel, the time of one bf16 forward of the path, summed
-    over its launches at each shape: serving promptir and promptxrestormerir
-    (batch 4, 256x256), the training forward (batch 6, 128x128) and the
-    tiled path's forward of one chunk of tiles (batch 8, 128x128); with
-    mdta_stats' per-shape line (route, tile) and the Gram kernel's at the
-    wide shapes."""
+    over its launches at each shape: serving promptir, promptxrestormerir
+    and promptxrestormereffir (batch 4, 256x256), the training forward
+    (batch 6, 128x128) and the tiled path's forward of one chunk of tiles
+    (batch 8, 128x128); with mdta_stats' per-shape line (route, tile) and
+    the Gram kernel's at the wide shapes. A kernel at a shape and batch that
+    an earlier path timed keeps that time (promptxrestormereffir's shapes
+    are promptxrestormerir's)."""
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     paths = {
@@ -1265,6 +1340,7 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
         "promptir": (block_shapes(*BUCKETS[0]), BATCH, ("mdta_stats", "block_tail")),
         "promptxrestormerir": (xr_block_shapes(*BUCKETS[0]), BATCH,
                                ("mdta_stats", "block_tail", "ln_gdfn")),
+        EFF: (eff_block_shapes(*BUCKETS[0]), BATCH, ()),
         "train": (block_shapes(*TRAIN_HW), TRAIN_BATCH,
                   ("mdta_stats", "ln_mdta", "ln_gdfn")),
         "tiled": (block_shapes(TILE, TILE), TILE_CHUNK,
@@ -1272,36 +1348,49 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     }
     tot = {path: {} for path in [*paths, "promptir_chained", "tiled_chained"]}
     tails, stats_rows = [], []  # per shape: (path, shape, batch, count, ...)
+    timed = {}  # (kernel, shape, batch) -> (ms, plain ms, device ms)
     for path, (shapes, batch, kernels) in paths.items():
-        for shape, n in shapes:
-            a = block_inputs(shape, dtype, gen, batch)
-            v, st = run_stats(mdta.mdta_stats, a)
-            attn = mdta.attn_from_stats(st, a["temp"])
-            fns = {
-                "mdta_stats": (lambda: run_stats(mdta.mdta_stats, a),
-                               lambda: run_stats(mdta.mdta_stats_plain, a)),
-                "block_tail": (lambda: run_tail(block.block_tail, a, v, attn),
-                               lambda: run_tail(block.block_tail_plain, a, v, attn)),
-                "ln_mdta": (lambda: run_apply(mdta.mdta_apply, a, v, attn),
-                            lambda: run_apply(mdta.mdta_apply_plain, a, v, attn)),
-                "ln_gdfn": (lambda: run_ln_gdfn(gdfn.ln_gdfn, a),
-                            lambda: run_ln_gdfn(gdfn.ln_gdfn_plain, a)),
-            }
+        for shape, n, *own in shapes:
+            ks = own[0] if own else kernels
+            wide = mdta.stats_route(shape[2], shape[3]) == "wide"
+            fresh = [k for k in ks if (k, shape, batch) not in timed]
+            if wide and ("mdta_gram", shape, batch) not in timed:
+                fresh.append("mdta_gram")
+            if fresh:
+                a = block_inputs(shape, dtype, gen, batch)
+                v, st = run_stats(mdta.mdta_stats, a)
+                attn = mdta.attn_from_stats(st, a["temp"])
+                fns = {
+                    "mdta_stats": (lambda: run_stats(mdta.mdta_stats, a),
+                                   lambda: run_stats(mdta.mdta_stats_plain, a)),
+                    "block_tail": (lambda: run_tail(block.block_tail, a, v, attn),
+                                   lambda: run_tail(block.block_tail_plain, a, v,
+                                                    attn)),
+                    "ln_mdta": (lambda: run_apply(mdta.mdta_apply, a, v, attn),
+                                lambda: run_apply(mdta.mdta_apply_plain, a, v,
+                                                  attn)),
+                    "ln_gdfn": (lambda: run_ln_gdfn(gdfn.ln_gdfn, a),
+                                lambda: run_ln_gdfn(gdfn.ln_gdfn_plain, a)),
+                }
             stats_w, tail_w = block_work(shape, 2, batch)
             work = {"mdta_stats": stats_w, "block_tail": tail_w,
                     "ln_mdta": apply_work(shape, 2, batch),
                     "ln_gdfn": gdfn_work(shape, 2, batch)}
-            for k in kernels:
-                ms, pms = time_ms(fns[k][0]), time_ms(fns[k][1])
+            for k in ks:
+                again = k not in fresh
+                if not again:
+                    dms = profiled_ms(fns[k][0]) if k in TWICE else None
+                    timed[k, shape, batch] = (time_ms(fns[k][0]),
+                                              time_ms(fns[k][1]), dms)
+                ms, pms, dms = timed[k, shape, batch]
                 b, by = bound_ms(*work[k], dtype)
                 dev = ""
                 if k in TWICE:
-                    dms = profiled_ms(fns[k][0])
                     dev = (f", device {dms:.4f} ms, "
                            f"{plan_text(mdta, gdfn, k, shape, batch)}")
                 say(f"time {k:10s} B{batch} {shape} bf16: {ms:.3f} ms (plain "
                     f"{pms:.3f} ms, bound {b:.4f} ms by {by}{dev}) x{n} per "
-                    f"{path} forward")
+                    f"{path} forward" + (" (timed above)" if again else ""))
                 if k == "block_tail":
                     tails.append((path, shape, batch, n, ms, b, by))
                 if k == "mdta_stats":
@@ -1314,16 +1403,20 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                 t["plain_ms"] += n * pms
                 t["ops"] += n * work[k][0]
                 t["bytes"] += n * work[k][1]
-            heads = shape[3]
-            if mdta.stats_route(shape[2], heads) == "wide":
-                _, q, k, _ = mdta.stats_pass_plain(
-                    a["x"], a["ln1w"], a["ln1b"], a["wqkv"], a["wdw"], heads)
-                ms, pms, lib, ops, nbytes = time_gram(mdta, q, k, heads, batch,
-                                                      shape, dtype)
+            if wide:
+                heads = shape[3]
+                again = "mdta_gram" not in fresh
+                if not again:
+                    _, q, k, _ = mdta.stats_pass_plain(
+                        a["x"], a["ln1w"], a["ln1b"], a["wqkv"], a["wdw"], heads)
+                    timed["mdta_gram", shape, batch] = time_gram(
+                        mdta, q, k, heads, batch, shape, dtype)
+                ms, pms, lib, ops, nbytes = timed["mdta_gram", shape, batch]
                 b, by = bound_ms(ops, nbytes, dtype)
                 say(f"time mdta_gram  B{batch} {shape} bf16: {ms:.3f} ms (plain "
                     f"{pms:.3f} ms, library {lib:.3f} ms, bound {b:.4f} ms by "
-                    f"{by}) x{n} per {path} forward")
+                    f"{by}) x{n} per {path} forward"
+                    + (" (timed above)" if again else ""))
                 t = tot[path].setdefault("mdta_gram", dict(
                     ms=0.0, plain_ms=0.0, ops=0, bytes=0, library_ms=0.0))
                 t["ms"] += n * ms
@@ -1337,10 +1430,10 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
         # tensor and x2 and read them back: traffic the one-pass TPU kernels
         # do not have
         split = 0
-        for (h, w, c, _), n in shapes:
+        for (h, w, c, _), n, *own in shapes:
             px, f2 = batch * h * w, 2 * int(c * 2.66)
             split += n * px * 2 * (f2 + c) * 2
-            if path == "promptxrestormerir":
+            if "ln_gdfn" in (own[0] if own else kernels):
                 split += n * px * 2 * f2 * 2
         say(f"{path}: the split tails write and read back {split / 1e9:.2f} GB "
             f"per forward ({split / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s)")
@@ -1450,10 +1543,16 @@ def write_corpus(root):
     and the flip pad to 64 the forwards run at 320x512, 512x320 and
     448x576. The targets go through the port's save_image (None rows); the
     clean BSD68 images and the degraded inputs are written with every row
-    filter (png_mixed_filters) and must read back bit for bit. Returns the
-    host's milliseconds to read a 481x321 file of each kind (median of 5)."""
+    filter (png_mixed_filters) and must read back bit for bit, through
+    the C++ reader and its plain version alike. Returns the host's
+    milliseconds to read a 481x321 file of each kind (median of 5), through
+    the C++ reader and the plain one."""
     from promptir_tpu_torch.utils.image_io import save_image, to_uint8
-    from promptir_tpu_torch.utils.png import read_png
+    from promptir_tpu_torch.utils.png import (
+        decode_png,
+        decode_png_plain,
+        read_png,
+    )
 
     files = [("bsd68/1.png", EVAL_BSD[0], 0), ("bsd68/2.png", EVAL_BSD[1], 1)]
     for i in range(2):
@@ -1469,17 +1568,21 @@ def write_corpus(root):
             continue
         u8 = to_uint8(scene01(hw, seed))
         path.write_bytes(png_mixed_filters(u8))
-        if not np.array_equal(read_png(str(path)), u8):
+        if not (np.array_equal(read_png(str(path)), u8)
+                and np.array_equal(decode_png_plain(path.read_bytes()), u8)):
             fail(f"{rel}: the PNG reader misreads rows of mixed filters")
     ms = {}
     for kind, rel in [("every filter", "bsd68/1.png"),
                       ("save_image's", "rain100l/target/rain-1.png")]:
-        ts = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            read_png(str(root / rel))
-            ts.append(time.perf_counter() - t0)
-        ms[kind] = sorted(ts)[2] * 1e3
+        data = (root / rel).read_bytes()
+        for reader, fn in [("C++", lambda: decode_png(data)),
+                           ("plain", lambda: decode_png_plain(data))]:
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                ts.append(time.perf_counter() - t0)
+            ms[f"{kind} rows, {reader}"] = sorted(ts)[2] * 1e3
     return ms
 
 
@@ -1688,8 +1791,9 @@ def evaluate(port, mdta, counters, reset, card):
     shutil.rmtree(root, ignore_errors=True)
     try:
         read_ms = write_corpus(root)
-        say("eval: corpus written; reading a 481x321 PNG on the host: "
-            + ", ".join(f"{k} rows {v:.2f} ms" for k, v in read_ms.items())
+        say("eval: corpus written, every PNG read bit for bit by the C++ "
+            "reader and the plain one; reading a 481x321 PNG on the host: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in read_ms.items())
             + " (median of 5)")
         torch.manual_seed(0)
         model = port.create_model("promptir", device="cuda")
@@ -2002,27 +2106,28 @@ def step_spy(counters):
         yield rec
 
 
-def loader_sixth(dataset):
-    """The training loader with no model (its default four threads) over a
-    stratified sixth of the corpus: the first ceil(n/6) samples of each
-    task, 24 of the 139, one batch for each thread. Returns (seconds,
-    samples, {de_type: [ms of each sample's get in its thread]}, {de_type:
-    ms of one sample alone, median of up to 3, no other thread running})."""
+def per_task_alone(dataset, n=3):
+    """{de_type: ms of one sample alone, median of up to n, no other thread
+    running}."""
+    alone = {}
+    for i, smp in enumerate(dataset.samples):
+        if len(alone.setdefault(smp.de_type, [])) < n:
+            t0 = time.perf_counter()
+            dataset.get(i, np.random.default_rng(i))
+            alone[smp.de_type].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in alone.items()}
+
+
+def loader_epoch(dataset):
+    """The training loader with no model (its default four threads) over
+    a whole epoch of the corpus. Returns (seconds, samples, {de_type: [ms
+    of each sample's get in its thread]}, {de_type: ms of one sample
+    alone})."""
     from promptir_tpu_torch.data.loader import TrainLoader
 
-    by_task = {}
-    for smp in dataset.samples:
-        by_task.setdefault(smp.de_type, []).append(smp)
-    dataset.samples = [smp for group in by_task.values()
-                       for smp in group[:-(-len(group) // 6)]]
-    per_task, alone = {}, {}
+    per_task = {}
+    alone = per_task_alone(dataset)
     real = dataset.get
-    for i, smp in enumerate(dataset.samples):
-        if len(alone.setdefault(smp.de_type, [])) < 3:
-            t0 = time.perf_counter()
-            real(i, np.random.default_rng(i))
-            alone[smp.de_type].append((time.perf_counter() - t0) * 1e3)
-    alone = {k: float(np.median(v)) for k, v in alone.items()}
 
     def get(i, rng):
         t0 = time.perf_counter()
@@ -2036,9 +2141,58 @@ def loader_sixth(dataset):
         t0 = time.perf_counter()
         n = sum(1 for _ in loader.epoch(0)) * TRAIN_BATCH
         dt = time.perf_counter() - t0
-    if n != len(dataset.samples):
-        fail(f"the loader made {n} of {len(dataset.samples)} samples")
+    if n != len(dataset) // TRAIN_BATCH * TRAIN_BATCH:
+        fail(f"the loader made {n} of {len(dataset)} samples")
     return dt, n, per_task, alone
+
+
+def check_native_loader(root):
+    """The corpus through the native library on the host: every PNG
+    decoded by the C++ reader equals the plain decoder's; each paired
+    sample (the rain and haze pairs) equals the numpy crop and dihedral,
+    and each denoise sample's clean patch too, at every mode. Returns the
+    files and samples checked."""
+    from promptir_tpu_torch.data import native
+    from promptir_tpu_torch.data.augment import crop_to_multiple, dihedral
+    from promptir_tpu_torch.utils.image_io import read_image
+    from promptir_tpu_torch.utils.png import decode_png, decode_png_plain
+
+    pngs = sorted(root.rglob("*.png"))
+    for path in pngs:
+        data = path.read_bytes()
+        if not np.array_equal(decode_png(data), decode_png_plain(data)):
+            fail(f"{path.relative_to(root)}: the C++ PNG reader disagrees "
+                 "with the plain one")
+    p = TRAIN_HW[0]
+    rng = np.random.default_rng(0)
+    pairs = [("derain/rainy/rain-1.png", "derain/gt/norain-1.png"),
+             ("dehaze/synthetic/0001_0.8_0.2.jpg", "dehaze/original/0001.jpg")]
+    checked = 0
+    for mode in range(8):
+        for d, c in pairs:
+            di, ci = (crop_to_multiple(read_image(str(root / f)), 16)
+                      for f in (d, c))
+            i = int(rng.integers(0, di.shape[0] - p + 1))
+            j = int(rng.integers(0, di.shape[1] - p + 1))
+            got = native.prepare_paired_sample(di, ci, i, j, p, mode)
+            for g, img in zip(got, (di, ci)):
+                want = dihedral(img[i:i + p, j:j + p], mode)
+                if not np.array_equal(g, want.astype(np.float32) / 255.0):
+                    fail(f"prepare_paired_sample differs from the numpy crop "
+                         f"and dihedral ({d}, mode {mode})")
+            checked += 1
+        for f in ("denoise/a.png", "denoise/b.bmp"):
+            img = crop_to_multiple(read_image(str(root / f)), 16)
+            i = int(rng.integers(0, img.shape[0] - p + 1))
+            j = int(rng.integers(0, img.shape[1] - p + 1))
+            _, clean = native.prepare_denoise_sample(img, i, j, p, mode, 25.0,
+                                                     int(rng.integers(2**62)))
+            want = dihedral(img[i:i + p, j:j + p], mode)
+            if not np.array_equal(clean, want.astype(np.float32) / 255.0):
+                fail(f"prepare_denoise_sample's clean patch differs from the "
+                     f"numpy crop and dihedral ({f}, mode {mode})")
+            checked += 1
+    return len(pngs), checked
 
 
 def train_cli(counters, reset, card):
@@ -2071,9 +2225,15 @@ def train_cli(counters, reset, card):
                 fn(str(path))
                 ts.append(time.perf_counter() - t0)
             ms[kind] = sorted(ts)[2] * 1e3
-        say(f"train_cli: {len(names)} committed JPEG fixtures decode bit for "
-            "bit as PIL's stored decode; decode on the host " + ", ".join(
+        say(f"train_cli: {len(names)} committed JPEG fixtures (the corpus' "
+            "haze pair among them) decode bit for bit as PIL's stored decode; "
+            "decode on the host " + ", ".join(
                 f"{k} {v:.2f} ms" for k, v in ms.items()) + " (median of 5)")
+        n_png, n_samples = check_native_loader(root)
+        say(f"train_cli: the native library on the host: the corpus' {n_png} "
+            "PNGs read by the C++ reader bit for bit as by the plain one; "
+            f"{n_samples} samples (the rain and haze pairs, the PNG and BMP "
+            "denoise images, 8 modes) equal the numpy crop and dihedral")
         argv = ["--dtype", "bfloat16", "--batch_size", str(TRAIN_BATCH),
                 "--patch_size", str(TRAIN_HW[0]),
                 "--data_file_dir", f"{root}/data_dir/",
@@ -2172,12 +2332,13 @@ def train_cli(counters, reset, card):
             f"{evals[-1]['eval_psnr_derain']:.4f} dB; checkpoints "
             f"{second.ckpt.all_epochs()}, resumed at epoch {second.start_epoch}"
             f"; trace {trace.stat().st_size} bytes; on {card}")
-        ds = PromptTrainDataset(
-            data_file_dir=f"{root}/data_dir/", denoise_dir=f"{root}/denoise/",
-            derain_dir=f"{root}/derain/", dehaze_dir=f"{root}/dehaze/",
-            patch_size=TRAIN_HW[0])
-        dt, n, per_task, alone = loader_sixth(ds)
+        kw = dict(data_file_dir=f"{root}/data_dir/",
+                  denoise_dir=f"{root}/denoise/", derain_dir=f"{root}/derain/",
+                  dehaze_dir=f"{root}/dehaze/", patch_size=TRAIN_HW[0])
+        dt, n, per_task, alone = loader_epoch(PromptTrainDataset(**kw))
+        alone_numpy = per_task_alone(PromptTrainDataset(use_native=False, **kw))
         rate = n / dt
+        end_to_end = TRAIN_CLI_STEPS * TRAIN_BATCH / epoch_s[1]
         in_training = {}
         for r in (rec1, rec2):
             for k, v in r.get.items():
@@ -2189,17 +2350,23 @@ def train_cli(counters, reset, card):
         need = TRAIN_BATCH * 1e3 / step_ms
         med = lambda d: ", ".join(  # noqa: E731
             f"{tasks[k]} {np.median(v):.1f} ({len(v)})" for k, v in sorted(d.items()))
-        say(f"train_cli: the loader alone (4 threads, no model) over a "
-            f"stratified sixth of the corpus: {n} samples in {dt:.2f} s, "
-            f"{rate:.1f} samples/s against the step's {need:.1f} images/s: "
+        say(f"train_cli: the native loader alone (4 threads, no model) over "
+            f"an epoch: {n} samples in {dt:.2f} s, {rate:.1f} samples/s against "
+            f"the step's {need:.1f} images/s: "
             + ("keeps up" if rate >= need else
                f"starves the card ({need / rate:.2f}x too slow)")
             + f"; per sample in its thread, median ms (count): {med(per_task)}"
             + "; one sample alone on one thread, median ms: " + ", ".join(
                 f"{tasks[k]} {v:.1f}" for k, v in sorted(alone.items()))
+            + "; the numpy path (use_native=False) alone: " + ", ".join(
+                f"{tasks[k]} {v:.1f}" for k, v in sorted(alone_numpy.items()))
             + f"; during the two training runs, per sample in its thread: "
             f"{med(in_training)}, so 4 threads make {capacity:.1f} samples/s "
             f"(4 x 1000 / the mean ms); on {card}")
+        say(f"train_cli: end to end {end_to_end:.2f} images/s (the resumed "
+            f"run's epoch) against {need:.2f} at the step's median: "
+            f"{end_to_end / need:.2f} of it (0.8 or more wanted: the loader "
+            f"then no longer starves the card)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     say(f"train_cli: phase 11 took {time.perf_counter() - t_phase:.1f} s; "
@@ -2265,6 +2432,7 @@ def main() -> None:
     for path in PATHS:
         reset()
         launches[path] = serve(port, counters, reset, card, path)
+    check_forward_fp32(port, counters, reset, EFF)
     reset()
     launches["tiled"] = serve_tiled(port, counters, reset, card)
     check_grads(port, counters, reset)

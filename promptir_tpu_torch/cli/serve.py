@@ -5,8 +5,9 @@ the engine (serve/engine.py) groups them into batches of one padded size
 on its worker thread, the only one that touches the card.
 
 Endpoints:
-  POST /restore       PNG bytes -> restored PNG (anything else: 400 with
-                      the decoder's message; utils/png.py)
+  POST /restore       PNG, JPEG or BMP bytes -> restored PNG (anything
+                      else: 400 with the decoder's message;
+                      utils/image_io.py:decode_image)
   GET  /healthz       JSON: model, backend, device count, max batch, pad
                       base, dtype, status
   GET  /stats         JSON: the engine's request/batch counters, latency
@@ -135,12 +136,13 @@ class _Handler(BaseHTTPRequestHandler):
             EngineOverloaded,
             RequestTimeout,
         )
-        from promptir_tpu_torch.utils.png import decode_png, encode_png
+        from promptir_tpu_torch.utils.image_io import decode_image
+        from promptir_tpu_torch.utils.png import encode_png
 
         n = int(self.headers.get("Content-Length", 0))
         raw = self.rfile.read(n)
         try:
-            img = decode_png(raw, name="request body").astype(np.float32) / 255.0
+            img = decode_image(raw, name="request body").astype(np.float32) / 255.0
         except ValueError as e:
             self._json(400, {"error": f"cannot decode image: {e}"})
             return

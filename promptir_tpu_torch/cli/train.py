@@ -6,7 +6,8 @@ options.py:1-39 and train.py:303-341): `--model`, `--de_type`, `--epochs`,
 `--resume`, `--wblogger`, the epoch-end evaluation, `--profile_dir`,
 `--synthetic` and the model-size overrides, plus `--device` (default
 `cuda`; `cpu` runs the kernels' plain versions). Trains on the all-in-one
-corpora in the reference's layout (data/datasets.py:PromptTrainDataset):
+corpora in the reference's layout (data/datasets.py:PromptTrainDataset, on
+its native path, as the JAX CLI does: the JAX CLI has no flag for it):
 
   python -m promptir_tpu_torch.cli.train --dtype bfloat16 \\
       --data_file_dir data_dir/ --denoise_dir data/Train/Denoise/ \\

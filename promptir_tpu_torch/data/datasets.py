@@ -2,15 +2,16 @@
 
 Counterpart of promptir_tpu/data/datasets.py (reference
 utils/dataset_utils.py), read through the port's own codecs
-(utils/image_io.py: PNG, JPEG and BMP, told apart by their magic bytes) in
-place of PIL:
+(utils/image_io.py: PNG, JPEG and BMP, told apart by their magic bytes;
+PNG and JPEG through C++ readers) in place of PIL:
   * `PromptTrainDataset` (:15-175): the all-in-one training mix. Denoise
     ids from data_dir/noisy/denoise.txt filtered against the denoise dir
     listing, x3 per sigma; derain ids from rainy/rainTrain.txt x120; haze
     ids from hazy/hazy_outside.txt. Ground-truth paths by the reference's
     string surgery (`derain_gt_name`, `dehaze_gt_name`). A denoise sample is
     center-crop-16, a random patch, a dihedral mode and uint8 noise; a
-    paired sample a joint random patch and mode;
+    paired sample a joint random patch and mode; by default in one C++
+    pass (data/native.py), with `use_native=False` in numpy;
   * `DenoiseTestDataset`: a clean directory (BSD68, Urban100); Gaussian
     noise at `sigma` is added when a sample is fetched, from
     `np.random.default_rng(seed + idx)`;
@@ -19,7 +20,7 @@ place of PIL:
     the name before '_', as PNG;
   * `TestSpecificDataset`: the demo's directory or single file.
 Every draw comes from the numpy Generator passed in, in the JAX package's
-order, so the samples are the JAX package's bit for bit.
+order, so the samples are the JAX package's bit for bit on either path.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from promptir_tpu_torch.data import native
 from promptir_tpu_torch.data.augment import (
     crop_to_multiple,
     random_augmentation,
@@ -75,11 +77,17 @@ class Sample:
 class PromptTrainDataset:
     """Mixed all-in-one training set with the reference's replication.
 
-    It follows the JAX package's numpy path (`use_native=False`) and has no
-    `use_native` field: the JAX package's native sample preparation
-    (native/fused_augment.cpp) draws its noise from a stream of its own, so
-    it cannot match the numpy path bit for bit, and the port keeps the path
-    that the tests hold against the JAX package.
+    `use_native=None` (the default, as in the JAX package) or `True`
+    prepares each sample in one C++ pass (data/native.py,
+    native/fused_augment.cpp): crop, dihedral, uint8-domain noise and the
+    float conversion, with the noise from the library's own seeded stream.
+    The draws are the JAX native path's: a denoise sample draws its window,
+    its mode in 1..7 and a noise seed, a paired sample its window and mode;
+    so the samples equal the JAX package's `use_native=True` samples bit
+    for bit. `False` is the JAX package's numpy path (noise from the numpy
+    Generator), bit-equal to its `use_native=False`. The library is built
+    at first use and a failed build raises: `None` never turns into the
+    numpy path.
     """
 
     data_file_dir: str
@@ -95,6 +103,7 @@ class PromptTrainDataset:
     )
     patch_size: int = 128
     seed: int = 0
+    use_native: Optional[bool] = None
     samples: List[Sample] = field(default_factory=list, init=False)
 
     def __post_init__(self):
@@ -140,15 +149,32 @@ class PromptTrainDataset:
         """Returns (de_type, degraded, clean) as float32 HWC in [0,1]."""
         s = self.samples[idx]
         p = self.patch_size
+        use_native = self.use_native is not False
         if s.de_type in SIGMA_BY_TYPE:
             clean = crop_to_multiple(load_image_rgb(s.clean_path), 16)
+            sigma = SIGMA_BY_TYPE[s.de_type]
+            if use_native:
+                h, w = clean.shape[:2]
+                ci = int(rng.integers(0, h - p + 1))
+                cj = int(rng.integers(0, w - p + 1))
+                mode = int(rng.integers(1, 8))
+                seed = int(rng.integers(0, 2**63 - 1))
+                degraded, clean_patch = native.prepare_denoise_sample(
+                    clean, ci, cj, p, mode, sigma, seed)
+                return s.de_type, degraded, clean_patch
             (clean_patch,) = random_crop(rng, p, clean)
             clean_patch = random_augmentation(rng, clean_patch)[0]
-            degraded = add_gaussian_noise(rng, clean_patch,
-                                          SIGMA_BY_TYPE[s.de_type])
+            degraded = add_gaussian_noise(rng, clean_patch, sigma)
         else:
             degraded_img = crop_to_multiple(load_image_rgb(s.degraded_path), 16)
             clean_img = crop_to_multiple(load_image_rgb(s.clean_path), 16)
+            if use_native:
+                h, w = degraded_img.shape[:2]
+                ci = int(rng.integers(0, h - p + 1))
+                cj = int(rng.integers(0, w - p + 1))
+                mode = int(rng.integers(1, 8))
+                return (s.de_type, *native.prepare_paired_sample(
+                    degraded_img, clean_img, ci, cj, p, mode))
             degraded, clean_patch = random_crop(rng, p, degraded_img, clean_img)
             degraded, clean_patch = random_augmentation(rng, degraded,
                                                         clean_patch)

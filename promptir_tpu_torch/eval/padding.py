@@ -23,6 +23,7 @@ _PAD_BASES = {
     "promptir": (8, 8),
     "xrestormerir": (64, 64),
     "promptxrestormerir": (64, 64),
+    "promptxrestormereffir": (64, 64),
 }
 
 

@@ -1,8 +1,9 @@
 """Model registry of the port.
 
 Counterpart of promptir_tpu/models/__init__.py. Ported so far: the flagship
-`promptir` and the X-Restormer family's `xrestormerir` and
-`promptxrestormerir`; ROADMAP.md lists the other families.
+`promptir` and the X-Restormer family's `xrestormerir`,
+`promptxrestormerir` and `promptxrestormereffir`; ROADMAP.md lists the
+other families.
 """
 
 from __future__ import annotations
@@ -59,3 +60,4 @@ def create_model(name: str, *, device="cuda", dtype=torch.float32,
 from promptir_tpu_torch.models import promptir as _promptir  # noqa: E402,F401
 from promptir_tpu_torch.models import xrestormer as _xrestormer  # noqa: E402,F401
 from promptir_tpu_torch.models import prompt_xrestormer as _pxr  # noqa: E402,F401
+from promptir_tpu_torch.models import prompt_xrestormer_eff as _pxre  # noqa: E402,F401

@@ -16,78 +16,40 @@ refuses and a frame of more pixels than PIL opens (twice
 The decoder is C++ and not Python because the training loader decodes
 every JPEG sample each time it is drawn: Huffman decoding in a Python loop
 would cost far more than a training step. It is built at first use with
-the host's `g++` into `promptir_tpu_torch/_build/`, under a name keyed by a
-hash of the source and the flags, and loaded with ctypes, which releases
-the GIL during the call, so the loader's threads decode side by side. A
+the host's `g++` and loaded with ctypes, which releases the GIL during the
+call, so the loader's threads decode side by side (utils/cxx.py). A
 missing `g++` or a failed build raises: nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import threading
 
 import numpy as np
 
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "native" / "jpeg_decode.cpp"
-BUILD_DIR = _PKG / "_build"
-CXX_FLAGS = ("-O2", "-fPIC", "-shared", "-std=c++17")
+from promptir_tpu_torch.utils import cxx
+
 ERR_LEN = 256
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+
+def _declare(cdll: ctypes.CDLL) -> None:
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    cdll.jpeg_header.argtypes = [
+        u8p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+    cdll.jpeg_header.restype = ctypes.c_int
+    cdll.jpeg_decode_rgb.argtypes = [
+        u8p, ctypes.c_size_t, u8p, ctypes.c_char_p, ctypes.c_int]
+    cdll.jpeg_decode_rgb.restype = ctypes.c_int
 
 
-def library_path() -> pathlib.Path:
-    """Path of the decoder library for the current source and flags."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libjpeg_decode_{h.hexdigest()[:16]}.so"
-
-
-def build() -> pathlib.Path:
-    """Build the library unless it is there. Parallel processes each build
-    to a name of their own and move it into place, so none loads a
-    half-written file."""
-    so = library_path()
-    if so.exists():
-        return so
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the JPEG decoder "
-                           f"({SOURCE.name}) is built with the host's g++")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    r = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                       capture_output=True, text=True, timeout=300)
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building {SOURCE.name} failed:\n{r.stderr[-3000:]}")
-    os.replace(tmp, so)
-    return so
+LIBRARY = cxx.Library("jpeg_decode", ["jpeg_decode.cpp"],
+                      ("-O2", "-fPIC", "-shared", "-std=c++17"),
+                      declare=_declare)
 
 
 def lib() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            cdll = ctypes.CDLL(str(build()))
-            u8p = ctypes.POINTER(ctypes.c_uint8)
-            cdll.jpeg_header.argtypes = [
-                u8p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
-                ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
-            cdll.jpeg_header.restype = ctypes.c_int
-            cdll.jpeg_decode_rgb.argtypes = [
-                u8p, ctypes.c_size_t, u8p, ctypes.c_char_p, ctypes.c_int]
-            cdll.jpeg_decode_rgb.restype = ctypes.c_int
-            _lib = cdll
-    return _lib
+    return LIBRARY.load()
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:

@@ -1,15 +1,23 @@
-"""PNG read and write with the standard library's zlib and numpy.
+"""PNG read and write without PIL.
 
-The port's own image codec: the machine with the card has no PIL. Its
-scope is that of the JAX package's native reader (native/png_decode.cpp,
+The port's own codec: the machine with the card has no PIL. Its scope is
+that of the JAX package's native reader (native/png_decode.cpp,
 promptir_tpu/data/native.py:decode_png_rgb): 8-bit gray, gray+alpha,
 palette, RGB and RGBA, non-interlaced, with all five row filters. Every
 image reads back as HWC uint8 RGB, as PIL's `convert("RGB")` gives it: gray
-is replicated, a palette index looked up, alpha dropped. Anything else
-(16-bit or sub-byte samples, Adam7 interlacing, a file that is not PNG)
-raises a ValueError that names the file and what it does not support.
-JPEG and BMP have readers of their own (utils/jpeg.py, utils/bmp.py);
-utils/image_io.py:read_image picks one by the file's magic bytes.
+is replicated, a palette index looked up (an index past the PLTE reads as
+0), alpha dropped. Anything else (16-bit or sub-byte samples, Adam7
+interlacing, a file that is not PNG) raises a ValueError that names the
+file and what it does not support. JPEG and BMP have readers of their own
+(utils/jpeg.py, utils/bmp.py); utils/image_io.py:read_image picks one by
+the file's magic bytes.
+
+`decode_png` reads through the port's C++ reader (data/native.py,
+promptir_tpu_torch/native/png_decode.cpp: inflate, unfilter and RGB
+expansion with the GIL released), as the JAX package's `load_image_rgb` reads every PNG.
+`decode_png_plain` is its plain version, in the standard library's zlib and
+numpy: the reader's reference in the tests, giving the same pixels and the
+same errors; nothing on the loader's path calls it.
 
 The writer emits RGB at 8 bits with filter 0 (none) on every row.
 """
@@ -20,6 +28,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from promptir_tpu_torch.data import native
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # color type -> (name, samples a pixel)
@@ -114,11 +124,22 @@ def _unfilter(raw: bytes, h: int, w: int, bpp: int,
     return out
 
 
-def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Decode PNG bytes to HWC uint8 RGB. `name` goes into the errors."""
+def _check_signature(data: bytes, name: str) -> None:
     if data[:len(SIGNATURE)] != SIGNATURE:
         raise ValueError(f"{name}: {_kind(data)} is not supported by the PNG "
                          "reader (image_io.read_image reads JPEG and BMP)")
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Decode PNG bytes to HWC uint8 RGB through the C++ reader. `name`
+    goes into the errors."""
+    _check_signature(data, name)
+    return native.decode_png_rgb(bytes(data), name)
+
+
+def decode_png_plain(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """`decode_png` in Python: the same pixels and the same errors."""
+    _check_signature(data, name)
     ihdr, plte, idat = None, None, []
     for kind, payload in _chunks(data, name):
         if kind == b"IHDR":

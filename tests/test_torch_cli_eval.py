@@ -224,18 +224,27 @@ def test_offline_psnr_matches_the_jax_cli(tmp_path):
 
 
 def test_server_restores_a_png_and_refuses_a_jpeg():
+    """The server restores a PNG, a JPEG and a BMP, as the JAX server
+    restores any format PIL opens: each reply equals the reply to the PNG
+    of the same decoded pixels. A body that is none of the three gets a
+    400 naming the formats. (The name is the PNG-only server's.)"""
+    from promptir_tpu_torch.utils.image_io import decode_image
+
     args = serve.build_parser().parse_args(
         ["--port", "0", "--max_batch", "2", "--batch_timeout_ms", "1", *TINY])
     httpd, engine = serve.make_server(args)
     th = threading.Thread(target=httpd.serve_forever, daemon=True)
     th.start()
     url = f"http://127.0.0.1:{httpd.server_address[1]}"
-    try:
-        body = encode_png(scene((33, 45), 5))
+
+    def restore(body):
         req = urllib.request.Request(url + "/restore", data=body, method="POST")
         with urllib.request.urlopen(req, timeout=60) as r:
             assert r.headers["Content-Type"] == "image/png"
-            out = decode_png(r.read())
+            return decode_png(r.read())
+
+    try:
+        out = restore(encode_png(scene((33, 45), 5)))
         assert out.shape == (33, 45, 3)
         with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
@@ -244,12 +253,19 @@ def test_server_restores_a_png_and_refuses_a_jpeg():
         assert health["backend"] == "cpu" and health["pad_base"] == 8
         with urllib.request.urlopen(url + "/stats", timeout=60) as r:
             assert json.loads(r.read())["compiled_shapes"] == 1
-        buf = io_jpeg(scene((16, 16), 6))
+        for fmt in ("JPEG", "BMP"):
+            body = pil_bytes(scene((16, 24), 6), fmt)
+            got = restore(body)
+            assert got.shape == (16, 24, 3)
+            np.testing.assert_array_equal(got, restore(encode_png(
+                decode_image(body))))
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(urllib.request.Request(
-                url + "/restore", data=buf, method="POST"), timeout=60)
+                url + "/restore", data=pil_bytes(scene((16, 16), 7), "GIF"),
+                method="POST"), timeout=60)
         assert e.value.code == 400
-        assert "JPEG is not supported" in json.loads(e.value.read())["error"]
+        assert ("request body: not a PNG, JPEG or BMP file"
+                in json.loads(e.value.read())["error"])
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -258,11 +274,11 @@ def test_server_restores_a_png_and_refuses_a_jpeg():
     assert not th.is_alive()
 
 
-def io_jpeg(rgb):
+def pil_bytes(rgb, fmt):
     import io
 
     buf = io.BytesIO()
-    Image.fromarray(rgb).save(buf, format="JPEG")
+    Image.fromarray(rgb).save(buf, format=fmt)
     return buf.getvalue()
 
 

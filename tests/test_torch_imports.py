@@ -48,7 +48,9 @@ NEW_MODULES = [
     "promptir_tpu_torch.cli.psnr", "promptir_tpu_torch.cli.serve",
     "promptir_tpu_torch.utils.jpeg", "promptir_tpu_torch.utils.bmp",
     "promptir_tpu_torch.data.patches", "promptir_tpu_torch.data.degradations",
-    "promptir_tpu_torch.cli.train",
+    "promptir_tpu_torch.cli.train", "promptir_tpu_torch.utils.cxx",
+    "promptir_tpu_torch.data.native",
+    "promptir_tpu_torch.models.prompt_xrestormer_eff",
 ]
 # Blocks JAX, PIL and the JAX package, imports the evaluation and training
 # surface, reads a committed JPEG fixture and a BMP written by hand, and

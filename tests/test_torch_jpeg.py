@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from promptir_tpu_torch.utils import bmp, image_io, jpeg
+from promptir_tpu_torch.utils import bmp, cxx, image_io, jpeg
 
 FIXTURES = pathlib.Path(__file__).resolve().parent / "torch_fixtures" / "jpeg"
 
@@ -214,18 +214,18 @@ def test_a_huge_frame_raises_before_allocating(tmp_path):
 
 
 def test_the_build_raises_without_gpp(tmp_path, monkeypatch):
-    monkeypatch.setattr(jpeg, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(jpeg, "_lib", None)
-    with mock.patch.object(jpeg.shutil, "which", return_value=None):
+    monkeypatch.setattr(cxx, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(jpeg.LIBRARY, "_cdll", None)
+    with mock.patch.object(cxx.shutil, "which", return_value=None):
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
             jpeg.lib()
 
 
 def test_the_library_is_keyed_by_source_and_flags(monkeypatch):
-    a = jpeg.library_path()
-    monkeypatch.setattr(jpeg, "CXX_FLAGS", jpeg.CXX_FLAGS + ("-g",))
-    b = jpeg.library_path()
-    assert a != b and a.parent == b.parent == jpeg.BUILD_DIR
+    a = jpeg.LIBRARY.path()
+    monkeypatch.setattr(jpeg.LIBRARY, "flags", jpeg.LIBRARY.flags + ("-g",))
+    b = jpeg.LIBRARY.path()
+    assert a != b and a.parent == b.parent == cxx.BUILD_DIR
     assert a.name.startswith("libjpeg_decode_") and a.suffix == ".so"
 
 

@@ -4,8 +4,8 @@
     splicing and `degrade_by_type` bit-equal to promptir_tpu/data's;
   * `PromptTrainDataset` on a `tmp_path` corpus of the five tasks in the
     reference's layout, written with PIL as PNG, BMP and JPEG: JAX's sample
-    list, length and every `get` bit for bit (the JAX side on its numpy
-    path, `use_native=False`);
+    list, length and every `get` bit for bit, both on the numpy path
+    (`use_native=False`; the native path is held in test_torch_native.py);
   * the port's `TrainLoader` batches over that dataset equal
     `promptir_tpu.data.loader.TrainLoader`'s.
 """
@@ -126,7 +126,7 @@ def train_sets(root, de_type=ALL_TASKS, patch=16):
     kw = dict(data_file_dir=f"{root}/data_dir/", denoise_dir=f"{root}/denoise/",
               derain_dir=f"{root}/derain/", dehaze_dir=f"{root}/dehaze/",
               de_type=de_type, patch_size=patch)
-    return (datasets.PromptTrainDataset(**kw),
+    return (datasets.PromptTrainDataset(use_native=False, **kw),
             jds.PromptTrainDataset(use_native=False, **kw))
 
 
