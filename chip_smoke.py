@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py
 
-Seven main paths are driven: serving PromptIR (`promptir`, each block
+Eleven main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
-with `fused_ffn=True`) and the X-Restormer family's PromptXRestormer
+with `fused_ffn=True`), the X-Restormer family's PromptXRestormer
 (`promptxrestormerir`) and PromptXRestormerEff (`promptxrestormereffir`),
-both in the reference's training config, serving PromptIR through the
-overlap-blend tiler (`tiled`), training PromptIR, PromptXRestormer and
-PromptXRestormerEff (`train`), the evaluation entry points (`eval`:
-all-in-one evaluation, demo, HTTP server) and the training entry point
-over the all-in-one corpora through the native loader (`train_cli`).
+both in the reference's training config, and the attention-free family's
+EasyPromptXRestormer (`easypromptxrestormer`), NAFNet (`nafnet`) and
+NAFNetLocal (`nafnetlocal`), serving PromptIR through the overlap-blend
+tiler (`tiled`), training PromptIR, PromptXRestormer, PromptXRestormerEff,
+EasyPromptXRestormer and NAFNet (`train`), the evaluation entry points
+(`eval`: all-in-one evaluation, demo, HTTP server) and the training entry
+point over the all-in-one corpora through the native loader
+(`train_cli`). No kernel lies on the attention-free family's paths: their
+launches are gated at 0, and their card forwards are held against the
+CPU's.
 Phases, each printed with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
@@ -48,7 +53,11 @@ Phases, each printed with the seconds since start:
      serving eight requests through the port's engine, with the kernels'
      launch counts set to 0 just before each run and read just after;
      promptxrestormereffir's fp32 forward (TF32 off) through the kernels
-     against the plain versions (GOLDEN_TOL); then
+     against the plain versions (GOLDEN_TOL); the attention-free family's
+     reduced fp32 forwards (TF32 off) on the card against the same forwards
+     on the CPU (GOLDEN_TOL; NAFNetLocal with windows smaller than its
+     maps), and NAFNetLocal on NAFNet's weights: bit-equal to it at
+     256x256, not at 512x768, one 512x768 request served and timed; then
      full-depth PromptIR serving two 1024x768 photographs through the
      engine's tiled path (128 px tiles, overlap 32, 8 a chunk: 88 tiles in
      11 forwards an image), in float32 against the same run through the
@@ -61,8 +70,9 @@ Phases, each printed with the seconds since start:
      memory; then the bf16-computing model served through the engine, its
      GDFN weights packed in the first forward only; then full-depth
      promptxrestormerir in its training config, bf16 compute, the same
-     steps (its loss must fall too), and promptxrestormereffir in the same
-     config, the same steps;
+     steps (its loss must fall too), promptxrestormereffir in the same
+     config, and the default easypromptxrestormer and nafnet (no launch),
+     the same steps;
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
@@ -87,7 +97,9 @@ Phases, each printed with the seconds since start:
      weights saved as a Lightning .ckpt: cli/test.py --mode 3 in fp32
      through the kernels (10 forwards, exact launches), cli/psnr.py on its
      dumped sigma-15 PNGs, the same run in bf16 timed, --mode 1 with
-     promptxrestormerir (ln_gdfn on the path), cli/demo.py plain and tiled,
+     promptxrestormerir (ln_gdfn on the path), --mode 1 bf16 with
+     easypromptxrestormer and with nafnet (no launch), cli/demo.py plain
+     and tiled,
      and cli/serve.py's HTTP server answering two PNG requests; each run
      held against the same run through the plain route (forward by
      forward, or on the uint8 images it writes);
@@ -238,7 +250,17 @@ PATHS = {
     EFF: (EFF, XR_TRAIN, [31, 31, 28, 0, 0, 0, 15]),
     "promptir_chained": ("promptir", dict(fused_ffn=True),
                          [11, 11, 0, 1, 0, 36, 2]),
+    # the attention-free family's default configs: no kernel on their path
+    # (convolutions, LayerNorms, gates and means; tests/test_torch_easy.py
+    # and test_torch_nafnet.py show no wrapper runs on the CPU)
+    "easypromptxrestormer": ("easypromptxrestormer", {}, [0] * 7),
+    "nafnet": ("nafnet", {}, [0] * 7),
 }
+ATTENTION_FREE = ("easypromptxrestormer", "nafnet")
+# NAFNetLocal's default TLC windows (384 px at level 0) cover a 256x256
+# map at every level, so there it equals NAFNet bit for bit; a 512x768
+# photograph takes the local pool
+TLC_SAME_HW, TLC_LOCAL_HW = (256, 256), (512, 768)
 GOLDENS = [
     # (file, model, kwargs, launches per forward)
     ("promptir_full.npz", "promptir", {}, [47, 47, 0, 1, 0, 0, 2]),
@@ -270,6 +292,18 @@ EFF_TRAIN_PER_STEP = [31, 0, 59, 0, 31, 0, 15]
 # loss went 0.33861, 0.39534, 0.33852, 0.34022 on an H100; PERF.md)
 TRAIN_STEPS, TRAIN_WARMUP = 6, 2
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
+# the attention-free family's card forwards against the CPU's, fp32 (TF32
+# off), one block a stage, beta and gamma seeded away from their init's 0:
+# name: (kwargs, input shape); nafnetlocal with TLC windows smaller than
+# its maps (tlc_train_size 32: 48, 24, 12, 6 and 3 px a level)
+NAF_REDUCED = dict(middle_blk_num=1, enc_blk_nums=(1, 1, 1, 1),
+                   dec_blk_nums=(1, 1, 1, 1))
+CPU_CHECKS = {
+    "easypromptxrestormer": (REDUCED, (2, 3, 64, 96)),
+    "nafnet": (NAF_REDUCED, (2, 3, 72, 100)),
+    "nafnetlocal": (dict(tlc_train_size=(32, 32), **NAF_REDUCED),
+                    (2, 3, 72, 100)),
+}
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 GOLDEN_TOL = 2e-4
@@ -786,6 +820,10 @@ def serve(port, counters, reset, card, path):
     reset()  # the timing launches are not the main path's
     say(f"forward: {path} bf16 B4 256x256 alone {fwd:.1f} ms (CUDA events, "
         "median of 5)")
+    if path in ATTENTION_FREE:
+        with torch.inference_mode():
+            say(f"forward: {path} " + forward_breakdown(lambda: model(x)))
+        reset()
     del model, eng
     torch.cuda.empty_cache()
     return ran
@@ -823,6 +861,103 @@ def check_forward_fp32(port, counters, reset, path):
     del model
     torch.cuda.empty_cache()
     return err
+
+
+def seeded_scales(model, seed):
+    """NAFBlock's beta and gamma drawn from N(0, 0.3) (their init's 0 makes
+    every block an identity), on the CPU from `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith((".beta", ".gamma")):
+                p.copy_(0.3 * torch.randn(p.shape, generator=gen))
+    return model
+
+
+def check_against_cpu(port, counters, reset, name):
+    """The attention-free family has no kernel on its path, so the card is
+    held against the CPU: the reduced model (CPU_CHECKS) from seed 0 in
+    float32 with TF32 off, the same forward on the card and on the CPU, max
+    |difference| within GOLDEN_TOL of max |CPU|; no launch."""
+    from promptir_tpu_torch.precision import exact_float32
+
+    kwargs, shape = CPU_CHECKS[name]
+    torch.manual_seed(0)
+    cpu = seeded_scales(port.create_model(name, device="cpu", **kwargs), 1)
+    model = port.create_model(name, device="cuda", **kwargs)
+    model.load_state_dict(cpu.state_dict(), strict=True)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(6))
+    reset()
+    with torch.inference_mode(), exact_float32(torch.float32):
+        y = model(x.cuda()).cpu()
+        ran = counters()
+        y0 = cpu(x)
+    err, rel = rel_err(y, y0)
+    say(f"card against CPU: reduced {name} {kwargs} fp32 (TF32 off) "
+        f"B{shape[0]} {shape[2]}x{shape[3]}: max |difference| {err:.3e} (rel "
+        f"{rel:.3e}, tolerance {GOLDEN_TOL}); launches {LAUNCH_NAMES} {ran}")
+    if ran != [0] * len(KERNELS):
+        fail(f"{name} launched {ran}: no kernel is on its path")
+    if not torch.isfinite(y).all() or not rel <= GOLDEN_TOL:
+        fail(f"{name}'s card forward is {rel:.3e} of max |CPU| from the CPU's")
+    return rel
+
+
+def serve_tlc(port, counters, reset, card):
+    """NAFNetLocal (the default TLC windows) with full-width NAFNet's
+    seed-0 weights, beta and gamma seeded, bf16: at 256x256 bit-equal to
+    NAFNet (its windows cover every map), at 512x768 not; one 512x768
+    request through the engine, timed after a warm-up request. No launch.
+    Returns the launches."""
+    from promptir_tpu_torch.eval.padding import pad_bases
+    from promptir_tpu_torch.serve.engine import InferenceEngine
+
+    torch.manual_seed(0)
+    base = seeded_scales(port.create_model("nafnet", device="cpu"), 2)
+    nets = {}
+    for name in ("nafnet", "nafnetlocal"):
+        m = port.create_model(name, device="cuda", dtype=torch.bfloat16)
+        m.load_state_dict(base.state_dict(), strict=True)
+        nets[name] = m
+    reset()
+    gen = torch.Generator().manual_seed(7)
+    same = {}
+    with torch.inference_mode():
+        for hw in (TLC_SAME_HW, TLC_LOCAL_HW):
+            x = torch.rand(1, 3, *hw, generator=gen).cuda()
+            y, y_local = (nets[n](x) for n in ("nafnet", "nafnetlocal"))
+            if not torch.isfinite(y_local).all():
+                fail(f"nafnetlocal's {hw} output is not finite")
+            same[hw] = (torch.equal(y, y_local),
+                        (y - y_local).abs().max().item())
+    img = np.random.default_rng(8).random((*TLC_LOCAL_HW, 3), dtype=np.float32)
+    eng = InferenceEngine(nets["nafnetlocal"], max_batch=1,
+                          pad_base=pad_bases("nafnetlocal")[0],
+                          batch_timeout_ms=1)
+    try:
+        eng.submit(img).result(timeout=600)
+        t0 = time.perf_counter()
+        out = eng.submit(img).result(timeout=600)
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        eng.close(join_timeout_s=60)
+    ran = counters()
+    say(f"serve: nafnetlocal (NAFNet's weights, beta and gamma seeded, bf16) "
+        f"against nafnet: {TLC_SAME_HW[0]}x{TLC_SAME_HW[1]} bit-equal "
+        f"{same[TLC_SAME_HW][0]}, {TLC_LOCAL_HW[0]}x{TLC_LOCAL_HW[1]} "
+        f"bit-equal {same[TLC_LOCAL_HW][0]} (max |difference| "
+        f"{same[TLC_LOCAL_HW][1]:.3e}); one {TLC_LOCAL_HW[0]}x"
+        f"{TLC_LOCAL_HW[1]} request through the engine {ms:.1f} ms after a "
+        f"warm-up on {card}; launches {LAUNCH_NAMES} {ran}")
+    if not same[TLC_SAME_HW][0] or same[TLC_LOCAL_HW][0]:
+        fail("nafnetlocal must equal nafnet at 256x256 and differ at 512x768")
+    if out.shape != img.shape or not np.isfinite(out).all():
+        fail(f"bad nafnetlocal reply {out.shape}")
+    if ran != [0] * len(KERNELS):
+        fail(f"nafnetlocal launched {ran}: no kernel is on its path")
+    del nets, eng
+    torch.cuda.empty_cache()
+    return ran
 
 
 def run_tiled(model, imgs):
@@ -991,7 +1126,9 @@ def train(port, counters, reset, card):
     """Full-depth PromptIR: AdamW steps on one fixed batch of six 128x128
     synthetic patches, float32 (TF32 off) and bf16 compute with float32
     weights; then full-depth promptxrestormerir and promptxrestormereffir in
-    their training config, bf16 compute. Returns the launches over the
+    their training config, and the attention-free family's default
+    easypromptxrestormer and nafnet (NAFNet starting as an identity: beta
+    and gamma 0), bf16 compute, no launch. Returns the launches over the
     whole run."""
     from promptir_tpu_torch.data.loader import TrainLoader
     from promptir_tpu_torch.data.synthetic import SyntheticTrainDataset
@@ -1007,7 +1144,9 @@ def train(port, counters, reset, card):
     runs = [("promptir", {}, torch.float32, TRAIN_PER_STEP),
             ("promptir", {}, torch.bfloat16, TRAIN_PER_STEP),
             ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP),
-            (EFF, XR_TRAIN, torch.bfloat16, EFF_TRAIN_PER_STEP)]
+            (EFF, XR_TRAIN, torch.bfloat16, EFF_TRAIN_PER_STEP)] + [
+            (name, {}, torch.bfloat16, [0] * len(KERNELS))
+            for name in ATTENTION_FREE]
     for name, kw, dtype, per_step in runs:
         torch.manual_seed(0)
         model = port.create_model(name, device="cuda", dtype=dtype,
@@ -1163,6 +1302,40 @@ def profiled_ms(fn, reps=10, windows=2) -> float:
                              getattr(e, "self_cuda_time_total", 0.0))
         best = max(best, total / reps / 1e3)
     return best
+
+
+def forward_breakdown(fn, reps=10) -> str:
+    """Where the time of a forward with no kernel of the port goes, read
+    from the same calls: a torch.profiler window (the card's activity) over
+    `reps` calls of fn() after a warm-up call, timed by CUDA events from the
+    first call's start to the last call's end. The kernels launched a call,
+    their device time a call beside that wall time a call, the share of it
+    the card is idle, and the five kernels that take most device time.
+    Beside it the median of `reps` unprofiled calls and the idle share
+    against it: the profiler's own host cost lengthens a host-bound call,
+    so the two idle shares bracket the card's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    alone = time_ms(fn, reps=reps, warmup=1)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / reps
+    rows = [(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3,
+             e.count / reps, e.key) for e in prof.key_averages()]
+    busy = sum(r[0] for r in rows)
+    top = sorted(rows, reverse=True)[:5]
+    return (f"profile over {reps} calls: {sum(r[1] for r in rows):.0f} kernels "
+            f"a forward, device time {busy:.2f} ms of {wall:.2f} ms wall a "
+            f"call (CUDA events over the same calls; idle {1 - busy / wall:.1%}"
+            f"); unprofiled median {alone:.2f} ms (idle against it "
+            f"{1 - busy / alone:.1%}); busiest: " + "; ".join(
+                f"{k[:60]} x{n:.0f} {ms:.2f} ms" for ms, n, k in top))
 
 
 def plan_text(mdta, gdfn, k, shape, batch) -> str:
@@ -1932,6 +2105,33 @@ def evaluate(port, mdta, counters, reset, card):
                  f"{err32:.3e} (max |plain| {top32:.3e})")
         total = [a + b for a, b in zip(total, ran)]
 
+        # the attention-free family: mode 1 (Rain100L), default config,
+        # random weights from seed 0, bf16, a warm-up run then the timed one;
+        # no kernel on the path (phase 5 holds its card forward against the
+        # CPU's)
+        for name in ATTENTION_FREE:
+            argv = ["--mode", "1", "--model", name, "--derain_path",
+                    str(root / "rain100l"), "--device", "cuda", "--dtype",
+                    "bfloat16"]
+            run(argv, f"out_{name}")
+            reset()
+            res, rec = run(argv, f"out_{name}")
+            ran = counters()
+            r = res["derain"]
+            say(f"eval: cli.test --mode 1 --model {name} bf16 (default config, "
+                f"random weights from seed 0): derain {r['psnr']:.4f} dB / "
+                f"{r['ssim']:.5f}, {len(rec.outputs)} forwards in "
+                f"{r['seconds']:.3f} s after a warm-up run "
+                f"({len(rec.outputs) / r['seconds']:.2f} images/s, PNG loads "
+                f"and dumps included; the forwards {rec.seconds:.3f} s) on "
+                f"{card}; launches {LAUNCH_NAMES} {ran}")
+            if len(rec.outputs) != 2 or ran != [0] * len(KERNELS):
+                fail(f"the {name} evaluation ran {len(rec.outputs)} forwards "
+                     f"and launched {ran}, not 2 and none")
+            if not (all(torch.isfinite(y).all() for y in rec.outputs)
+                    and np.isfinite(per_image(res)).all()):
+                fail(f"the {name} evaluation is not finite")
+
         # the demo, plain and tiled, bf16, each against the same demo through
         # the plain route
         crops = [tuple(s // 16 * 16 for s in hw) for hw in EVAL_BSD]
@@ -2433,6 +2633,10 @@ def main() -> None:
         reset()
         launches[path] = serve(port, counters, reset, card, path)
     check_forward_fp32(port, counters, reset, EFF)
+    for name in CPU_CHECKS:
+        check_against_cpu(port, counters, reset, name)
+    reset()
+    launches["nafnetlocal"] = serve_tlc(port, counters, reset, card)
     reset()
     launches["tiled"] = serve_tiled(port, counters, reset, card)
     check_grads(port, counters, reset)

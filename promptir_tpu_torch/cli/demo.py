@@ -4,7 +4,8 @@ Counterpart of promptir_tpu/cli/demo.py (reference demo.py:79-127):
 --test_path (file or directory), --output_path, and --tile/--tile_size/
 --tile_overlap/--tile_chunk. The plain path reflect-pads each image to the
 model's pad bases (eval/padding.py:pad_bases; the reference pads to 8,
-which covers window-free PromptIR only), forwards, crops and clips; the
+which covers only the window-free models: PromptIR, EasyPromptXRestormer,
+NAFNet and NAFNetLocal), forwards, crops and clips; the
 tiled path blends overlapping tiles (eval/tiling.py). Images are read and
 written as PNG (utils/png.py). The JAX demo's --mesh and --spatial wait
 for the port's parallelism (ROADMAP.md). Runs on the card unless --device

@@ -14,8 +14,8 @@ Endpoints:
                       and compiled_shapes
 
 The engine's overload, timeout and shutdown errors answer 429, 504 and
-503, any other failure of the forward 500. Runs on the card unless
---device cpu.
+503, any other failure of the forward 500. --model takes every ported
+model (cli/test.py). Runs on the card unless --device cpu.
 
   python -m promptir_tpu_torch.cli.serve --model promptir \
       --ckpt_name model.ckpt --port 8000 --max_batch 8 --warmup 512x512
@@ -39,8 +39,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_timeout_ms", type=float, default=5.0)
     p.add_argument("--pad_base", type=int, default=None,
                    help="pad inputs to multiples of this; default = the "
-                        "model's pad base (8 for PromptIR, 64 for the "
-                        "X-Restormer family)")
+                        "model's pad base (8 for PromptIR and the "
+                        "attention-free family, 64 for the X-Restormer "
+                        "family)")
     p.add_argument("--dim", type=int, default=None)
     p.add_argument("--warmup", nargs="*", default=[],
                    help="HxW sizes to run once before serving, e.g. 512x512")
@@ -69,8 +70,7 @@ def build_engine(args):
     from promptir_tpu_torch.cli.test import build_model
     from promptir_tpu_torch.serve.engine import InferenceEngine
 
-    extra = {} if args.dim is None else {"dim": args.dim}
-    model = build_model(args, **extra)
+    model = build_model(args)
     engine = InferenceEngine(
         model,
         pad_base=args.pad_base,

@@ -8,6 +8,9 @@ all-in-one evaluation); PSNR/SSIM per set, the restored PNGs saved under
 flat `.npz` (compat/jax_params.py:load_params_npz), or, with no
 --ckpt_name, from `torch.manual_seed(--seed)` with a warning. Runs on the
 card unless --device cpu (then every kernel runs its plain version).
+--model takes every ported model: `promptir`, the X-Restormer family
+(`xrestormerir`, `promptxrestormerir`, `promptxrestormereffir`) and the
+attention-free family (`easypromptxrestormer`, `nafnet`, `nafnetlocal`).
 
   python -m promptir_tpu_torch.cli.test --mode 3 --ckpt_name model.ckpt \
       --denoise_path test/denoise/bsd68/ --derain_path test/derain/ \
@@ -62,15 +65,27 @@ def validation_shape(model_name: str) -> tuple:
     return (1, base_h, base_w, 3)
 
 
+def size_kwargs(num_blocks=None, num_refinement_blocks=None, dim=None) -> dict:
+    """The model kwargs of the size flags (--num_blocks, --num_refinement_blocks,
+    --dim; None where a flag is not given). A model without such sizes
+    (NAFNet) refuses them when it is built, as in the JAX CLIs."""
+    kw = {}
+    if num_blocks is not None:
+        kw["num_blocks"] = tuple(num_blocks)
+    if num_refinement_blocks is not None:
+        kw["num_refinement_blocks"] = num_refinement_blocks
+    if dim is not None:
+        kw["dim"] = dim
+    return kw
+
+
 def model_kwargs(args) -> dict:
     import torch
 
     kw = {"dtype": torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
           "device": args.device}
-    if args.num_blocks is not None:
-        kw["num_blocks"] = tuple(args.num_blocks)
-    if args.num_refinement_blocks is not None:
-        kw["num_refinement_blocks"] = args.num_refinement_blocks
+    kw.update(size_kwargs(args.num_blocks, args.num_refinement_blocks,
+                          getattr(args, "dim", None)))
     if args.fused:
         if args.model != "promptir":
             raise SystemExit(f"--fused is not ported for {args.model!r} "

@@ -107,6 +107,7 @@ def main(argv=None):
 
     import torch
 
+    from promptir_tpu_torch.cli.test import size_kwargs
     from promptir_tpu_torch.config import Config
     from promptir_tpu_torch.models import create_model
     from promptir_tpu_torch.train.trainer import DTYPES, Trainer
@@ -152,15 +153,8 @@ def main(argv=None):
         print(f"total samples: {len(dataset)}")
 
     model = None
-    if (args.num_blocks is not None or args.num_refinement_blocks is not None
-            or args.dim is not None):
-        kw = {}
-        if args.num_blocks is not None:
-            kw["num_blocks"] = tuple(args.num_blocks)
-        if args.num_refinement_blocks is not None:
-            kw["num_refinement_blocks"] = args.num_refinement_blocks
-        if args.dim is not None:
-            kw["dim"] = args.dim
+    kw = size_kwargs(args.num_blocks, args.num_refinement_blocks, args.dim)
+    if kw:
         torch.manual_seed(args.seed)
         model = create_model(args.model, device=args.device,
                              dtype=DTYPES[args.dtype], train=True, **kw)

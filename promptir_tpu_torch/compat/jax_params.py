@@ -3,8 +3,9 @@
 The inverse of promptir_tpu/compat/torch_ckpt.py:convert_state_dict, written
 afresh (the port imports nothing of the JAX package). The flax tree holds
 numpy-convertible arrays with HWIO conv kernels, (in, out) dense kernels,
-(heads,) temperatures, (L, S, S, C) prompt banks, Sequential indices merged
-into names (`encoder_level1_0`) and no LayerNorm `body` wrapper. The target
+(heads,) temperatures, NAFBlock's (C,) `beta`/`gamma` (torch's are
+(1, C, 1, 1)), (L, S, S, C) prompt banks, Sequential indices merged into
+names (`encoder_level1_0`) and no LayerNorm `body` wrapper. The target
 model's own state_dict keys say where each tensor goes, so names such as
 `down1_2`, which are not Sequential indices, are never split.
 `load_params_npz` reads the flat `.npz` that the JAX package's
@@ -66,8 +67,8 @@ def _to_torch_layout(arr, key: str, shape) -> torch.Tensor:
         a = a.T  # (in, out) -> (out, in)
     elif leaf == "prompt_param":
         a = a.transpose(0, 3, 1, 2)[None]  # (L, S, S, C) -> (1, L, C, S, S)
-    elif leaf == "temperature":
-        a = a.reshape(tuple(shape))
+    elif leaf in ("temperature", "beta", "gamma"):
+        a = a.reshape(tuple(shape))  # (heads,), NAFBlock's (C,) scales
     if a.shape != tuple(shape):
         raise ValueError(f"{key}: flax shape gives {a.shape}, model wants "
                          f"{tuple(shape)}")

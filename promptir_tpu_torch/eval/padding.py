@@ -17,13 +17,17 @@ import torch
 
 # (base_h, base_w) of each ported model: the X-Restormer families run 8x8
 # OCAB windows at all four levels, so both sides must be multiples of
-# 8 * 2^3 = 64; window-free PromptIR needs only even sizes through three
-# downsamples.
+# 8 * 2^3 = 64; the window-free families (PromptIR, Easy, NAFNet) need only
+# even sizes through three downsamples (NAFNet pads to its own multiple of
+# 16 inside the model).
 _PAD_BASES = {
     "promptir": (8, 8),
     "xrestormerir": (64, 64),
     "promptxrestormerir": (64, 64),
     "promptxrestormereffir": (64, 64),
+    "easypromptxrestormer": (8, 8),
+    "nafnet": (8, 8),
+    "nafnetlocal": (8, 8),
 }
 
 

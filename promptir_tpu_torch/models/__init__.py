@@ -1,8 +1,9 @@
 """Model registry of the port.
 
 Counterpart of promptir_tpu/models/__init__.py. Ported so far: the flagship
-`promptir` and the X-Restormer family's `xrestormerir`,
-`promptxrestormerir` and `promptxrestormereffir`; ROADMAP.md lists the
+`promptir`, the X-Restormer family's `xrestormerir`, `promptxrestormerir`
+and `promptxrestormereffir`, and the attention-free family's
+`easypromptxrestormer`, `nafnet` and `nafnetlocal`; ROADMAP.md lists the
 other families.
 """
 
@@ -61,3 +62,5 @@ from promptir_tpu_torch.models import promptir as _promptir  # noqa: E402,F401
 from promptir_tpu_torch.models import xrestormer as _xrestormer  # noqa: E402,F401
 from promptir_tpu_torch.models import prompt_xrestormer as _pxr  # noqa: E402,F401
 from promptir_tpu_torch.models import prompt_xrestormer_eff as _pxre  # noqa: E402,F401
+from promptir_tpu_torch.models import easy_promptxrestormer as _easy  # noqa: E402,F401
+from promptir_tpu_torch.models import nafnet as _nafnet  # noqa: E402,F401

@@ -1,9 +1,11 @@
 """Convolutions with the reference's parameter names.
 
 Counterpart of promptir_tpu/ops/conv.py. `Conv` is `nn.Conv2d` with
-"same" padding for odd kernels and no bias by default, so its `weight` (and
-`bias`) load the reference's keys verbatim; torch's default initialization
-is the reference's. The plain convolutions of the model stay `F.conv2d`.
+"same" padding for odd kernels (`k // 2`, unless `padding` is given) and no
+bias by default, so its `weight` (and `bias`) load the reference's keys
+verbatim; torch's default initialization is the reference's. NAFNet's 2x2
+stride-2 downsampling is `Conv(c, 2 * c, 2, stride=2, padding=0,
+bias=True)`. The plain convolutions of the model stay `F.conv2d`.
 """
 
 from __future__ import annotations
@@ -14,8 +16,10 @@ from torch import nn
 
 class Conv(nn.Conv2d):
     def __init__(self, cin: int, cout: int, k: int = 1, *, bias: bool = False,
-                 groups: int = 1):
-        super().__init__(cin, cout, k, padding=k // 2, bias=bias, groups=groups)
+                 groups: int = 1, stride: int = 1, padding: int | None = None):
+        super().__init__(cin, cout, k, stride=stride,
+                         padding=k // 2 if padding is None else padding,
+                         bias=bias, groups=groups)
 
     def forward(self, x):
         """The convolution in x's dtype: the float32 weights of a model that

@@ -51,6 +51,9 @@ NEW_MODULES = [
     "promptir_tpu_torch.cli.train", "promptir_tpu_torch.utils.cxx",
     "promptir_tpu_torch.data.native",
     "promptir_tpu_torch.models.prompt_xrestormer_eff",
+    "promptir_tpu_torch.ops.easy",
+    "promptir_tpu_torch.models.easy_promptxrestormer",
+    "promptir_tpu_torch.models.nafnet",
 ]
 # Blocks JAX, PIL and the JAX package, imports the evaluation and training
 # surface, reads a committed JPEG fixture and a BMP written by hand, and
