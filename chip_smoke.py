@@ -3,20 +3,22 @@
 
     python3 chip_smoke.py
 
-Eleven main paths are driven: serving PromptIR (`promptir`, each block
+Thirteen main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
 with `fused_ffn=True`), the X-Restormer family's PromptXRestormer
 (`promptxrestormerir`) and PromptXRestormerEff (`promptxrestormereffir`),
-both in the reference's training config, and the attention-free family's
+both in the reference's training config, the attention-free family's
 EasyPromptXRestormer (`easypromptxrestormer`), NAFNet (`nafnet`) and
-NAFNetLocal (`nafnetlocal`), serving PromptIR through the overlap-blend
-tiler (`tiled`), training PromptIR, PromptXRestormer, PromptXRestormerEff,
-EasyPromptXRestormer and NAFNet (`train`), the evaluation entry points
-(`eval`: all-in-one evaluation, demo, HTTP server) and the training entry
-point over the all-in-one corpora through the native loader
-(`train_cli`). No kernel lies on the attention-free family's paths: their
-launches are gated at 0, and their card forwards are held against the
-CPU's.
+NAFNetLocal (`nafnetlocal`), and the Uformer family's PromptUformerIR
+(`promptuformerir`) and CAPromptUformerIR (`capromptuformerir`, CAMixer v1
+routing), serving PromptIR through the overlap-blend tiler (`tiled`),
+training PromptIR, PromptXRestormer, PromptXRestormerEff,
+EasyPromptXRestormer, NAFNet and both Uformers (`train`), the evaluation
+entry points (`eval`: all-in-one evaluation, demo, HTTP server) and the
+training entry point over the all-in-one corpora through the native loader
+(`train_cli`). No kernel lies on the attention-free and Uformer families'
+paths: their launches are gated at 0, and their card forwards are held
+against the CPU's.
 Phases, each printed with the seconds since start:
   1. the card's name and power limit (nvidia-smi);
   2. the build of every kernel source (one nvcc per source, all started
@@ -44,8 +46,9 @@ Phases, each printed with the seconds since start:
   4. the reference's own 64 px outputs reproduced in float32 through the
      kernels: full-depth PromptIR (tests/goldens/promptir_full.npz) block
      by block and with fused_ffn=True (through tail_stats), and
-     one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz),
-     with TF32 off (as the engine and trainer run float32) and, printed
+     one-block-a-level PromptXRestormer (prompt_xrestormer_small.npz) and
+     embed-8 one-block-a-stage PromptUformerIR without prompts
+     (uformer_small.npz, no launch), with TF32 off (as the engine and trainer run float32) and, printed
      only, with PyTorch's defaults; then full-depth PromptIR's bf16 B4
      256x256 forward through the kernels against the same forward through
      the plain versions (FORWARD_TOL_BF16);
@@ -56,8 +59,14 @@ Phases, each printed with the seconds since start:
      against the plain versions (GOLDEN_TOL); the attention-free family's
      reduced fp32 forwards (TF32 off) on the card against the same forwards
      on the CPU (GOLDEN_TOL; NAFNetLocal with windows smaller than its
-     maps), and NAFNetLocal on NAFNet's weights: bit-equal to it at
-     256x256, not at 512x768, one 512x768 request served and timed; then
+     maps), and so the Uformer family's (embed 8, one block a stage,
+     prompts on; CAPromptUformerIR at ratio 1, where its routing is
+     exact), its forward at ratio 0.5 keeping max(1, round(N / 2))
+     windows an image in each mixer; the Uformers served at pad base 128
+     (a 250x190 request padded to 256x256), with a profiler window each
+     as the attention-free family's; NAFNetLocal on NAFNet's weights:
+     bit-equal to it at 256x256, not at 512x768, one 512x768 request
+     served and timed; then
      full-depth PromptIR serving two 1024x768 photographs through the
      engine's tiled path (128 px tiles, overlap 32, 8 a chunk: 88 tiles in
      11 forwards an image), in float32 against the same run through the
@@ -71,8 +80,10 @@ Phases, each printed with the seconds since start:
      GDFN weights packed in the first forward only; then full-depth
      promptxrestormerir in its training config, bf16 compute, the same
      steps (its loss must fall too), promptxrestormereffir in the same
-     config, and the default easypromptxrestormer and nafnet (no launch),
-     the same steps;
+     config, and the default easypromptxrestormer, nafnet,
+     promptuformerir and capromptuformerir (no launch; the last with its
+     Gumbel routing, its ratio term and mean decision printed), the same
+     steps;
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
@@ -98,8 +109,9 @@ Phases, each printed with the seconds since start:
      through the kernels (10 forwards, exact launches), cli/psnr.py on its
      dumped sigma-15 PNGs, the same run in bf16 timed, --mode 1 with
      promptxrestormerir (ln_gdfn on the path), --mode 1 bf16 with
-     easypromptxrestormer and with nafnet (no launch), cli/demo.py plain
-     and tiled,
+     easypromptxrestormer, nafnet, promptuformerir and capromptuformerir
+     (no launch; the Uformers with --pad_base 128: 384x512), cli/demo.py
+     plain and tiled,
      and cli/serve.py's HTTP server answering two PNG requests; each run
      held against the same run through the plain route (forward by
      forward, or on the uint8 images it writes);
@@ -255,8 +267,20 @@ PATHS = {
     # and test_torch_nafnet.py show no wrapper runs on the CPU)
     "easypromptxrestormer": ("easypromptxrestormer", {}, [0] * 7),
     "nafnet": ("nafnet", {}, [0] * 7),
+    # the Uformer family's default configs: window attention and CAMixer v1
+    # in plain PyTorch (tests/test_torch_uformer.py shows no wrapper runs)
+    "promptuformerir": ("promptuformerir", {}, [0] * 7),
+    "capromptuformerir": ("capromptuformerir", {}, [0] * 7),
 }
 ATTENTION_FREE = ("easypromptxrestormer", "nafnet")
+UFORMER = ("promptuformerir", "capromptuformerir")
+NO_KERNEL = ATTENTION_FREE + UFORMER
+# calls in a forward_breakdown window: the profiler's processing of its
+# records takes most of a window's time, ~20 s for 10 calls of the CA model
+# (~15,300 kernels a call; PERF.md)
+BREAKDOWN_REPS = {"promptuformerir": 5, "capromptuformerir": 3}
+# the Uformer family cut to embed 8 and one block a stage (prompts on)
+UFORMER_REDUCED = dict(embed_dim=8, depths=(1,) * 9)
 # NAFNetLocal's default TLC windows (384 px at level 0) cover a 256x256
 # map at every level, so there it equals NAFNet bit for bit; a 512x768
 # photograph takes the local pool
@@ -269,6 +293,8 @@ GOLDENS = [
     ("prompt_xrestormer_small.npz", "promptxrestormerir",
      dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1),
      [11, 11, 11, 0, 0, 0, 3]),
+    ("uformer_small.npz", "promptuformerir",
+     dict(prompt=False, modulator=True, **UFORMER_REDUCED), [0] * 7),
 ]
 # the engine's tiled path: 1024x768 photographs in 128 px tiles overlapping
 # by 32, 8 tiles a forward: 11 x 8 = 88 tiles, 11 forwards an image
@@ -303,6 +329,8 @@ CPU_CHECKS = {
     "nafnet": (NAF_REDUCED, (2, 3, 72, 100)),
     "nafnetlocal": (dict(tlc_train_size=(32, 32), **NAF_REDUCED),
                     (2, 3, 72, 100)),
+    "promptuformerir": (UFORMER_REDUCED, (2, 3, 128, 256)),
+    "capromptuformerir": (dict(ratio=1.0, **UFORMER_REDUCED), (2, 3, 128, 256)),
 }
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
@@ -820,9 +848,17 @@ def serve(port, counters, reset, card, path):
     reset()  # the timing launches are not the main path's
     say(f"forward: {path} bf16 B4 256x256 alone {fwd:.1f} ms (CUDA events, "
         "median of 5)")
-    if path in ATTENTION_FREE:
+    if path in NO_KERNEL:
         with torch.inference_mode():
-            say(f"forward: {path} " + forward_breakdown(lambda: model(x)))
+            say(f"forward: {path} " + forward_breakdown(
+                lambda: model(x), BREAKDOWN_REPS.get(path, 10)))
+            if path == "promptuformerir":
+                from promptir_tpu_torch.ops import window_attention as wa
+
+                say(f"forward: {path} " + module_shares(lambda: model(x), {
+                    "window_attention": (wa.WindowAttention, "forward"),
+                    "leff": (wa.LeFF, "forward"),
+                    "layernorm": (wa.TorchLayerNorm, "forward")}))
         reset()
     del model, eng
     torch.cuda.empty_cache()
@@ -875,8 +911,9 @@ def seeded_scales(model, seed):
 
 
 def check_against_cpu(port, counters, reset, name):
-    """The attention-free family has no kernel on its path, so the card is
-    held against the CPU: the reduced model (CPU_CHECKS) from seed 0 in
+    """The attention-free and Uformer families have no kernel on their
+    paths, so the card is held against the CPU: the reduced model
+    (CPU_CHECKS) from seed 0 in
     float32 with TF32 off, the same forward on the card and on the CPU, max
     |difference| within GOLDEN_TOL of max |CPU|; no launch."""
     from promptir_tpu_torch.precision import exact_float32
@@ -901,6 +938,56 @@ def check_against_cpu(port, counters, reset, name):
     if not torch.isfinite(y).all() or not rel <= GOLDEN_TOL:
         fail(f"{name}'s card forward is {rel:.3e} of max |CPU| from the CPU's")
     return rel
+
+
+def check_window_counts(port, counters, reset):
+    """Reduced capromptuformerir at its ratio 0.5 (seed 0, fp32, TF32 off),
+    B2 128x256 on the card: each of its 9 mixers keeps max(1, round(N / 2))
+    windows of each image, more only where scores tie at the threshold; the
+    same forward on the CPU printed beside it (a near tie may route a
+    window differently there, so it is not gated). No launch."""
+    from promptir_tpu_torch.ops import camixer
+    from promptir_tpu_torch.precision import exact_float32
+
+    kept, real = [], camixer.route_mask
+
+    def spy(scores, ratio, deterministic, u=None):
+        mask = real(scores, ratio, deterministic, u)
+        kept.append((scores[:, :, 0].float().cpu(), mask[..., 0].cpu()))
+        return mask
+
+    torch.manual_seed(0)
+    cpu = port.create_model("capromptuformerir", device="cpu", **UFORMER_REDUCED)
+    model = port.create_model("capromptuformerir", device="cuda",
+                              **UFORMER_REDUCED)
+    model.load_state_dict(cpu.state_dict(), strict=True)
+    x = torch.rand(2, 3, 128, 256, generator=torch.Generator().manual_seed(9))
+    reset()
+    with torch.inference_mode(), exact_float32(torch.float32):
+        with mock.patch.object(camixer, "route_mask", spy):
+            y = model(x.cuda()).cpu()
+        ran = counters()
+        y0 = cpu(x)
+    counts = []
+    for scores, mask in kept:
+        n = scores.shape[1]
+        k = camixer.keep_count(n, model.ratio)
+        for sc, m in zip(scores, mask):
+            got = int(m.sum())
+            counts.append(got)
+            thresh = sc.sort().values[n - k]
+            if got < k or (got > k and not (sc == thresh).sum() > 1):
+                fail(f"a mixer kept {got} of {n} windows, not {k}")
+    err, rel = rel_err(y, y0)
+    say(f"card routing: reduced capromptuformerir ratio {model.ratio} fp32 "
+        f"B2 128x256, {len(kept)} mixers keep {counts} windows an image "
+        f"(max(1, round(N / 2)) each); against the CPU's forward max "
+        f"|difference| {err:.3e} (rel {rel:.3e}, not gated); launches "
+        f"{LAUNCH_NAMES} {ran}")
+    if len(kept) != 9 or ran != [0] * len(KERNELS):
+        fail(f"the routing check ran {len(kept)} mixers and launched {ran}")
+    if not torch.isfinite(y).all():
+        fail("the ratio-0.5 forward is not finite")
 
 
 def serve_tlc(port, counters, reset, card):
@@ -1128,8 +1215,9 @@ def train(port, counters, reset, card):
     weights; then full-depth promptxrestormerir and promptxrestormereffir in
     their training config, and the attention-free family's default
     easypromptxrestormer and nafnet (NAFNet starting as an identity: beta
-    and gamma 0), bf16 compute, no launch. Returns the launches over the
-    whole run."""
+    and gamma 0) and the Uformer family's default promptuformerir and
+    capromptuformerir (its routing sampled, its mean decision printed),
+    bf16 compute, no launch. Returns the launches over the whole run."""
     from promptir_tpu_torch.data.loader import TrainLoader
     from promptir_tpu_torch.data.synthetic import SyntheticTrainDataset
     from promptir_tpu_torch.train.state import TrainState, make_optimizer
@@ -1146,7 +1234,7 @@ def train(port, counters, reset, card):
             ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP),
             (EFF, XR_TRAIN, torch.bfloat16, EFF_TRAIN_PER_STEP)] + [
             (name, {}, torch.bfloat16, [0] * len(KERNELS))
-            for name in ATTENTION_FREE]
+            for name in NO_KERNEL]
     for name, kw, dtype, per_step in runs:
         torch.manual_seed(0)
         model = port.create_model(name, device="cuda", dtype=dtype,
@@ -1154,7 +1242,11 @@ def train(port, counters, reset, card):
         n_params = sum(p.numel() for p in model.parameters())
         st = TrainState(model, make_optimizer(model.parameters()))
         step = make_train_step(model)
-        losses, times = [], []
+        losses, times, decisions = [], [], []
+        # a stochastic model's mean routing decision, each step's
+        hook = model.register_forward_hook(
+            lambda m, a, out: decisions.append(out[1].detach())
+            if isinstance(out, tuple) else None)
         for i in range(TRAIN_STEPS):
             if i == TRAIN_WARMUP:
                 torch.cuda.synchronize()
@@ -1173,6 +1265,7 @@ def train(port, counters, reset, card):
             losses.append(metrics["train_loss"].item())
             if i >= TRAIN_WARMUP:
                 times.append(t0.elapsed_time(t1))
+        hook.remove()
         peak = torch.cuda.max_memory_allocated()
         ms = float(np.median(times))
         say(f"train: full-depth {name} ({n_params} params, fp32 weights) "
@@ -1183,6 +1276,16 @@ def train(port, counters, reset, card):
             f"events), {TRAIN_BATCH * 1e3 / ms:.2f} images/s, peak memory "
             f"{peak / 2**30:.2f} GiB on {card}; launches "
             f"{LAUNCH_NAMES} per step {per_step}")
+        if getattr(model, "variant", None) == "v1":
+            from promptir_tpu_torch.train.losses import ratio_loss
+
+            d = [float(v) for v in decisions]
+            say(f"train: {name} Gumbel routing, mean decision a step "
+                f"{', '.join(f'{v:.4f}' for v in d)}; ratio term "
+                f"{', '.join(f'{float(ratio_loss(torch.tensor(v), model.ratio)):.6f}' for v in d)}"
+                f" (in the loss above)")
+            if len(d) != TRAIN_STEPS or not all(0.0 <= v <= 1.0 for v in d):
+                fail(f"{name}'s steps gave decisions {d}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             fail(f"{name} training loss did not fall on a fixed batch: {losses}")
         if name == "promptir" and dtype == torch.bfloat16:
@@ -1279,6 +1382,56 @@ def time_ms(fn, reps=20, warmup=3) -> float:
         e.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in evs]))
+
+
+def module_shares(fn, spans, reps=2) -> str:
+    """Where fn()'s device time goes by module: each `spans` entry, label:
+    (class, method name), runs inside a torch.profiler record_function
+    range of that label for one window over `reps` calls (after a warm-up
+    call). A label's device time is its range's kernels' (the CPU-side
+    range's device_time_total), beside all kernels' device time a call
+    (the kernels' own rows); the device-side range's span (kernels and
+    the gaps between them) is printed too."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with contextlib.ExitStack() as stack:
+        for label, (cls, name) in spans.items():
+            real = getattr(cls, name)
+
+            def wrapped(self, *a, _real=real, _label=label, **k):
+                with record_function(_label):
+                    return _real(self, *a, **k)
+
+            stack.enter_context(mock.patch.object(cls, name, wrapped))
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    rows = prof.key_averages()
+
+    def dev(e, attr):
+        return getattr(e, attr, getattr(e, attr.replace("device", "cuda"), 0.0))
+
+    def on(e, device):
+        return str(getattr(e, "device_type", "")).endswith(device)
+
+    # the kernels' own rows: an op's row counts its kernels' time again
+    busy = sum(dev(e, "self_device_time_total") for e in rows
+               if on(e, "CUDA") and not getattr(e, "is_user_annotation", False)
+               ) / reps / 1e3
+    out = []
+    for label in spans:
+        cpu = [e for e in rows if e.key == label and on(e, "CPU")]
+        gpu = [e for e in rows if e.key == label and e not in cpu]
+        ms = sum(dev(e, "device_time_total") for e in cpu) / reps / 1e3
+        span = sum(dev(e, "self_device_time_total") for e in gpu) / reps / 1e3
+        out.append(f"{label} {ms:.2f} ms ({ms / max(busy, 1e-9):.1%}; device "
+                   f"span {span:.2f} ms)")
+    return (f"device time by module over {reps} calls: " + "; ".join(out)
+            + f"; all kernels {busy:.2f} ms a call")
 
 
 def profiled_ms(fn, reps=10, windows=2) -> float:
@@ -1957,6 +2110,7 @@ def evaluate(port, mdta, counters, reset, card):
     from promptir_tpu_torch.cli import demo as demo_cli
     from promptir_tpu_torch.cli import psnr as psnr_cli
     from promptir_tpu_torch.cli import test as test_cli
+    from promptir_tpu_torch.eval.padding import pad_bases
     from promptir_tpu_torch.utils.png import read_png
 
     t_phase = time.perf_counter()
@@ -2105,14 +2259,16 @@ def evaluate(port, mdta, counters, reset, card):
                  f"{err32:.3e} (max |plain| {top32:.3e})")
         total = [a + b for a, b in zip(total, ran)]
 
-        # the attention-free family: mode 1 (Rain100L), default config,
-        # random weights from seed 0, bf16, a warm-up run then the timed one;
-        # no kernel on the path (phase 5 holds its card forward against the
-        # CPU's)
-        for name in ATTENTION_FREE:
+        # the attention-free and Uformer families: mode 1 (Rain100L),
+        # default config, random weights from seed 0, bf16, a warm-up run
+        # then the timed one; no kernel on the path (phase 5 holds their
+        # card forwards against the CPU's)
+        for name in NO_KERNEL:
             argv = ["--mode", "1", "--model", name, "--derain_path",
                     str(root / "rain100l"), "--device", "cuda", "--dtype",
                     "bfloat16"]
+            if name in UFORMER:  # 320x480 (crop-16) to 384x512, not 320x512
+                argv += ["--pad_base", str(pad_bases(name)[0])]
             run(argv, f"out_{name}")
             reset()
             res, rec = run(argv, f"out_{name}")
@@ -2268,8 +2424,8 @@ def step_spy(counters):
     real_get = PromptTrainDataset.get
     real_close = trainer_mod.ProfilerWindow.close
 
-    def make(model, grad_accum=1):
-        fn = real(model, grad_accum)
+    def make(model, *args, **kwargs):
+        fn = real(model, *args, **kwargs)
 
         def step(state, batch):
             rec.start.append(time.perf_counter())
@@ -2635,6 +2791,7 @@ def main() -> None:
     check_forward_fp32(port, counters, reset, EFF)
     for name in CPU_CHECKS:
         check_against_cpu(port, counters, reset, name)
+    check_window_counts(port, counters, reset)
     reset()
     launches["nafnetlocal"] = serve_tlc(port, counters, reset, card)
     reset()

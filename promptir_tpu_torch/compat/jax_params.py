@@ -7,7 +7,12 @@ numpy-convertible arrays with HWIO conv kernels, (in, out) dense kernels,
 (1, C, 1, 1)), (L, S, S, C) prompt banks, Sequential indices merged into
 names (`encoder_level1_0`) and no LayerNorm `body` wrapper. The target
 model's own state_dict keys say where each tensor goes, so names such as
-`down1_2`, which are not Sequential indices, are never split.
+`down1_2`, which are not Sequential indices, are never split. The Uformer
+family's leaves: a LeWin block's `modulator.weight` is flax's untransposed
+(N, dim) `modulator`, a transposed conv's `deconv.0.weight` (cin, cout, 2,
+2) and `deconv.0.bias` are flax's `deconv_kernel` (cin, 2, 2, cout) and
+`deconv_bias`, and the integer buffers (`relative_position_index`) have no
+flax leaf: the model's own copy is kept, as the JAX converter skips them.
 `load_params_npz` reads the flat `.npz` that the JAX package's
 `train/checkpoints.py:save_params_npz` writes ('/'-joined paths) back into
 that tree, so a model trained by the JAX package loads into the port.
@@ -32,6 +37,11 @@ def flax_path(key: str, ndim: int) -> Tuple[str, ...]:
             merged[-1] = f"{merged[-1]}_{p}"  # Sequential index
         else:
             merged.append(p)
+    if merged[-2:] == ["modulator", "weight"]:
+        return tuple(merged[:-1])
+    if len(merged) > 1 and merged[-2] == "deconv_0":
+        return tuple(merged[:-2]) + ("deconv_" + (
+            "kernel" if merged[-1] == "weight" else "bias"),)
     if merged[-1] == "weight" and ndim in (2, 4):
         merged[-1] = "kernel"
     return tuple(merged)
@@ -61,7 +71,11 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
 def _to_torch_layout(arr, key: str, shape) -> torch.Tensor:
     a = np.asarray(arr, dtype=np.float32)
     leaf = key.rsplit(".", 1)[-1]
-    if leaf == "weight" and a.ndim == 4:
+    if key.endswith("modulator.weight"):
+        pass  # (N, dim) in both
+    elif key.endswith("deconv.0.weight"):
+        a = a.transpose(0, 3, 1, 2)  # (cin, 2, 2, cout) -> (cin, cout, 2, 2)
+    elif leaf == "weight" and a.ndim == 4:
         a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     elif leaf == "weight" and a.ndim == 2:
         a = a.T  # (in, out) -> (out, in)
@@ -83,6 +97,9 @@ def state_dict_from_flax(variables: Mapping[str, Any],
     flat = dict(_flatten(tree))
     out, missing = {}, []
     for key, t in model.state_dict().items():
+        if not t.is_floating_point():
+            out[key] = t.detach().clone()  # an integer buffer: the model's
+            continue
         path = flax_path(key, t.dim())
         if path not in flat:
             missing.append("/".join(path))

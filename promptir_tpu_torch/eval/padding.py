@@ -19,7 +19,8 @@ import torch
 # OCAB windows at all four levels, so both sides must be multiples of
 # 8 * 2^3 = 64; the window-free families (PromptIR, Easy, NAFNet) need only
 # even sizes through three downsamples (NAFNet pads to its own multiple of
-# 16 inside the model).
+# 16 inside the model); the Uformer family downsamples four times to H/16
+# and runs 8x8 windows there, so both sides must be multiples of 128.
 _PAD_BASES = {
     "promptir": (8, 8),
     "xrestormerir": (64, 64),
@@ -28,6 +29,8 @@ _PAD_BASES = {
     "easypromptxrestormer": (8, 8),
     "nafnet": (8, 8),
     "nafnetlocal": (8, 8),
+    "promptuformerir": (128, 128),
+    "capromptuformerir": (128, 128),
 }
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of promptir_tpu/models/__init__.py. Ported so far: the flagship
 `promptir`, the X-Restormer family's `xrestormerir`, `promptxrestormerir`
-and `promptxrestormereffir`, and the attention-free family's
-`easypromptxrestormer`, `nafnet` and `nafnetlocal`; ROADMAP.md lists the
-other families.
+and `promptxrestormereffir`, the attention-free family's
+`easypromptxrestormer`, `nafnet` and `nafnetlocal`, and the Uformer
+family's `promptuformerir` and `capromptuformerir` (CAMixer v1); ROADMAP.md
+lists the CAMixer X-Restormers still to port.
 """
 
 from __future__ import annotations
@@ -64,3 +65,5 @@ from promptir_tpu_torch.models import prompt_xrestormer as _pxr  # noqa: E402,F4
 from promptir_tpu_torch.models import prompt_xrestormer_eff as _pxre  # noqa: E402,F401
 from promptir_tpu_torch.models import easy_promptxrestormer as _easy  # noqa: E402,F401
 from promptir_tpu_torch.models import nafnet as _nafnet  # noqa: E402,F401
+from promptir_tpu_torch.models import prompt_uformer as _uformer  # noqa: E402,F401
+from promptir_tpu_torch.models import camixer_prompt_uformer as _capu  # noqa: E402,F401

@@ -12,14 +12,21 @@ them one after the other and averages their gradients before the single
 update, as the JAX step does with a `lax.scan`: equal microbatches make the
 mean of the microbatch L1 losses the full batch's. A float32 model runs
 with TF32 off (precision.py).
+
+A stochastic model (the CAMixer family, told by its `variant`, as the JAX
+trainer tells them) is called with `deterministic=False` and a torch.Generator
+seeded from (seed, step * grad_accum + microbatch), the fold of the JAX
+step, so that a resumed run draws what an unbroken run draws; its mean
+routing decision (v1) adds the ratio loss to L1.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from promptir_tpu_torch.precision import compute_dtype, exact_float32
-from promptir_tpu_torch.train.losses import l1_loss
+from promptir_tpu_torch.train.losses import l1_loss, ratio_loss
 from promptir_tpu_torch.train.state import TrainState, clip_by_global_norm, global_norm
 
 
@@ -28,8 +35,21 @@ def to_nchw(x: torch.Tensor, device) -> torch.Tensor:
     return x.to(device, non_blocking=True).permute(0, 3, 1, 2)
 
 
-def make_train_step(model, grad_accum: int = 1):
-    """Build `step(state, batch) -> metrics` for `model`.
+# the CAMixer variants, whose training forward samples (the JAX trainer's
+# list); v1 returns its mean decision, the others their losses
+STOCHASTIC = ("v1", "v2", "cata")
+
+
+def draw_generator(device, seed: int, index: int) -> torch.Generator:
+    """A generator on `device` seeded from (seed, index): the draws of
+    microbatch `index` (step * grad_accum + microbatch) of a run."""
+    state = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+def make_train_step(model, grad_accum: int = 1, seed: int = 0):
+    """Build `step(state, batch) -> metrics` for `model`; `seed` seeds a
+    stochastic model's draws.
 
     `batch`: {"degraded", "clean"} (B, H, W, 3) float tensors (from
     data/loader.py), B a multiple of grad_accum. Returns {"train_loss",
@@ -39,6 +59,16 @@ def make_train_step(model, grad_accum: int = 1):
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
+    stochastic = getattr(model, "variant", None) in STOCHASTIC
+
+    def loss_of(x, y, index):
+        if not stochastic:
+            return l1_loss(model(x), y)
+        out, *aux = model(x, deterministic=False,
+                          generator=draw_generator(device, seed, index))
+        if model.variant == "v1":
+            aux = [ratio_loss(aux[0], model.ratio)]
+        return l1_loss(out, y) + sum(aux)
 
     def step(state: TrainState, batch: dict) -> dict:
         n = batch["degraded"].shape[0]
@@ -51,8 +81,9 @@ def make_train_step(model, grad_accum: int = 1):
         with exact_float32(compute_dtype(model)):
             for i in range(grad_accum):
                 sl = slice(i * m, (i + 1) * m)
-                out = model(to_nchw(batch["degraded"][sl], device))
-                mloss = l1_loss(out, to_nchw(batch["clean"][sl], device))
+                mloss = loss_of(to_nchw(batch["degraded"][sl], device),
+                                to_nchw(batch["clean"][sl], device),
+                                state.step * grad_accum + i)
                 (mloss / grad_accum).backward()
                 loss = loss + mloss.detach()
         # a parameter the forward never reads (the reference's dead convs)

@@ -106,7 +106,8 @@ class Trainer:
             model, make_optimizer(model.parameters(), cfg.train.lr,
                                   cfg.train.weight_decay),
             grad_clip=cfg.train.grad_clip)
-        self.step_fn = make_train_step(model, cfg.train.grad_accum)
+        self.step_fn = make_train_step(model, cfg.train.grad_accum,
+                                       cfg.train.seed)
         self.eval_step = make_eval_step(model)
         self.schedule = warmup_cosine(
             cfg.train.lr, cfg.train.warmup_epochs, cfg.train.cosine_max_epochs

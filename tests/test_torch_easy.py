@@ -106,7 +106,7 @@ def flax_grads(grads, name, kwargs):
     sd = state_dict_from_flax(
         {"params": jax.tree.map(lambda a: np.asarray(a, np.float32), grads)},
         create_model(name, device="cpu", **kwargs))
-    return {k: v.numpy() for k, v in sd.items()}
+    return {k: v.numpy() for k, v in sd.items() if v.is_floating_point()}
 
 
 def jax_sides(name, kwargs, shape, seed):

@@ -54,6 +54,10 @@ NEW_MODULES = [
     "promptir_tpu_torch.ops.easy",
     "promptir_tpu_torch.models.easy_promptxrestormer",
     "promptir_tpu_torch.models.nafnet",
+    "promptir_tpu_torch.ops.window_attention",
+    "promptir_tpu_torch.models.prompt_uformer",
+    "promptir_tpu_torch.ops.flow_warp", "promptir_tpu_torch.ops.camixer",
+    "promptir_tpu_torch.models.camixer_prompt_uformer",
 ]
 # Blocks JAX, PIL and the JAX package, imports the evaluation and training
 # surface, reads a committed JPEG fixture and a BMP written by hand, and

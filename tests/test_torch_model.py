@@ -80,7 +80,7 @@ def test_create_model_defaults_to_the_card():
 
 def test_unported_model_points_to_roadmap():
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        create_model("promptuformerir", device="cpu")
+        create_model("capromptxrestormereff", device="cpu")
 
 
 def test_golden_state_dict_matches_jax_converter_keys(golden):

@@ -22,11 +22,12 @@ def test_padding_matches_jax(hw, base):
         np.testing.assert_array_equal(padding.crop(t, *hw).numpy(), x)
 
 
-@pytest.mark.parametrize("name", ["promptir", "xrestormerir", "promptxrestormerir"])
+@pytest.mark.parametrize("name", ["promptir", "xrestormerir", "promptxrestormerir",
+                                  "promptuformerir", "capromptuformerir"])
 def test_pad_bases_match_jax_on_one_chip(name):
     assert padding.pad_bases(name) == jax_pad_bases(name, 1)
 
 
 def test_pad_bases_of_an_unported_model_raise():
     with pytest.raises(KeyError, match="ROADMAP.md"):
-        padding.pad_bases("promptuformerir")
+        padding.pad_bases("capromptxrestormereff")
