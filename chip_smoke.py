@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Thirteen main paths are driven: serving PromptIR (`promptir`, each block
+Sixteen main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
 with `fused_ffn=True`), the X-Restormer family's PromptXRestormer
 (`promptxrestormerir`) and PromptXRestormerEff (`promptxrestormereffir`),
@@ -11,9 +11,13 @@ both in the reference's training config, the attention-free family's
 EasyPromptXRestormer (`easypromptxrestormer`), NAFNet (`nafnet`) and
 NAFNetLocal (`nafnetlocal`), and the Uformer family's PromptUformerIR
 (`promptuformerir`) and CAPromptUformerIR (`capromptuformerir`, CAMixer v1
-routing), serving PromptIR through the overlap-blend tiler (`tiled`),
+routing), and the CAMixer X-Restormers in the reference's training config
+(`capromptxrestormereff`, CAMixer v1; `capromptxrestormereffv2`, CAMixer
+v2; `catapromptxrestormer`, CAMixer v2 and per-image hard/easy branches),
+serving PromptIR through the overlap-blend tiler (`tiled`),
 training PromptIR, PromptXRestormer, PromptXRestormerEff,
-EasyPromptXRestormer, NAFNet and both Uformers (`train`), the evaluation
+EasyPromptXRestormer, NAFNet, both Uformers and the three CAMixer
+X-Restormers (`train`), the evaluation
 entry points (`eval`: all-in-one evaluation, demo, HTTP server) and the
 training entry point over the all-in-one corpora through the native loader
 (`train_cli`). No kernel lies on the attention-free and Uformer families'
@@ -66,7 +70,12 @@ Phases, each printed with the seconds since start:
      (a 250x190 request padded to 256x256), with a profiler window each
      as the attention-free family's; NAFNetLocal on NAFNet's weights:
      bit-equal to it at 256x256, not at 512x768, one 512x768 request
-     served and timed; then
+     served and timed; the CAMixer X-Restormers served at pad base 64 with
+     a profiler window each, their reduced fp32 forwards through the
+     kernels (ratio and hard ratio 1, where routing is exact) against the
+     CPU's through the plain versions (GOLDEN_TOL), and reduced CATA at
+     ratio and hard ratio 0.5 keeping max(1, round(N / 2)) windows an image
+     in each v2 mixer and 2 of 4 images in each branch selector; then
      full-depth PromptIR serving two 1024x768 photographs through the
      engine's tiled path (128 px tiles, overlap 32, 8 a chunk: 88 tiles in
      11 forwards an image), in float32 against the same run through the
@@ -80,10 +89,12 @@ Phases, each printed with the seconds since start:
      GDFN weights packed in the first forward only; then full-depth
      promptxrestormerir in its training config, bf16 compute, the same
      steps (its loss must fall too), promptxrestormereffir in the same
-     config, and the default easypromptxrestormer, nafnet,
+     config, the default easypromptxrestormer, nafnet,
      promptuformerir and capromptuformerir (no launch; the last with its
-     Gumbel routing, its ratio term and mean decision printed), the same
-     steps;
+     Gumbel routing, its ratio term and mean decision printed), and the
+     three CAMixer X-Restormers in the training config (their kernel
+     launches a step gated, their ratio and hard-ratio terms printed), the
+     same steps;
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
@@ -110,7 +121,9 @@ Phases, each printed with the seconds since start:
      dumped sigma-15 PNGs, the same run in bf16 timed, --mode 1 with
      promptxrestormerir (ln_gdfn on the path), --mode 1 bf16 with
      easypromptxrestormer, nafnet, promptuformerir and capromptuformerir
-     (no launch; the Uformers with --pad_base 128: 384x512), cli/demo.py
+     (no launch; the Uformers with --pad_base 128: 384x512), --mode 1 bf16
+     with the three CAMixer X-Restormers (default config, pad base 64,
+     their launches a forward counted from the model), cli/demo.py
      plain and tiled,
      and cli/serve.py's HTTP server answering two PNG requests; each run
      held against the same run through the plain route (forward by
@@ -271,14 +284,30 @@ PATHS = {
     # in plain PyTorch (tests/test_torch_uformer.py shows no wrapper runs)
     "promptuformerir": ("promptuformerir", {}, [0] * 7),
     "capromptuformerir": ("capromptuformerir", {}, [0] * 7),
+    # the CAMixer X-Restormers in the reference's training config: v1's and
+    # v2's 28 CA blocks run mdta_stats, block_tail and ln_gdfn (the spatial
+    # FFN), their 3 channel prompt blocks mdta_stats and block_tail, 15 on
+    # the wide route, Eff's pattern; CATA's 28 hard branches run for every
+    # image, its Easy prompt blocks no kernel (12 wide). The mixers and the
+    # Easy branch are plain PyTorch (tests/test_torch_ca_xrestormer.py and
+    # test_torch_cata.py count the launches on the CPU)
+    "capromptxrestormereff": ("capromptxrestormereff", XR_TRAIN,
+                              [31, 31, 28, 0, 0, 0, 15]),
+    "capromptxrestormereffv2": ("capromptxrestormereffv2", XR_TRAIN,
+                                [31, 31, 28, 0, 0, 0, 15]),
+    "catapromptxrestormer": ("catapromptxrestormer", XR_TRAIN,
+                             [28, 28, 28, 0, 0, 0, 12]),
 }
 ATTENTION_FREE = ("easypromptxrestormer", "nafnet")
 UFORMER = ("promptuformerir", "capromptuformerir")
 NO_KERNEL = ATTENTION_FREE + UFORMER
+CA_XR = ("capromptxrestormereff", "capromptxrestormereffv2",
+         "catapromptxrestormer")
 # calls in a forward_breakdown window: the profiler's processing of its
 # records takes most of a window's time, ~20 s for 10 calls of the CA model
 # (~15,300 kernels a call; PERF.md)
-BREAKDOWN_REPS = {"promptuformerir": 5, "capromptuformerir": 3}
+BREAKDOWN_REPS = {"promptuformerir": 5, "capromptuformerir": 3,
+                  **{name: 3 for name in CA_XR}}
 # the Uformer family cut to embed 8 and one block a stage (prompts on)
 UFORMER_REDUCED = dict(embed_dim=8, depths=(1,) * 9)
 # NAFNetLocal's default TLC windows (384 px at level 0) cover a 256x256
@@ -311,8 +340,12 @@ TRAIN_PER_STEP = [47, 0, 47, 1, 47, 0, 2]  # launches of one step's forward
 # route (PATHS)
 XR_TRAIN_PER_STEP = [31, 0, 62, 0, 31, 0, 15]
 # promptxrestormereffir's 28 X-blocks as above, its 3 channel blocks LnMdta
-# and one LnGdfn each
+# and one LnGdfn each; so the CAMixer v1 and v2 models; CATA's 28 hard
+# branches LnGdfn, LnMdta and LnGdfn, its Easy prompt blocks nothing
 EFF_TRAIN_PER_STEP = [31, 0, 59, 0, 31, 0, 15]
+CA_TRAIN_PER_STEP = {"capromptxrestormereff": EFF_TRAIN_PER_STEP,
+                     "capromptxrestormereffv2": EFF_TRAIN_PER_STEP,
+                     "catapromptxrestormer": [28, 0, 56, 0, 28, 0, 12]}
 # per run; the warm-up steps are untimed. Four steps are too few for the
 # loss to fall: AdamW's first steps overshoot (promptxrestormereffir's
 # loss went 0.33861, 0.39534, 0.33852, 0.34022 on an H100; PERF.md)
@@ -332,6 +365,16 @@ CPU_CHECKS = {
     "promptuformerir": (UFORMER_REDUCED, (2, 3, 128, 256)),
     "capromptuformerir": (dict(ratio=1.0, **UFORMER_REDUCED), (2, 3, 128, 256)),
 }
+# the CAMixer X-Restormers' card forwards (through the kernels) against the
+# CPU's (the plain versions), fp32 (TF32 off): the training config's heads,
+# one block a level, prompts on, at ratio and hard ratio 1, where routing is
+# exact: (input shape, launches per forward); CATA's hard branches at 8
+# blocks, the 3 one-head widths from 192 on the wide route
+CA_REDUCED = dict(XR_TRAIN, **REDUCED)
+CA_CHECKS = {"capromptxrestormereff": ((2, 3, 64, 128), [11, 11, 8, 0, 0, 0, 6]),
+             "capromptxrestormereffv2": ((2, 3, 64, 128),
+                                         [11, 11, 8, 0, 0, 0, 6]),
+             "catapromptxrestormer": ((2, 3, 64, 128), [8, 8, 8, 0, 0, 0, 3])}
 DEMO = dict(epochs=3, n_train=48, batch=4, patch=128)  # TRAIN_DEMO.md's short run
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # max |kernel - plain| / max |plain|
 GOLDEN_TOL = 2e-4
@@ -848,7 +891,7 @@ def serve(port, counters, reset, card, path):
     reset()  # the timing launches are not the main path's
     say(f"forward: {path} bf16 B4 256x256 alone {fwd:.1f} ms (CUDA events, "
         "median of 5)")
-    if path in NO_KERNEL:
+    if path in NO_KERNEL + CA_XR:
         with torch.inference_mode():
             say(f"forward: {path} " + forward_breakdown(
                 lambda: model(x), BREAKDOWN_REPS.get(path, 10)))
@@ -940,6 +983,25 @@ def check_against_cpu(port, counters, reset, name):
     return rel
 
 
+def kept_counts(kept, ratio, what):
+    """[windows (or images) kept] of each row of each (scores, mask) pair in
+    `kept`; fails unless a row keeps max(1, round(N * ratio)) of its N,
+    more only where scores tie at the threshold."""
+    from promptir_tpu_torch.ops.camixer import keep_count
+
+    counts = []
+    for scores, mask in kept:
+        n = scores.shape[1]
+        k = keep_count(n, ratio)
+        for sc, m in zip(scores, mask):
+            got = int(m.sum())
+            counts.append(got)
+            thresh = sc.sort().values[n - k]
+            if got < k or (got > k and not (sc == thresh).sum() > 1):
+                fail(f"{what} kept {got} of {n}, not {k}")
+    return counts
+
+
 def check_window_counts(port, counters, reset):
     """Reduced capromptuformerir at its ratio 0.5 (seed 0, fp32, TF32 off),
     B2 128x256 on the card: each of its 9 mixers keeps max(1, round(N / 2))
@@ -968,16 +1030,7 @@ def check_window_counts(port, counters, reset):
             y = model(x.cuda()).cpu()
         ran = counters()
         y0 = cpu(x)
-    counts = []
-    for scores, mask in kept:
-        n = scores.shape[1]
-        k = camixer.keep_count(n, model.ratio)
-        for sc, m in zip(scores, mask):
-            got = int(m.sum())
-            counts.append(got)
-            thresh = sc.sort().values[n - k]
-            if got < k or (got > k and not (sc == thresh).sum() > 1):
-                fail(f"a mixer kept {got} of {n} windows, not {k}")
+    counts = kept_counts(kept, model.ratio, "a mixer")
     err, rel = rel_err(y, y0)
     say(f"card routing: reduced capromptuformerir ratio {model.ratio} fp32 "
         f"B2 128x256, {len(kept)} mixers keep {counts} windows an image "
@@ -988,6 +1041,93 @@ def check_window_counts(port, counters, reset):
         fail(f"the routing check ran {len(kept)} mixers and launched {ran}")
     if not torch.isfinite(y).all():
         fail("the ratio-0.5 forward is not finite")
+
+
+def check_ca_against_cpu(port, counters, reset, name):
+    """A CAMixer X-Restormer (CA_CHECKS: reduced, seed 0, ratio and hard
+    ratio 1) in float32 with TF32 off: the card's forward through the kernels
+    against the same forward on the CPU through the plain versions, max
+    |difference| within GOLDEN_TOL of max |CPU|; the launches of one
+    forward."""
+    from promptir_tpu_torch.precision import exact_float32
+
+    shape, per_forward = CA_CHECKS[name]
+    kwargs = dict(CA_REDUCED, ratio=1.0, hard_ratio=1.0)
+    torch.manual_seed(0)
+    cpu = port.create_model(name, device="cpu", **kwargs)
+    model = port.create_model(name, device="cuda", **kwargs)
+    model.load_state_dict(cpu.state_dict(), strict=True)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(6))
+    reset()
+    with torch.inference_mode(), exact_float32(torch.float32):
+        y = model(x.cuda()).cpu()
+        ran = counters()
+        y0 = cpu(x)
+    reset()  # a comparison, not the main path
+    err, rel = rel_err(y, y0)
+    say(f"card against CPU: reduced {name} (ratio and hard ratio 1) fp32 "
+        f"(TF32 off) B{shape[0]} {shape[2]}x{shape[3]}, the card through the "
+        f"kernels: max |difference| {err:.3e} (rel {rel:.3e}, tolerance "
+        f"{GOLDEN_TOL}); launches {LAUNCH_NAMES} {ran}")
+    if ran != per_forward:
+        fail(f"the reduced {name} forward launched {ran} != {per_forward}")
+    if not torch.isfinite(y).all() or not rel <= GOLDEN_TOL:
+        fail(f"{name}'s card forward is {rel:.3e} of max |CPU| from the CPU's")
+    return rel
+
+
+def check_ca_routing(port, counters, reset):
+    """Reduced catapromptxrestormer (CA_REDUCED, seed 0) at ratio and hard
+    ratio 0.5, fp32 (TF32 off), B4 64x128 on the card: each of its 8 CAMixer
+    v2 mixers keeps max(1, round(N / 2)) windows of each image and each of
+    its 8 branch selectors round(B / 2) = 2 of the 4 images, more only where
+    scores tie at the threshold; the same forward on the CPU printed beside
+    it (a near tie may route differently there, so it is not gated)."""
+    from promptir_tpu_torch.ops import camixer
+    from promptir_tpu_torch.precision import exact_float32
+
+    windows, images = [], []
+    real_route, real_topk = camixer.route_mask, camixer.topk_window_mask
+
+    def route_spy(scores, ratio, deterministic, u=None):
+        mask = real_route(scores, ratio, deterministic, u)
+        windows.append((scores[:, :, 0].float().cpu(), mask[..., 0].cpu()))
+        return mask
+
+    def topk_spy(scores, k):
+        mask = real_topk(scores, k)
+        if scores.shape[0] == 1:  # the selector's (1, B) labels
+            images.append((scores.cpu(), mask.cpu()))
+        return mask
+
+    name = "catapromptxrestormer"
+    torch.manual_seed(0)
+    cpu = port.create_model(name, device="cpu", **CA_REDUCED)
+    model = port.create_model(name, device="cuda", **CA_REDUCED)
+    model.load_state_dict(cpu.state_dict(), strict=True)
+    x = torch.rand(4, 3, 64, 128, generator=torch.Generator().manual_seed(9))
+    reset()
+    with torch.inference_mode(), exact_float32(torch.float32):
+        with mock.patch.object(camixer, "route_mask", route_spy), \
+                mock.patch.object(camixer, "topk_window_mask", topk_spy):
+            y = model(x.cuda()).cpu()
+        ran = counters()
+        y0 = cpu(x)
+    reset()  # a check, not the main path
+    kept_w = kept_counts(windows, model.ratio, "a v2 mixer")
+    kept_i = kept_counts(images, model.hard_ratio, "a branch selector")
+    err, rel = rel_err(y, y0)
+    say(f"card routing: reduced {name} ratio {model.ratio} hard ratio "
+        f"{model.hard_ratio} fp32 B4 64x128, {len(windows)} v2 mixers keep "
+        f"{kept_w} windows an image (max(1, round(N / 2)) each), "
+        f"{len(images)} branch selectors keep {kept_i} of 4 images; against "
+        f"the CPU's forward max |difference| {err:.3e} (rel {rel:.3e}, not "
+        f"gated); launches {LAUNCH_NAMES} {ran}")
+    if len(windows) != 8 or len(images) != 8:
+        fail(f"the routing check ran {len(windows)} mixers and {len(images)} "
+             f"selectors, not 8 and 8")
+    if ran != CA_CHECKS[name][1] or not torch.isfinite(y).all():
+        fail(f"the ratio-0.5 {name} forward launched {ran} or is not finite")
 
 
 def serve_tlc(port, counters, reset, card):
@@ -1234,7 +1374,9 @@ def train(port, counters, reset, card):
             ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP),
             (EFF, XR_TRAIN, torch.bfloat16, EFF_TRAIN_PER_STEP)] + [
             (name, {}, torch.bfloat16, [0] * len(KERNELS))
-            for name in NO_KERNEL]
+            for name in NO_KERNEL] + [
+            (name, XR_TRAIN, torch.bfloat16, CA_TRAIN_PER_STEP[name])
+            for name in CA_XR]
     for name, kw, dtype, per_step in runs:
         torch.manual_seed(0)
         model = port.create_model(name, device="cuda", dtype=dtype,
@@ -1242,10 +1384,11 @@ def train(port, counters, reset, card):
         n_params = sum(p.numel() for p in model.parameters())
         st = TrainState(model, make_optimizer(model.parameters()))
         step = make_train_step(model)
-        losses, times, decisions = [], [], []
-        # a stochastic model's mean routing decision, each step's
+        losses, times, aux = [], [], []
+        # a stochastic model's extra outputs, each step's: v1's mean routing
+        # decision, v2's ratio loss, CATA's ratio and hard-ratio losses
         hook = model.register_forward_hook(
-            lambda m, a, out: decisions.append(out[1].detach())
+            lambda m, a, out: aux.append([t.detach() for t in out[1:]])
             if isinstance(out, tuple) else None)
         for i in range(TRAIN_STEPS):
             if i == TRAIN_WARMUP:
@@ -1276,16 +1419,30 @@ def train(port, counters, reset, card):
             f"events), {TRAIN_BATCH * 1e3 / ms:.2f} images/s, peak memory "
             f"{peak / 2**30:.2f} GiB on {card}; launches "
             f"{LAUNCH_NAMES} per step {per_step}")
-        if getattr(model, "variant", None) == "v1":
+        variant = getattr(model, "variant", None)
+        if variant == "v1":
             from promptir_tpu_torch.train.losses import ratio_loss
 
-            d = [float(v) for v in decisions]
+            d = [float(v[0]) for v in aux]
             say(f"train: {name} Gumbel routing, mean decision a step "
                 f"{', '.join(f'{v:.4f}' for v in d)}; ratio term "
                 f"{', '.join(f'{float(ratio_loss(torch.tensor(v), model.ratio)):.6f}' for v in d)}"
                 f" (in the loss above)")
             if len(d) != TRAIN_STEPS or not all(0.0 <= v <= 1.0 for v in d):
                 fail(f"{name}'s steps gave decisions {d}")
+        elif variant in ("v2", "cata"):
+            terms = [[float(t) for t in v] for v in aux]
+            names = ["ratio term", "hard-ratio term"][:len(terms[0])]
+            say(f"train: {name} Gumbel routing (CAMixer v2"
+                + (", branch selector" if variant == "cata" else "") + "), "
+                + "; ".join(f"{n} a step "
+                            + ", ".join(f"{t[j]:.6f}" for t in terms)
+                            for j, n in enumerate(names))
+                + " (in the loss above)")
+            # 2 r (mean - 1/2)^2 with r = 1/2 lies in [0, 1/4]
+            if len(terms) != TRAIN_STEPS or not all(
+                    0.0 <= v <= 0.25 for t in terms for v in t):
+                fail(f"{name}'s steps gave routing terms {terms}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             fail(f"{name} training loss did not fall on a fixed batch: {losses}")
         if name == "promptir" and dtype == torch.bfloat16:
@@ -1997,6 +2154,35 @@ def xr_per_forward(port, mdta):
     return [n, n, n, 0, 0, 0, wide], n
 
 
+def ca_per_forward(port, mdta, name):
+    """Launches of KERNELS per forward of `name`'s default config (the
+    CLI's, the JAX defaults): each CA block's channel half mdta_stats and
+    block_tail and its spatial FFN ln_gdfn (CATA's hard branch: GDFN, MDTA,
+    GDFN), v1's and v2's channel prompt blocks mdta_stats and block_tail,
+    the Gram kernel where a width and its heads take the wide route."""
+    from promptir_tpu_torch.models.camixer_models import (
+        CATABlock,
+        CATransformerBlock,
+    )
+    from promptir_tpu_torch.models.prompt_xrestormer_eff import (
+        ChannelTransformerBlock,
+    )
+
+    with torch.device("meta"):
+        model = port.create_model(name, device="meta")
+    ca, channel = [], []
+    for m in model.modules():
+        if isinstance(m, CATABlock):
+            ca.append((m.norm1.body.weight.numel(),
+                       m.hard_channel_attn.num_heads))
+        elif isinstance(m, (CATransformerBlock, ChannelTransformerBlock)):
+            (ca if isinstance(m, CATransformerBlock) else channel).append(
+                (m.norm1.body.weight.numel(), m.channel_attn.num_heads))
+    wide = sum(mdta.stats_route(c, h) == "wide" for c, h in ca + channel)
+    n = len(ca) + len(channel)
+    return [n, n, len(ca), 0, 0, 0, wide]
+
+
 def demo_forwards(hw_list, tile, overlap, chunk):
     """Forwards of the demo's tiled path over images of (H, W) after crop-16
     (eval/tiling.py: the image reflect-padded to 64, tiles in chunks)."""
@@ -2287,6 +2473,35 @@ def evaluate(port, mdta, counters, reset, card):
             if not (all(torch.isfinite(y).all() for y in rec.outputs)
                     and np.isfinite(per_image(res)).all()):
                 fail(f"the {name} evaluation is not finite")
+
+        # the CAMixer X-Restormers: mode 1 (Rain100L), default config (the
+        # JAX defaults, as the CLI builds it), random weights from seed 0,
+        # bf16, a warm-up run then the timed one, through the kernels
+        for name in CA_XR:
+            per_fwd = ca_per_forward(port, mdta, name)
+            argv = ["--mode", "1", "--model", name, "--derain_path",
+                    str(root / "rain100l"), "--device", "cuda", "--dtype",
+                    "bfloat16"]
+            run(argv, f"out_{name}")
+            reset()
+            res, rec = run(argv, f"out_{name}")
+            ran = counters()
+            r = res["derain"]
+            shapes = sorted({tuple(y.shape[1:3]) for y in rec.outputs})
+            say(f"eval: cli.test --mode 1 --model {name} bf16 (default config, "
+                f"random weights from seed 0, padded to {shapes}): derain "
+                f"{r['psnr']:.4f} dB / {r['ssim']:.5f}, {len(rec.outputs)} "
+                f"forwards in {r['seconds']:.3f} s after a warm-up run "
+                f"({len(rec.outputs) / r['seconds']:.2f} images/s, PNG loads "
+                f"and dumps included; the forwards {rec.seconds:.3f} s) on "
+                f"{card}; {per_fwd} per forward; launches {LAUNCH_NAMES} {ran}")
+            if len(rec.outputs) != 2 or ran != [2 * k for k in per_fwd]:
+                fail(f"the {name} evaluation ran {len(rec.outputs)} forwards "
+                     f"and launched {ran}, not 2 x {per_fwd}")
+            if not (all(torch.isfinite(y).all() for y in rec.outputs)
+                    and np.isfinite(per_image(res)).all()):
+                fail(f"the {name} evaluation is not finite")
+            total = [a + b for a, b in zip(total, ran)]
 
         # the demo, plain and tiled, bf16, each against the same demo through
         # the plain route
@@ -2792,6 +3007,9 @@ def main() -> None:
     for name in CPU_CHECKS:
         check_against_cpu(port, counters, reset, name)
     check_window_counts(port, counters, reset)
+    for name in CA_CHECKS:
+        check_ca_against_cpu(port, counters, reset, name)
+    check_ca_routing(port, counters, reset)
     reset()
     launches["nafnetlocal"] = serve_tlc(port, counters, reset, card)
     reset()

@@ -15,8 +15,8 @@ import numpy as np
 import torch
 
 
-# (base_h, base_w) of each ported model: the X-Restormer families run 8x8
-# OCAB windows at all four levels, so both sides must be multiples of
+# (base_h, base_w) of each model: the X-Restormer families run 8x8 windows
+# (OCAB or CAMixer) at all four levels, so both sides must be multiples of
 # 8 * 2^3 = 64; the window-free families (PromptIR, Easy, NAFNet) need only
 # even sizes through three downsamples (NAFNet pads to its own multiple of
 # 16 inside the model); the Uformer family downsamples four times to H/16
@@ -26,6 +26,9 @@ _PAD_BASES = {
     "xrestormerir": (64, 64),
     "promptxrestormerir": (64, 64),
     "promptxrestormereffir": (64, 64),
+    "capromptxrestormereff": (64, 64),
+    "capromptxrestormereffv2": (64, 64),
+    "catapromptxrestormer": (64, 64),
     "easypromptxrestormer": (8, 8),
     "nafnet": (8, 8),
     "nafnetlocal": (8, 8),
@@ -38,8 +41,8 @@ def pad_bases(model_name: str) -> tuple[int, int]:
     """(base_h, base_w) to pad an image to before a whole-image forward of
     `model_name` on one card."""
     if model_name not in _PAD_BASES:
-        raise KeyError(f"no pad base for {model_name!r}: it is not ported "
-                       "(see ROADMAP.md)")
+        raise KeyError(f"unknown model {model_name!r}; available: "
+                       f"{sorted(_PAD_BASES)}")
     return _PAD_BASES[model_name]
 
 

@@ -1,11 +1,12 @@
 """Model registry of the port.
 
-Counterpart of promptir_tpu/models/__init__.py. Ported so far: the flagship
-`promptir`, the X-Restormer family's `xrestormerir`, `promptxrestormerir`
-and `promptxrestormereffir`, the attention-free family's
-`easypromptxrestormer`, `nafnet` and `nafnetlocal`, and the Uformer
-family's `promptuformerir` and `capromptuformerir` (CAMixer v1); ROADMAP.md
-lists the CAMixer X-Restormers still to port.
+Counterpart of promptir_tpu/models/__init__.py, with all 12 of its models:
+the flagship `promptir`, the X-Restormer family's `xrestormerir`,
+`promptxrestormerir` and `promptxrestormereffir`, the attention-free
+family's `easypromptxrestormer`, `nafnet` and `nafnetlocal`, the Uformer
+family's `promptuformerir` and `capromptuformerir` (CAMixer v1), and the
+CAMixer X-Restormers `capromptxrestormereff` (v1), `capromptxrestormereffv2`
+and `catapromptxrestormer`.
 """
 
 from __future__ import annotations
@@ -43,8 +44,7 @@ def create_model(name: str, *, device="cuda", dtype=torch.float32,
     """
     if name not in _REGISTRY:
         raise KeyError(
-            f"model {name!r} is not ported yet (ported: {available_models()}); "
-            "see ROADMAP.md"
+            f"unknown model {name!r}; available: {available_models()}"
         )
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -67,3 +67,4 @@ from promptir_tpu_torch.models import easy_promptxrestormer as _easy  # noqa: E4
 from promptir_tpu_torch.models import nafnet as _nafnet  # noqa: E402,F401
 from promptir_tpu_torch.models import prompt_uformer as _uformer  # noqa: E402,F401
 from promptir_tpu_torch.models import camixer_prompt_uformer as _capu  # noqa: E402,F401
+from promptir_tpu_torch.models import camixer_models as _ca  # noqa: E402,F401

@@ -1,11 +1,12 @@
-"""CAMixer v1: content-aware window mixing with routed hard and easy parts.
+"""CAMixer: content-aware window mixing with routed hard and easy parts.
 
-Counterpart of the v1 half of promptir_tpu/ops/camixer.py (reference
-net/camixer_prompt_xrestormer_eff.py:300-469), channels-last:
-  * `PredictorLG` with offsets: from the value projection and the
-    per-window coordinate channels (and an optional global condition), the
-    deformable offsets, a channel gate `ca`, a spatial gate `sa` and a
-    two-way softmax score per window (float32);
+Counterpart of promptir_tpu/ops/camixer.py (reference
+net/camixer_prompt_xrestormer_eff.py:300-469, camixer_prompt_xrestormer_
+effv2.py:325-551, ca_ta_promptxrestormer.py:317-357), channels-last:
+  * `PredictorLG`: from the value projection and the per-window coordinate
+    channels (and an optional global condition), a spatial gate `sa` and a
+    two-way softmax score per window (float32); v1's (`with_offsets`) also
+    the deformable offsets and a channel gate `ca`;
   * `route_mask`: in training a straight-through Gumbel-softmax sample
     (`gumbel_softmax_hard`, on uniforms the caller draws), at evaluation a
     static top-k of the windows by score, k = N at ratio >= 1 and
@@ -17,12 +18,21 @@ net/camixer_prompt_xrestormer_eff.py:300-469), channels-last:
     as the dense masked blend `f_attn + vs * (1 - m)`; a depthwise 3x3 and a
     dilated depthwise 3x3 (`conv_sptial`), GELU times `ca` plus the blend,
     and the output projection. It returns the output and `decision`, the
-    mean of the mask (the ratio loss's input).
-CAMixerV2, BranchSelector and the spatially sharded gather wait for the
-models that use them (ROADMAP.md). No kernel of the port runs here; the
-rounding points are the JAX module's (float32 logits and softmax, the
-probabilities rounded to v's dtype before a float32 PV, the result in x's
-dtype).
+    mean of the mask (the ratio loss's input);
+  * `CAMixerV2`: OCAB-like attention of each window's queries over the
+    overlapping (win + win * overlap) key and value windows with the
+    relative position bias (ops/ocab.py), blended per window with the easy
+    `v * sa` as `hard * m + easy * (1 - m)`, then the output projection;
+    it returns the output and `decision`;
+  * `BranchSelector`: a per-image label in float32, sigmoid of a classifier
+    over the pooled squeeze-excite features; at evaluation the top
+    max(1, round(B * hard_ratio)) images of the batch by label (ties keep
+    more), in training the straight-through Gumbel sample over the batch
+    axis (one image of the batch is hard).
+The spatially sharded gather waits for parallelism (ROADMAP.md Queue 1
+item 5). No kernel of the port runs here; the rounding points are the JAX
+module's (float32 logits, bias and softmax, the probabilities rounded to
+the compute dtype before a float32 PV, the result in x's dtype).
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.easy import ChannelsLN
 from promptir_tpu_torch.ops.flow_warp import flow_warp
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
+from promptir_tpu_torch.ops.ocab import RelPosEmb, extract_overlapping_windows
 from promptir_tpu_torch.ops.window_attention import conv_nhwc, linear
 
 # the uniform draw's range, the JAX module's (jax.random.uniform's minval
@@ -124,21 +135,26 @@ def from_windows(x, win: int, h: int, w: int):
 
 
 class PredictorLG(nn.Module):
-    """The window router of CAMixer v1 (offsets, channel and spatial gates,
-    scores). `cdim` is its input's width, dim plus the condition channels."""
+    """The window router (spatial gate and scores; v1's, `with_offsets`,
+    also the offsets and the channel gate). `cdim` is its input's width,
+    dim plus the condition channels."""
 
-    def __init__(self, dim: int, cdim: int, window_size: int = 8):
+    def __init__(self, dim: int, cdim: int, window_size: int = 8,
+                 with_offsets: bool = True):
         super().__init__()
         self.window_size = window_size
+        self.with_offsets = with_offsets
         q = cdim // 4
         self.in_conv = nn.Sequential(Conv(cdim, q, bias=True), ChannelsLN(q),
                                      nn.LeakyReLU(0.1))
-        self.out_offsets = nn.Sequential(Conv(q, cdim // 8, bias=True),
-                                         nn.LeakyReLU(0.1),
-                                         Conv(cdim // 8, 2, bias=True))
-        # the reference's Sequential(AdaptiveAvgPool2d(1), Conv2d, Sigmoid)
-        self.out_CA = nn.Sequential(nn.Identity(), Conv(q, dim, bias=True),
-                                    nn.Sigmoid())
+        if with_offsets:
+            self.out_offsets = nn.Sequential(Conv(q, cdim // 8, bias=True),
+                                             nn.LeakyReLU(0.1),
+                                             Conv(cdim // 8, 2, bias=True))
+            # the reference's Sequential(AdaptiveAvgPool2d(1), Conv2d,
+            # Sigmoid)
+            self.out_CA = nn.Sequential(nn.Identity(),
+                                        Conv(q, dim, bias=True), nn.Sigmoid())
         self.out_SA = nn.Sequential(Conv(q, 1, 3, bias=True), nn.Sigmoid())
         win2 = window_size * window_size
         self.out_mask = nn.Sequential(nn.Linear(win2, window_size),
@@ -146,17 +162,20 @@ class PredictorLG(nn.Module):
                                       nn.Linear(window_size, 2))
 
     def forward(self, cond):
-        """cond: (B, H, W, cdim). Returns {"offsets": (B, H, W, 2), "ca":
-        (B, 1, 1, dim), "sa": (B, H, W, 1), "scores": (B, N, 2) float32}."""
+        """cond: (B, H, W, cdim). Returns {"sa": (B, H, W, 1), "scores":
+        (B, N, 2) float32} and with offsets {"offsets": (B, H, W, 2), "ca":
+        (B, 1, 1, dim)}."""
         win = self.window_size
         ln = self.in_conv[1]
         x = pointwise(cond, self.in_conv[0])
         x = F.leaky_relu(layernorm_nhwc(x, ln.weight, ln.bias, bias_free=False,
                                         eps=ln.eps), 0.1)
-        o = F.leaky_relu(pointwise(x, self.out_offsets[0]), 0.1)
-        out = {"offsets": torch.tanh(pointwise(o, self.out_offsets[2])) * 8.0}
-        out["ca"] = torch.sigmoid(pointwise(mean_last(x, (1, 2)),
-                                            self.out_CA[1]))
+        out = {}
+        if self.with_offsets:
+            o = F.leaky_relu(pointwise(x, self.out_offsets[0]), 0.1)
+            out["offsets"] = torch.tanh(pointwise(o, self.out_offsets[2])) * 8.0
+            out["ca"] = torch.sigmoid(pointwise(mean_last(x, (1, 2)),
+                                                self.out_CA[1]))
         out["sa"] = torch.sigmoid(conv_nhwc(x, self.out_SA[0]))
         b, h, w, _ = x.shape
         t = mean_last(x, (-1,))[..., 0]
@@ -218,3 +237,103 @@ class CAMixerV1(nn.Module):
         y = conv_nhwc(conv_nhwc(out, self.conv_sptial[0]), self.conv_sptial[1])
         out = F.gelu(y) * route["ca"] + out
         return pointwise(out, self.project_out), mask.mean()
+
+
+class CAMixerV2(nn.Module):
+    """Overlapping-window attention (the hard part) against `v * sa` (the
+    easy part), routed per window. `cond_dim` is the width of the optional
+    global condition."""
+
+    def __init__(self, dim: int, window_size: int = 8,
+                 overlap_ratio: float = 0.5, num_heads: int = 4,
+                 dim_head: int = 16, ratio: float = 0.5, bias: bool = True,
+                 cond_dim: int = 0):
+        super().__init__()
+        self.window_size, self.ratio = window_size, ratio
+        self.overlap_win = int(window_size * overlap_ratio) + window_size
+        self.num_heads, self.dim_head = num_heads, dim_head
+        inner = dim_head * num_heads
+        self.proj_q = Conv(dim, inner, bias=bias)
+        self.proj_k = Conv(dim, inner, bias=bias)
+        self.proj_v = Conv(dim, inner, bias=bias)
+        self.route = PredictorLG(inner, inner + cond_dim + 2, window_size,
+                                 with_offsets=False)
+        self.rel_pos_emb = RelPosEmb(window_size, self.overlap_win, dim_head)
+        self.project_out = Conv(inner, dim, bias=bias)
+
+    def forward(self, x, condition_global=None, deterministic: bool = True,
+                generator=None):
+        """x: (B, H, W, C), H and W multiples of the window. In training
+        (`deterministic=False`) the routing samples from `generator`.
+        Returns (out, decision)."""
+        b, h, w, _ = x.shape
+        win, ow = self.window_size, self.overlap_win
+        if h % win or w % win:
+            raise ValueError(f"CAMixerV2: H and W must be multiples of the "
+                             f"window {win}, got {h}x{w}")
+        hd, d = self.num_heads, self.dim_head
+        nwin = (h // win) * (w // win)
+        qs, ks, vs = (pointwise(x, p) for p in (self.proj_q, self.proj_k,
+                                                 self.proj_v))
+        cond = [vs, window_condition(b, h, w, win, x.device, vs.dtype)]
+        if condition_global is not None:
+            cond.insert(1, condition_global.to(vs.dtype))
+        route = self.route(torch.cat(cond, -1))
+        scores = route["scores"]
+        u = None if deterministic else gumbel_uniform(scores.shape, generator,
+                                                      scores.device)
+        mask = route_mask(scores, self.ratio, deterministic, u)
+
+        dt = qs.dtype
+        qh = to_windows(qs, win).reshape(b, nwin, win * win, hd, d)
+        qh = qh * torch.tensor(d ** -0.5, dtype=dt)
+        kh = extract_overlapping_windows(ks, win, ow).reshape(b, nwin, ow * ow,
+                                                              hd, d)
+        vh = extract_overlapping_windows(vs, win, ow).reshape(b, nwin, ow * ow,
+                                                              hd, d)
+        attn = torch.einsum("bwqhd,bwkhd->bwhqk", qh.float(), kh.float())
+        q_flat = qh.permute(0, 1, 3, 2, 4).reshape(b * nwin * hd, win * win, d)
+        attn = attn + self.rel_pos_emb(q_flat).reshape(b, nwin, hd, win * win,
+                                                       ow * ow)
+        attn = attn.softmax(dim=-1).to(dt)
+        hard = torch.einsum("bwhqk,bwkhd->bwqhd", attn.float(), vh.float())
+        hard = hard.reshape(b, nwin, win * win, hd * d).to(x.dtype)
+
+        easy = to_windows(vs * route["sa"], win)
+        m = mask[..., None].to(hard.dtype)  # (B, N, 1, 1)
+        out = from_windows(hard * m + easy * (1.0 - m), win, h, w)
+        return pointwise(out, self.project_out), mask.mean()
+
+
+class BranchSelector(nn.Module):
+    """The per-image hard/easy router of CATA: keys `in_conv.0`, `in_conv.1`
+    (ChannelsLN), `se.1`, `se.3` (bias-free 1x1s) and `classifier.0`."""
+
+    def __init__(self, dim: int, hard_ratio: float = 0.5):
+        super().__init__()
+        self.hard_ratio = hard_ratio
+        q = dim // 4
+        self.in_conv = nn.Sequential(Conv(dim, q, bias=True), ChannelsLN(q),
+                                     nn.LeakyReLU(0.1))
+        # the reference's Sequential(AdaptiveAvgPool2d(1), Conv2d, LeakyReLU,
+        # Conv2d)
+        self.se = nn.Sequential(nn.Identity(), Conv(q, q), nn.LeakyReLU(0.1),
+                                Conv(q, q))
+        self.classifier = nn.Sequential(nn.Linear(q, 1), nn.Sigmoid())
+
+    def forward(self, x, deterministic: bool = True, generator=None):
+        """x: (B, H, W, C). Returns the (B,) float32 {0, 1} label of each
+        image, 1 for the hard branch (straight through in training)."""
+        b = x.shape[0]
+        ln = self.in_conv[1]
+        y = layernorm_nhwc(pointwise(x, self.in_conv[0]), ln.weight, ln.bias,
+                           bias_free=False, eps=ln.eps)
+        z = F.leaky_relu(pointwise(mean_last(F.leaky_relu(y, 0.1), (1, 2)),
+                                   self.se[1]), 0.1)
+        z = pointwise(z, self.se[3])[:, 0, 0]  # the mean over one pixel
+        label = torch.sigmoid(linear(z, self.classifier[0])).float()  # (B, 1)
+        if deterministic:
+            k = max(1, int(round(b * self.hard_ratio)))
+            return topk_window_mask(label.T, k).T[:, 0]
+        u = gumbel_uniform(label.shape, generator, label.device)
+        return gumbel_softmax_hard(label, u, dim=0)[:, 0]

@@ -3,7 +3,7 @@
 Counterpart of promptir_tpu/train/step.py: forward, L1 loss, backward and
 one AdamW update (the reference's train.py:37-56). The JAX step is one
 jitted function over a data-parallel mesh; this one runs eagerly on one
-card (data parallelism is ROADMAP Queue 1 item 6). It updates the state in
+card (data parallelism is ROADMAP Queue 1 item 5). It updates the state in
 place and returns its metrics as tensors on the card, so that the loop
 does not wait for the card at every step.
 

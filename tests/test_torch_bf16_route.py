@@ -17,14 +17,14 @@ the JAX package rounds:
     with float32 weights computing in bf16 served under inference mode, and
     anew on every call for inference tensors;
   * the bf16 tiles and shared-memory carvings fit one block at every width
-    the served models give tail_stats and block_tail;
-  * the models' global residual is summed in float32, as XLA computes it in
-    the JAX package's jitted bf16 forward.
+    the served models give tail_stats and block_tail.
+The models' global residual, summed in float32 as XLA computes it in the
+JAX package's jitted bf16 forward, is held in tests/test_torch_precision.py,
+beside the eager bf16 forwards it shares.
 """
 
 import contextlib
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,13 +32,11 @@ import torch
 import torch.nn.functional as F
 from test_torch_kernels import block_diag, block_weights, torch_weights
 
-from promptir_tpu.models import create_model as jax_create_model
 from promptir_tpu.ops.attention import channel_attention as jax_channel_attention
 from promptir_tpu.ops.pallas import mdta as jmdta
 from promptir_tpu.ops.pallas.block import pad_nhwc, unpad_nhwc
 from promptir_tpu.ops.pallas.megablock import fused_tail_stats_padded
 from promptir_tpu_torch import create_model
-from promptir_tpu_torch.compat.jax_params import state_dict_from_flax
 from promptir_tpu_torch.ops.attention import channel_attention
 from promptir_tpu_torch.ops.conv import dwconv3x3_nhwc
 from promptir_tpu_torch.ops.cuda import block, gdfn, mdta, megablock, packed
@@ -377,65 +375,3 @@ def test_bf16_wrappers_take_the_packed_weights(monkeypatch):
              "ln_gdfn_launch", "tail_stats_launch"]
     assert log == [(n, 1) for n in names] + [(n, 0) for n in names]
     assert packs == [((2 * f, c), (2 * f, 9), (c, f))] * 3
-
-
-def on_bf16_grid(a):
-    """Share of the values of float32 array a that bf16 holds exactly."""
-    return float(np.mean(a == np.asarray(
-        jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))))
-
-
-@pytest.mark.parametrize("name,shape", [("promptir", (2, 32, 48, 3)),
-                                        ("promptxrestormerir", (2, 64, 128, 3)),
-                                        ("easypromptxrestormer", (2, 32, 48, 3)),
-                                        ("nafnet", (2, 32, 48, 3))])
-def test_global_residual_sums_in_float32_as_jitted_jax(name, shape):
-    """The JAX models end in `(out + inp.astype(out.dtype)).astype(float32)`
-    (promptir_tpu/models/promptir.py:397), a bf16 sum. Eager, every output
-    lies on the bf16 grid; jitted, most lie off it, because XLA keeps the
-    sum in float32 (its excess precision; with
-    --xla_allow_excess_precision=false the jitted outputs lie on the grid
-    too). The port sums the bf16 output conv and the bf16 input in float32,
-    and lands closer to the jitted forward than the same sum rounded to
-    bf16. Reduced models, the weights of test_torch_precision.py; measured
-    on the grid 0.256 / 0.276 jitted, mean |port - jitted| 4.37e-4 against
-    8.02e-4 rounded (promptir), 1.20e-3 against 1.65e-3
-    (promptxrestormerir). The attention-free family ends the same way
-    (promptir_tpu/models/easy_promptxrestormer.py:136, nafnet.py:82-83),
-    its weights seeded as in tests/test_torch_easy.py (an eager init of the
-    reduced Easy model takes ~46 s); their eager forwards are not run (the
-    same last line as PromptIR's, and ~40 s and ~13 s of op-by-op compiles
-    here). NAFNet at a multiple of 16: where it
-    pads the input inside and crops the output, the jitted JAX forward
-    rounds the sum to bf16 before the crop
-    (test_torch_nafnet.py::test_padded_global_residual_is_rounded_by_jitted_jax)."""
-    reduced = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
-    jax_only = dict(fused_ffn=False)
-    x = np.random.default_rng(0).uniform(size=shape).astype(np.float32)
-    kernel_model = name in ("promptir", "promptxrestormerir")
-    if kernel_model:
-        variables = jax_create_model(name, **reduced).init(
-            jax.random.PRNGKey(3), jnp.asarray(x))
-    else:
-        from test_torch_easy import jax_variables
-
-        jax_only = {}
-        if name == "nafnet":
-            reduced = dict(width=16, middle_blk_num=1, enc_blk_nums=(1, 1, 1, 1),
-                           dec_blk_nums=(1, 1, 1, 1))
-        variables = jax_variables(name, reduced, shape, 3)
-    jmodel = jax_create_model(name, dtype=jnp.bfloat16, **jax_only, **reduced)
-    jitted = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
-    assert on_bf16_grid(jitted) < 0.5
-    if kernel_model:
-        eager = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
-        assert on_bf16_grid(eager) == 1.0
-
-    model = create_model(name, device="cpu", dtype=BF16, **reduced)
-    model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
-    with torch.no_grad():
-        y = model(torch.from_numpy(x.transpose(0, 3, 1, 2)))
-    y = y.numpy().transpose(0, 2, 3, 1)
-    rounded = np.asarray(jnp.asarray(y).astype(jnp.bfloat16).astype(jnp.float32))
-    assert on_bf16_grid(y) < 0.5
-    assert np.abs(y - jitted).mean() < np.abs(rounded - jitted).mean()

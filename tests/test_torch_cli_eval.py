@@ -27,6 +27,7 @@ import pytest
 import torch
 from PIL import Image
 
+from jax_init import init_variables
 from promptir_tpu.cli import psnr as jax_psnr_cli
 from promptir_tpu.cli.test import load_params as jax_load_params
 from promptir_tpu.data import datasets as jds
@@ -38,6 +39,7 @@ from promptir_tpu_torch.cli import demo, psnr, serve
 from promptir_tpu_torch.cli import test as cli_test
 from promptir_tpu_torch.compat.jax_params import load_params_npz, state_dict_from_flax
 from promptir_tpu_torch.utils.png import decode_png, encode_png, read_png, write_png
+from test_torch_train import one_torch_thread  # noqa: F401 (a fixture)
 
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 TINY = ["--num_blocks", "1", "1", "1", "1", "--num_refinement_blocks", "1",
@@ -84,8 +86,8 @@ def weights(tmp_path_factory):
     """Flax-initialised reduced PromptIR written as a Lightning .ckpt and as
     the JAX package's flat .npz."""
     d = tmp_path_factory.mktemp("weights")
-    variables = jax_create_model("promptir", **REDUCED).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    variables = init_variables(jax_create_model("promptir", **REDUCED), 0,
+                               jnp.zeros((1, 64, 64, 3)))
     model = create_model("promptir", device="cpu", **REDUCED)
     sd = state_dict_from_flax(variables, model)
     torch.save({"state_dict": {"net." + k: v for k, v in sd.items()},

@@ -17,6 +17,7 @@ import pytest
 from PIL import Image
 
 from promptir_tpu_torch.cli import train
+from test_torch_train import one_torch_thread  # noqa: F401 (a fixture)
 
 TINY = ["--device", "cpu", "--num_blocks", "1", "1", "1", "1",
         "--num_refinement_blocks", "1"]

@@ -1,11 +1,11 @@
 """The weight bridge: flax param tree -> the port's state_dict."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from jax_init import init_variables
 from promptir_tpu.compat.torch_ckpt import convert_state_dict
 from promptir_tpu.models import create_model as jax_create_model
 from promptir_tpu_torch import create_model
@@ -26,8 +26,8 @@ def test_golden_round_trip_is_identical(golden):
 
 def test_jax_initialised_reduced_promptir_loads_strict():
     kw = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
-    variables = jax_create_model("promptir", **kw).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))
+    variables = init_variables(jax_create_model("promptir", **kw), 0,
+                               jnp.zeros((1, 16, 16, 3)))
     model = create_model("promptir", device="cpu", **kw)
     result = model.load_state_dict(state_dict_from_flax(variables, model),
                                    strict=True)

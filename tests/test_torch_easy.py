@@ -47,23 +47,14 @@ from promptir_tpu_torch.ops.easy import (
 from promptir_tpu_torch.serve.engine import InferenceEngine, pad_image_np
 from promptir_tpu_torch.train.losses import l1_loss
 from test_torch_precision import BF16_MODEL_TOL
-from test_torch_train import GRAD_TOL
+from test_torch_train import (  # noqa: F401 (one_torch_thread: a fixture)
+    GRAD_TOL,
+    one_torch_thread,
+)
 
 NAME = "easypromptxrestormer"
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 SHAPE = (2, 32, 56, 3)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The port's side on one intra-op thread: its tensors are small, and
-    where the tier-1 run's workers share the host, every op of PyTorch's
-    many threads waits at its barrier for threads the other workers hold
-    (a default-NAFNet training step took 118 s so against 3 s alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ shared helpers

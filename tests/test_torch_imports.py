@@ -58,6 +58,7 @@ NEW_MODULES = [
     "promptir_tpu_torch.models.prompt_uformer",
     "promptir_tpu_torch.ops.flow_warp", "promptir_tpu_torch.ops.camixer",
     "promptir_tpu_torch.models.camixer_prompt_uformer",
+    "promptir_tpu_torch.models.camixer_models",
 ]
 # Blocks JAX, PIL and the JAX package, imports the evaluation and training
 # surface, reads a committed JPEG fixture and a BMP written by hand, and

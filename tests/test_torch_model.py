@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_init import init_variables
 from promptir_tpu.compat.torch_ckpt import convert_state_dict
 from promptir_tpu.models import create_model as jax_create_model
 from promptir_tpu_torch import create_model
@@ -48,8 +49,10 @@ def test_reduced_promptir_matches_jax_nonsquare_batch2():
     non-square batch-2 input (no golden covers this shape)."""
     x = np.random.default_rng(0).uniform(size=(2, 32, 48, 3)).astype(np.float32)
     jmodel = jax_create_model("promptir", **REDUCED)
-    variables = jmodel.init(jax.random.PRNGKey(3), jnp.asarray(x))
-    ref = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    variables = init_variables(jmodel, 3, jnp.asarray(x))
+    # jitted: within 1.2e-7 of the eager forward (a tenth of the bound is
+    # 1e-5), which compiles op by op
+    ref = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     model = create_model("promptir", device="cpu", **REDUCED)
     model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
     with torch.no_grad():
@@ -79,8 +82,18 @@ def test_create_model_defaults_to_the_card():
 
 
 def test_unported_model_points_to_roadmap():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        create_model("capromptxrestormereff", device="cpu")
+    """Every model of the JAX package is ported: a name outside the registry
+    raises the JAX registry's "unknown model" error, listing the models."""
+    with pytest.raises(KeyError, match="unknown model 'restormer'.*promptir"):
+        create_model("restormer", device="cpu")
+
+
+def test_available_models_equal_jax():
+    from promptir_tpu.models import available_models as jax_available_models
+    from promptir_tpu_torch.models import available_models
+
+    assert available_models() == jax_available_models()
+    assert len(available_models()) == 12
 
 
 def test_golden_state_dict_matches_jax_converter_keys(golden):

@@ -186,7 +186,7 @@ def test_padded_global_residual_is_rounded_by_jitted_jax(jax_side):
     test_torch_bf16_route.py's global residual test). The port sums in
     float32 at every size, off the grid (ROADMAP.md Queue 3; its distance
     from JAX: test_reduced_model_matches_jax_bf16)."""
-    from test_torch_bf16_route import on_bf16_grid
+    from test_torch_precision import on_bf16_grid
 
     x, _, variables, ref, _ = jax_side
     y = forward_np(port_model(NAME, REDUCED, variables, dtype=torch.bfloat16), x)

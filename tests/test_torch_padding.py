@@ -23,11 +23,15 @@ def test_padding_matches_jax(hw, base):
 
 
 @pytest.mark.parametrize("name", ["promptir", "xrestormerir", "promptxrestormerir",
-                                  "promptuformerir", "capromptuformerir"])
+                                  "promptuformerir", "capromptuformerir",
+                                  "capromptxrestormereff",
+                                  "capromptxrestormereffv2",
+                                  "catapromptxrestormer"])
 def test_pad_bases_match_jax_on_one_chip(name):
     assert padding.pad_bases(name) == jax_pad_bases(name, 1)
 
 
 def test_pad_bases_of_an_unported_model_raise():
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        padding.pad_bases("capromptxrestormereff")
+    """Every model is ported: a name outside the registry raises."""
+    with pytest.raises(KeyError, match="unknown model 'restormer'"):
+        padding.pad_bases("restormer")

@@ -7,6 +7,9 @@
     BF16_MODEL_TOL; measured 7.8125e-3 in every case, one bf16 ulp at the
     outputs near 1 (the forwards end in bf16: output conv + input image).
     PromptGenBlock follows the JAX dtype order (ops/prompt.py).
+  * the models' global residual is summed in float32, as XLA computes it in
+    the JAX package's jitted bf16 forward (the eager forwards above are
+    shared with that test).
   * float32 work runs with TF32 off in a scope that restores the caller's
     settings (precision.py).
   * every kernel wrapper launches on its tensor's card: it makes that card
@@ -23,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_init import init_variables
 from promptir_tpu.models import create_model as jax_create_model
 from promptir_tpu_torch import create_model
 from promptir_tpu_torch.compat.jax_params import state_dict_from_flax
@@ -38,8 +42,8 @@ BF16_MODEL_TOL = 1.5625e-2  # two bf16 ulps at 1.0; measured one
 def jax_bf16(name):
     """(input, flax variables, the JAX bf16 output) of reduced `name`."""
     x = np.random.default_rng(0).uniform(size=SHAPES[name]).astype(np.float32)
-    variables = jax_create_model(name, **REDUCED).init(jax.random.PRNGKey(3),
-                                                       jnp.asarray(x))
+    variables = init_variables(jax_create_model(name, **REDUCED), 3,
+                               jnp.asarray(x))
     jmodel = jax_create_model(name, dtype=jnp.bfloat16, fused_ffn=False,
                               **REDUCED)
     return x, variables, np.asarray(jmodel.apply(variables, jnp.asarray(x)))
@@ -61,6 +65,69 @@ def test_bf16_model_matches_jax_bf16(name, train):
     assert y.dtype == torch.float32
     err = np.abs(y.numpy().transpose(0, 2, 3, 1) - ref).max()
     assert err <= BF16_MODEL_TOL, err
+
+
+def on_bf16_grid(a):
+    """Share of the values of float32 array a that bf16 holds exactly."""
+    return float(np.mean(a == np.asarray(
+        jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))))
+
+
+@pytest.mark.parametrize("name,shape", [("promptir", (2, 32, 48, 3)),
+                                        ("promptxrestormerir", (2, 64, 128, 3)),
+                                        ("easypromptxrestormer", (2, 32, 48, 3)),
+                                        ("nafnet", (2, 32, 48, 3))])
+def test_global_residual_sums_in_float32_as_jitted_jax(name, shape):
+    """The JAX models end in `(out + inp.astype(out.dtype)).astype(float32)`
+    (promptir_tpu/models/promptir.py:397), a bf16 sum. Eager, every output
+    lies on the bf16 grid; jitted, most lie off it, because XLA keeps the
+    sum in float32 (its excess precision; with
+    --xla_allow_excess_precision=false the jitted outputs lie on the grid
+    too). The port sums the bf16 output conv and the bf16 input in float32,
+    and lands closer to the jitted forward than the same sum rounded to
+    bf16. Reduced models, the weights of test_torch_precision.py; measured
+    on the grid 0.256 / 0.276 jitted, mean |port - jitted| 4.37e-4 against
+    8.02e-4 rounded (promptir), 1.20e-3 against 1.65e-3
+    (promptxrestormerir). The attention-free family ends the same way
+    (promptir_tpu/models/easy_promptxrestormer.py:136, nafnet.py:82-83),
+    its weights seeded as in tests/test_torch_easy.py (an eager init of the
+    reduced Easy model takes ~46 s); their eager forwards are not run (the
+    same last line as PromptIR's, and ~40 s and ~13 s of op-by-op compiles
+    here). The kernel models' eager forwards are jax_bf16's, shared with
+    test_bf16_model_matches_jax_bf16 (the same input, variables and
+    model). NAFNet at a multiple of 16: where it
+    pads the input inside and crops the output, the jitted JAX forward
+    rounds the sum to bf16 before the crop
+    (test_torch_nafnet.py::test_padded_global_residual_is_rounded_by_jitted_jax)."""
+    reduced = REDUCED
+    jax_only = dict(fused_ffn=False)
+    kernel_model = name in SHAPES
+    if kernel_model:  # the eager bf16 forward of the test above
+        x, variables, eager = jax_bf16(name)
+        assert x.shape == shape
+    else:
+        from test_torch_easy import jax_variables
+
+        x = np.random.default_rng(0).uniform(size=shape).astype(np.float32)
+        jax_only = {}
+        if name == "nafnet":
+            reduced = dict(width=16, middle_blk_num=1, enc_blk_nums=(1, 1, 1, 1),
+                           dec_blk_nums=(1, 1, 1, 1))
+        variables = jax_variables(name, reduced, shape, 3)
+    jmodel = jax_create_model(name, dtype=jnp.bfloat16, **jax_only, **reduced)
+    jitted = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
+    assert on_bf16_grid(jitted) < 0.5
+    if kernel_model:
+        assert on_bf16_grid(eager) == 1.0
+
+    model = create_model(name, device="cpu", dtype=torch.bfloat16, **reduced)
+    model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
+    with torch.no_grad():
+        y = model(torch.from_numpy(x.transpose(0, 3, 1, 2)))
+    y = y.numpy().transpose(0, 2, 3, 1)
+    rounded = np.asarray(jnp.asarray(y).astype(jnp.bfloat16).astype(jnp.float32))
+    assert on_bf16_grid(y) < 0.5
+    assert np.abs(y - jitted).mean() < np.abs(rounded - jitted).mean()
 
 
 def test_prompt_gen_rounds_as_jax_does():

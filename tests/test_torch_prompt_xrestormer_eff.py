@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_init import init_variables
 from promptir_tpu.models import create_model as jax_create_model
 from promptir_tpu.train.losses import l1_loss as jax_l1_loss
 from promptir_tpu_torch import create_model
@@ -34,7 +35,10 @@ from promptir_tpu_torch.models.prompt_xrestormer_eff import (
 from promptir_tpu_torch.serve.engine import InferenceEngine, pad_image_np
 from promptir_tpu_torch.train.losses import l1_loss
 from test_torch_precision import BF16_MODEL_TOL
-from test_torch_train import GRAD_TOL
+from test_torch_train import (  # noqa: F401 (one_torch_thread: a fixture)
+    GRAD_TOL,
+    one_torch_thread,
+)
 
 NAME = "promptxrestormereffir"
 GOLDENS = pathlib.Path(__file__).resolve().parent / "goldens"
@@ -77,8 +81,8 @@ def jax_side():
     rng = np.random.default_rng(3)
     x = rng.uniform(size=(2, 64, 128, 3)).astype(np.float32)
     y = rng.uniform(size=(2, 64, 128, 3)).astype(np.float32)
-    variables = jax_create_model(NAME, **TRAIN_REDUCED).init(
-        jax.random.PRNGKey(4), jnp.asarray(x[:1, :, :64]))
+    variables = init_variables(jax_create_model(NAME, **TRAIN_REDUCED), 4,
+                               jnp.asarray(x[:1, :, :64]))
     out = {}
     for dt in (jnp.float32, jnp.bfloat16):
         jmodel = jax_create_model(NAME, dtype=dt, **TRAIN_REDUCED)

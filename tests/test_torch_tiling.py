@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_init import init_variables
 from promptir_tpu.eval import tiling as jtiling
 from promptir_tpu.models import create_model as jax_create_model
 from promptir_tpu_torch import create_model
@@ -101,7 +102,7 @@ def chained():
     same flax-initialised weights."""
     x = np.random.default_rng(0).uniform(size=(1, 80, 72, 3)).astype(np.float32)
     jmodel = jax_create_model("promptir", **CHAINED)
-    variables = jmodel.init(jax.random.PRNGKey(3), jnp.zeros((1, 32, 32, 3)))
+    variables = init_variables(jmodel, 3, jnp.zeros((1, 32, 32, 3)))
     fn = jax.jit(lambda p, v: jmodel.apply(p, v))
     ref = np.asarray(jtiling.tiled_inference(fn, variables, jnp.asarray(x),
                                              **TILED))

@@ -292,7 +292,7 @@ def test_global_residual_sums_in_float32_as_jitted_jax(jax_side):
     lands closer to it than the same sum rounded to bf16 (measured mean
     |port - JAX| 8.3e-4 against 1.24e-3), as the port's other models do
     (tests/test_torch_bf16_route.py)."""
-    from test_torch_bf16_route import on_bf16_grid
+    from test_torch_precision import on_bf16_grid
 
     x, _, variables, ref, _ = jax_side[0]
     y = forward_np(port_model(NAME, REDUCED, variables, dtype=torch.bfloat16,

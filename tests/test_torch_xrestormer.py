@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_init import init_variables
 from promptir_tpu.models import create_model as jax_create_model
 from promptir_tpu.models.xrestormer import XTransformerBlock as JaxXBlock
 from promptir_tpu.ops.ocab import OCAB as JaxOCAB
@@ -21,6 +22,7 @@ from promptir_tpu_torch.models.prompt_xrestormer import PromptXBlock
 from promptir_tpu_torch.models.xrestormer import XTransformerBlock
 from promptir_tpu_torch.ops.ocab import OCAB, extract_overlapping_windows
 from promptir_tpu_torch.serve.engine import InferenceEngine
+from test_torch_train import one_torch_thread  # noqa: F401 (a fixture)
 
 GOLDENS = pathlib.Path(__file__).resolve().parent / "goldens"
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
@@ -135,7 +137,7 @@ def test_reduced_promptxrestormer_matches_jax_nonsquare_batch2():
     x = np.random.default_rng(3).uniform(size=(2, 64, 128, 3)).astype(np.float32)
     kw = dict(TRAIN, **REDUCED)
     jmodel = jax_create_model("promptxrestormerir", **kw)
-    variables = jmodel.init(jax.random.PRNGKey(4), jnp.asarray(x[:1, :64, :64]))
+    variables = init_variables(jmodel, 4, jnp.asarray(x[:1, :64, :64]))
     ref = np.asarray(jax.jit(jmodel.apply)(variables, jnp.asarray(x)))
     model = create_model("promptxrestormerir", device="cpu", **kw)
     model.load_state_dict(state_dict_from_flax(variables, model), strict=True)
