@@ -46,7 +46,10 @@ Phases, each printed with the seconds since start:
      block pair of the promptir stacks at both serving buckets and at the
      tiler's B8 128x128, against its plain version and against the
      two-kernel sequence (block_tail then mdta_stats), whose x3 it must
-     equal bit for bit;
+     equal bit for bit; LnBlock (the --fused training block) at every block
+     shape of the training step in float32 and bf16: its output and its
+     gradients through the kernels against the same Function on the plain
+     versions;
   4. the reference's own 64 px outputs reproduced in float32 through the
      kernels: full-depth PromptIR (tests/goldens/promptir_full.npz) block
      by block and with fused_ffn=True (through tail_stats), and
@@ -94,7 +97,12 @@ Phases, each printed with the seconds since start:
      Gumbel routing, its ratio term and mean decision printed), and the
      three CAMixer X-Restormers in the training config (their kernel
      launches a step gated, their ratio and hard-ratio terms printed), the
-     same steps;
+     same steps; and the JAX trainer's modes (TRAIN_MODES): promptir with
+     fused_ffn (LnBlock a block), remat and remat_levels (1, 2), and
+     promptxrestormerir with fused_ffn, bf16, exact launches a step, each
+     second step's loss held to its default route's (GRAD_TOL; a stale
+     bf16 copy of a weight would leave it at the first step's), step ms and
+     peak memory beside the default's;
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
@@ -110,7 +118,8 @@ Phases, each printed with the seconds since start:
      Gram kernel at the wide shapes; tail_stats at every block pair of the
      promptir stacks at B4 256x256 and B8 128x128, with its tile, beside
      the two-kernel sequence it replaces, and the chained route's decision
-     (CHAIN_RATIO, CHAIN_FORWARD_MS);
+     (CHAIN_RATIO, CHAIN_FORWARD_MS); block_tail also at the --fused
+     training forward's shapes (B6 128x128), with its bound;
  10. the user-facing inference surface on a synthetic PNG corpus at the
      all-in-one test sets' sizes (BSD68 481x321 and 321x481, Rain100L,
      SOTS outdoor 550x413; the targets written by the port's save_image,
@@ -123,8 +132,10 @@ Phases, each printed with the seconds since start:
      easypromptxrestormer, nafnet, promptuformerir and capromptuformerir
      (no launch; the Uformers with --pad_base 128: 384x512), --mode 1 bf16
      with the three CAMixer X-Restormers (default config, pad base 64,
-     their launches a forward counted from the model), cli/demo.py
-     plain and tiled,
+     their launches a forward counted from the model), NIQE on the host
+     (cli/fit_niqe.py on clean PNGs; a clean image scored below its
+     sigma = 50 copy; compute_niqe of the restored images, timed),
+     cli/demo.py plain and tiled,
      and cli/serve.py's HTTP server answering two PNG requests; each run
      held against the same run through the plain route (forward by
      forward, or on the uint8 images it writes);
@@ -146,7 +157,9 @@ Phases, each printed with the seconds since start:
      loader keeps up; the host's decode of a JPEG and a BMP; every
      committed JPEG fixture decoded bit for bit as the PIL decode stored
      beside it, every PNG of the corpus by the C++ reader as by the plain
-     one, and the native samples' crops and dihedrals as numpy's.
+     one, and the native samples' crops and dihedrals as numpy's; then
+     cli/train.py --synthetic for one epoch with --fused and with --remat
+     --remat_levels 1 2 (TRAIN_CLI_MODES), exact launches a step.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 
@@ -163,6 +176,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -343,6 +357,25 @@ XR_TRAIN_PER_STEP = [31, 0, 62, 0, 31, 0, 15]
 # and one LnGdfn each; so the CAMixer v1 and v2 models; CATA's 28 hard
 # branches LnGdfn, LnMdta and LnGdfn, its Easy prompt blocks nothing
 EFF_TRAIN_PER_STEP = [31, 0, 59, 0, 31, 0, 15]
+# the JAX trainer's --fused and --remat modes (promptir_tpu/cli/train.py):
+# (label, model, kwargs, launches a step, the default run it is held to).
+# fused_ffn trains each block as one LnBlock: mdta_stats and block_tail
+# forward, no kernel in its backward (promptir 47 blocks; promptxrestormerir
+# 31 channel halves, its 31 spatial FFNs LnGdfn); remat checkpoints each
+# block, whose LnMdta and LnGdfn run again in the backward (94 = 2 x 47);
+# remat_levels (1, 2) only the 25 blocks at widths d and 2d (72 = 47 + 25;
+# the Gram kernel's two wide noise blocks are levels 4 and 3). The modes
+# count from the model on the CPU as tests/test_torch_fused_train.py does.
+TRAIN_MODES = [
+    ("fused", "promptir", dict(fused_ffn=True), [47, 47, 0, 1, 0, 0, 2],
+     "promptir"),
+    ("remat", "promptir", dict(remat=True), [94, 0, 94, 1, 94, 0, 4],
+     "promptir"),
+    ("remat_levels 1 2", "promptir", dict(remat=True, remat_levels=(1, 2)),
+     [72, 0, 72, 1, 72, 0, 2], "promptir"),
+    ("fused", "promptxrestormerir", dict(XR_TRAIN, fused_ffn=True),
+     [31, 31, 31, 0, 0, 0, 15], "promptxrestormerir"),
+]
 CA_TRAIN_PER_STEP = {"capromptxrestormereff": EFF_TRAIN_PER_STEP,
                      "capromptxrestormereffv2": EFF_TRAIN_PER_STEP,
                      "catapromptxrestormer": [28, 0, 56, 0, 28, 0, 12]}
@@ -416,6 +449,11 @@ EVAL_FORWARDS = 10
 TRAIN_CLI_HW = (321, 481)
 TRAIN_CLI_SAMPLES = 2 * 9 + 120 + 1
 TRAIN_CLI_STEPS = TRAIN_CLI_SAMPLES // TRAIN_BATCH
+# phase 11's runs of the JAX trainer's memory flags: (label, flags,
+# launches a step), the counts of TRAIN_MODES
+TRAIN_CLI_MODES = [("fused", ["--fused"], [47, 47, 0, 1, 0, 0, 2]),
+                   ("remat_levels 1 2", ["--remat", "--remat_levels", "1", "2"],
+                    [72, 0, 72, 1, 72, 0, 2])]
 JPEG_FIXTURES = ROOT / "tests" / "torch_fixtures" / "jpeg"
 # every image's PSNR (dB) and SSIM through the kernels against the plain
 # route, fp32; the offline PSNR of the dumped (truncated uint8) PNGs against
@@ -1293,6 +1331,7 @@ def plain_route():
     swaps = [
         (blocks, "LnMdta", SimpleNamespace(apply=autodiff.plain_ln_mdta)),
         (blocks, "LnGdfn", SimpleNamespace(apply=autodiff.plain_ln_gdfn)),
+        (blocks, "LnBlock", SimpleNamespace(apply=autodiff.plain_ln_block)),
         (blocks, "mdta_stats", mdta.mdta_stats_plain),
         (blocks, "block_tail", block.block_tail_plain),
         (blocks, "tail_stats", megablock.tail_stats_plain),
@@ -1303,6 +1342,68 @@ def plain_route():
         for mod, name, fn in swaps:
             stack.enter_context(mock.patch.object(mod, name, fn))
         yield
+
+
+def check_ln_block_grads(counters, reset):
+    """LnBlock (the --fused training route's block) at every block shape of
+    the training step (B6 128x128), in float32 (TF32 off) and bf16: its
+    output and the gradient of 0.5 |out|^2 for x and every weight, through
+    the kernels (mdta_stats, block_tail) against the same Function with the
+    kernels swapped for their plain versions. The backward is the plain
+    composition either way, so the gradients differ only through the
+    forward's output. Returns {dtype: (worst output error, worst gradient
+    error)}, each over max |plain|."""
+    from promptir_tpu_torch.ops import autodiff
+    from promptir_tpu_torch.ops.cuda import block, mdta
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    names = ("ln1w", "ln1b", "wqkv", "wdw", "wproj", "temp", "ln2w", "ln2b",
+             "w1", "wdwf", "w2")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst[dtype] = [0.0, 0.0]
+        for shape, _ in block_shapes(*TRAIN_HW):
+            a = block_inputs(shape, dtype, gen, TRAIN_BATCH)
+            ins = [a["x"]] + [a[k] for k in names]
+
+            def run(plain):
+                leaves = [t.detach().clone().requires_grad_() for t in ins]
+                swaps = ([mock.patch.object(autodiff, "mdta_stats",
+                                            mdta.mdta_stats_plain),
+                          mock.patch.object(autodiff, "block_tail",
+                                            block.block_tail_plain)]
+                         if plain else [])
+                with contextlib.ExitStack() as stack:
+                    for sw in swaps:
+                        stack.enter_context(sw)
+                    out = autodiff.LnBlock.apply(*leaves, a["heads"], False,
+                                                 1e-5)
+                    (0.5 * out.float().square().sum()).backward()
+                torch.cuda.synchronize()
+                return out.detach(), [t.grad for t in leaves]
+
+            before = counters()
+            out_k, g_k = run(False)
+            ran = [x - y for x, y in zip(counters(), before)]
+            out_p, g_p = run(True)
+            if ran[:2] != [1, 1] or any(ran[2:-1]):
+                fail(f"LnBlock at {shape} {dtype} launched {ran}")
+            _, ro = rel_err(out_k, out_p)
+            rg = max(rel_err(a_, b_)[1] for a_, b_ in zip(g_k, g_p))
+            if not all(torch.isfinite(g).all() for g in g_k):
+                fail(f"LnBlock's gradient is not finite at {shape} {dtype}")
+            worst[dtype] = [max(worst[dtype][0], ro), max(worst[dtype][1], rg)]
+        tol = TOL[dtype]
+        say(f"check LnBlock {str(dtype)[6:]}: the {len(block_shapes(*TRAIN_HW))} "
+            f"block shapes of B{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+            f"output through the kernels off the plain versions' by at most "
+            f"{worst[dtype][0]:.2e} of max |plain|, the gradients of x and "
+            f"every weight by {worst[dtype][1]:.2e} (tolerance {tol})")
+        if not (worst[dtype][0] <= tol and worst[dtype][1] <= tol):
+            fail(f"LnBlock through the kernels is off its plain version in "
+                 f"{dtype}: {worst[dtype]}")
+    reset()  # a comparison, not the main path
+    return worst
 
 
 def check_grads(port, counters, reset):
@@ -1352,8 +1453,9 @@ def check_grads(port, counters, reset):
 def train(port, counters, reset, card):
     """Full-depth PromptIR: AdamW steps on one fixed batch of six 128x128
     synthetic patches, float32 (TF32 off) and bf16 compute with float32
-    weights; then full-depth promptxrestormerir and promptxrestormereffir in
-    their training config, and the attention-free family's default
+    weights, and bf16 in each of TRAIN_MODES' promptir modes; then
+    full-depth promptxrestormerir (and its fused_ffn mode) and
+    promptxrestormereffir in their training config, and the attention-free family's default
     easypromptxrestormer and nafnet (NAFNet starting as an identity: beta
     and gamma 0) and the Uformer family's default promptuformerir and
     capromptuformerir (its routing sampled, its mean decision printed),
@@ -1369,15 +1471,25 @@ def train(port, counters, reset, card):
     reset()
     total = [0] * len(KERNELS)
     served = [0] * len(KERNELS)
-    runs = [("promptir", {}, torch.float32, TRAIN_PER_STEP),
-            ("promptir", {}, torch.bfloat16, TRAIN_PER_STEP),
-            ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP),
-            (EFF, XR_TRAIN, torch.bfloat16, EFF_TRAIN_PER_STEP)] + [
-            (name, {}, torch.bfloat16, [0] * len(KERNELS))
+    # (name, kwargs, dtype, launches a step, mode label, default run held to)
+    modes = {ref: [(label, name, kw, per_step, ref)
+                   for label, name, kw, per_step, r in TRAIN_MODES if r == ref]
+             for ref in ("promptir", "promptxrestormerir")}
+    runs = [("promptir", {}, torch.float32, TRAIN_PER_STEP, None, None),
+            ("promptir", {}, torch.bfloat16, TRAIN_PER_STEP, None, None)] + [
+            (name, kw, torch.bfloat16, per_step, label, ref)
+            for label, name, kw, per_step, ref in modes["promptir"]] + [
+            ("promptxrestormerir", XR_TRAIN, torch.bfloat16, XR_TRAIN_PER_STEP,
+             None, None)] + [
+            (name, kw, torch.bfloat16, per_step, label, ref)
+            for label, name, kw, per_step, ref in modes["promptxrestormerir"]] + [
+            (EFF, XR_TRAIN, torch.bfloat16, EFF_TRAIN_PER_STEP, None, None)] + [
+            (name, {}, torch.bfloat16, [0] * len(KERNELS), None, None)
             for name in NO_KERNEL] + [
-            (name, XR_TRAIN, torch.bfloat16, CA_TRAIN_PER_STEP[name])
+            (name, XR_TRAIN, torch.bfloat16, CA_TRAIN_PER_STEP[name], None, None)
             for name in CA_XR]
-    for name, kw, dtype, per_step in runs:
+    default_bf16 = {}  # name: (losses, step ms, peak bytes) of its default run
+    for name, kw, dtype, per_step, label, ref in runs:
         torch.manual_seed(0)
         model = port.create_model(name, device="cuda", dtype=dtype,
                                   train=True, **kw)
@@ -1411,7 +1523,9 @@ def train(port, counters, reset, card):
         hook.remove()
         peak = torch.cuda.max_memory_allocated()
         ms = float(np.median(times))
-        say(f"train: full-depth {name} ({n_params} params, fp32 weights) "
+        say(f"train: full-depth {name}"
+            + (f" --{label}" if label else "")
+            + f" ({n_params} params, fp32 weights) "
             f"{str(dtype)[6:]} compute, AdamW lr 2e-4, B{TRAIN_BATCH} "
             f"{TRAIN_HW[0]}x{TRAIN_HW[1]} on one fixed batch: loss "
             f"{', '.join(f'{v:.5f}' for v in losses)}; step {ms:.1f} ms "
@@ -1444,8 +1558,25 @@ def train(port, counters, reset, card):
                     0.0 <= v <= 0.25 for t in terms for v in t):
                 fail(f"{name}'s steps gave routing terms {terms}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-            fail(f"{name} training loss did not fall on a fixed batch: {losses}")
-        if name == "promptir" and dtype == torch.bfloat16:
+            fail(f"{name} {label or ''} training loss did not fall on a fixed "
+                 f"batch: {losses}")
+        if label is None and dtype == torch.bfloat16:
+            default_bf16[name] = (losses, ms, peak)
+        if label is not None:
+            # the second step's loss is the first update's: a stale bf16
+            # copy of a weight would leave it at the first step's
+            d_losses, d_ms, d_peak = default_bf16[ref]
+            gap = abs(losses[1] - d_losses[1]) / d_losses[1]
+            say(f"train: {name} --{label} against the default route: second "
+                f"step's loss {losses[1]:.6f} vs {d_losses[1]:.6f} (first "
+                f"{losses[0]:.6f} vs {d_losses[0]:.6f}), {gap:.2e} apart "
+                f"(gate {GRAD_TOL}); step {ms:.1f} vs {d_ms:.1f} ms "
+                f"({ms / d_ms:.2f}x), peak memory {peak / 2**30:.2f} vs "
+                f"{d_peak / 2**30:.2f} GiB ({peak / d_peak:.2f}x) on {card}")
+            if not gap <= GRAD_TOL:
+                fail(f"{name} --{label}'s second step's loss is {gap:.2e} "
+                     f"from the default route's")
+        if name == "promptir" and dtype == torch.bfloat16 and label is None:
             served = serve_trained(model, counters, card)
         del model, st, step
         torch.cuda.empty_cache()
@@ -1815,7 +1946,8 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     (batch 8, 128x128); with mdta_stats' per-shape line (route, tile) and
     the Gram kernel's at the wide shapes. A kernel at a shape and batch that
     an earlier path timed keeps that time (promptxrestormereffir's shapes
-    are promptxrestormerir's)."""
+    are promptxrestormerir's; the --fused training forward's mdta_stats is
+    the training forward's)."""
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     paths = {
@@ -1826,6 +1958,10 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
         EFF: (eff_block_shapes(*BUCKETS[0]), BATCH, ()),
         "train": (block_shapes(*TRAIN_HW), TRAIN_BATCH,
                   ("mdta_stats", "ln_mdta", "ln_gdfn")),
+        # --fused training: each block's LnBlock forward (its mdta_stats
+        # timed above, at the same shapes)
+        "train_fused": (block_shapes(*TRAIN_HW), TRAIN_BATCH,
+                        ("mdta_stats", "block_tail")),
         "tiled": (block_shapes(TILE, TILE), TILE_CHUNK,
                   ("mdta_stats", "block_tail")),
     }
@@ -1907,7 +2043,7 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                 t["library_ms"] += n * lib
                 t["ops"] += n * ops
                 t["bytes"] += n * nbytes
-        if path == "train":
+        if path in ("train", "train_fused"):
             continue
         # the split tails (block_tail's and tail_stats's) write the hidden
         # tensor and x2 and read them back: traffic the one-pass TPU kernels
@@ -1932,7 +2068,7 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
             library_ms=time_ms(lambda: torch.cat([F.pixel_shuffle(yc, 2), sc], 1)),
             ops=0, bytes=2 * (y.numel() + skip.numel() + 2 * skip.numel()),
         )
-    for path in ("promptir", "tiled"):
+    for path in ("promptir", "tiled", "train_fused"):
         rows = [r for r in tails if r[0] == path]
         say(f"time block_tail per shape of the {path} path's "
             f"{sum(r[3] for r in rows)} blocks (bf16; tail_a on 64 "
@@ -2286,6 +2422,50 @@ def serve_http(root, counters, reset, card):
     return ran
 
 
+def check_niqe(root, restored_dir):
+    """NIQE on the host: cli/fit_niqe.py fits the pristine model on six
+    clean synthetic 192x192 PNGs written into the corpus; the model scores a
+    held-out clean image below its sigma = 50 copy (tests/test_eval.py:163);
+    compute_niqe, pointed at the model by PROMPTIR_NIQE_MODEL, scores the
+    restored images that cli/test.py dumped, timed."""
+    from promptir_tpu_torch.cli import fit_niqe
+    from promptir_tpu_torch.data.synthetic import synth_clean_image
+    from promptir_tpu_torch.eval import niqe
+    from promptir_tpu_torch.eval.metrics import compute_niqe
+    from promptir_tpu_torch.utils.png import read_png, write_png
+
+    pristine, path = root / "pristine", root / "niqe_model.npz"
+    pristine.mkdir()
+    for seed in range(6):
+        write_png(str(pristine / f"{seed}.png"), synth_clean_image(seed, 192, 192))
+    t0 = time.perf_counter()
+    fit_niqe.main([str(pristine), "--out", str(path)])
+    fit_s = time.perf_counter() - t0
+    model = niqe.load_niqe_model(str(path))
+    clean = synth_clean_image(99, 192, 192).astype(np.float64) / 255.0
+    noise = np.random.default_rng(1).normal(0, 50 / 255.0, clean.shape)
+    s_clean = niqe.niqe(clean, model)
+    s_noisy = niqe.niqe(np.clip(clean + noise, 0, 1), model)
+    restored = sorted(restored_dir.glob("*.png"))
+    with mock.patch.dict(os.environ, {"PROMPTIR_NIQE_MODEL": str(path)}):
+        t0 = time.perf_counter()
+        scores = [compute_niqe(read_png(str(p)) / 255.0) for p in restored]
+        score_s = time.perf_counter() - t0
+    shapes = [read_png(str(p)).shape[:2] for p in restored]
+    say(f"eval: NIQE: cli.fit_niqe on 6 clean 192x192 PNGs in {fit_s:.2f} s; "
+        f"a held-out clean image {s_clean:.4f}, its sigma=50 copy "
+        f"{s_noisy:.4f}; compute_niqe of the {len(restored)} restored "
+        f"denoise_15 images {shapes}: "
+        + ", ".join(f"{v:.4f}" for v in scores)
+        + f" in {score_s:.2f} s on the host ({score_s / len(scores):.2f} s an "
+        "image)")
+    if not (np.isfinite(s_clean) and s_noisy > s_clean):
+        fail(f"NIQE does not order the clean image ({s_clean}) below its "
+             f"noisy copy ({s_noisy})")
+    if len(scores) != 2 or not np.isfinite(scores).all():
+        fail(f"compute_niqe of the restored images gave {scores}")
+
+
 def evaluate(port, mdta, counters, reset, card):
     """Phase 10: the user-facing inference surface on the card, on a
     synthetic corpus at the test sets' sizes with seed-0 full-depth promptir
@@ -2382,6 +2562,7 @@ def evaluate(port, mdta, counters, reset, card):
             f"quantization; tolerance {EVAL_OFFLINE_TOL})")
         if not gap <= EVAL_OFFLINE_TOL:
             fail(f"offline PSNR {gap:.4f} dB from the runner's")
+        check_niqe(root, root / "out_fp32" / "denoise_15")
 
         # bf16: a warm-up run of the same images, the timed run, then the
         # same run through the plain route
@@ -2945,6 +3126,49 @@ def train_cli(counters, reset, card):
     return total
 
 
+def train_cli_mode(counters, card, label, flags, per_step):
+    """cli/train.py --synthetic for one epoch with the JAX trainer's memory
+    flags: full-depth promptir, bf16, B6 128x128 (64 synthetic patches, 10
+    steps, the short last batch dropped); exact launches a step, finite
+    losses.
+    Returns the launches."""
+    from promptir_tpu_torch.cli import train as train_cli_mod
+
+    root = ROOT / "logs" / "chip_smoke_train_mode"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        with step_spy(counters) as rec:
+            trainer = train_cli_mod.main(
+                ["--synthetic", "--epochs", "1", "--dtype", "bfloat16",
+                 "--batch_size", str(TRAIN_BATCH), "--patch_size",
+                 str(TRAIN_HW[0]), "--ckpt_dir", str(root / "ckpt"),
+                 "--log_dir", str(root / "logs"), *flags])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ran = counters()
+    steps = len(trainer.dataset) // TRAIN_BATCH
+    step_ms = float(np.median(rec.ms[TRAIN_WARMUP:]))
+    say(f"train_cli {' '.join(flags)}: cli/train.py --synthetic, full-depth "
+        f"promptir bf16, {len(trainer.dataset)} patches in {len(rec.ran)} steps "
+        f"of B{TRAIN_BATCH} {TRAIN_HW[0]}x{TRAIN_HW[1]}: losses "
+        f"{rec.loss[0]:.5f} .. {rec.loss[-1]:.5f}; step {step_ms:.1f} ms "
+        f"(median of CUDA events, {TRAIN_WARMUP} warm-up left out), "
+        f"{TRAIN_BATCH * 1e3 / step_ms:.2f} images/s; run "
+        f"{wall:.1f} s with model build; launches {LAUNCH_NAMES} a step "
+        f"{per_step}, {ran} in all on {card}")
+    if len(rec.ran) != steps or not all(r == per_step for r in rec.ran):
+        fail(f"cli/train.py {' '.join(flags)} launched {rec.ran}, not "
+             f"{steps} x {per_step}")
+    if ran != [steps * n for n in per_step]:
+        fail(f"cli/train.py {' '.join(flags)} launched {ran} in all")
+    if not all(np.isfinite(rec.loss)):
+        fail(f"cli/train.py {' '.join(flags)} gave losses {rec.loss}")
+    return ran
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> None:
@@ -2996,6 +3220,7 @@ def main() -> None:
 
     with exact_float32(torch.float32):
         worst = check_kernels(mdta, block, gdfn, seam, megablock)
+        check_ln_block_grads(counters, reset)
     for golden in GOLDENS:
         check_golden(port, counters, *golden)
     check_bf16_forward(port, counters, reset)
@@ -3023,6 +3248,10 @@ def main() -> None:
     launches["eval"] = evaluate(port, mdta, counters, reset, card)
     reset()
     launches["train_cli"] = train_cli(counters, reset, card)
+    for label, flags, per_step in TRAIN_CLI_MODES:
+        reset()
+        launches[f"train_cli {label}"] = train_cli_mode(
+            counters, card, label, flags, per_step)
 
     replaces = {
         "mdta_stats": ("promptir_tpu_torch/csrc/mdta_stats.cu",

@@ -32,8 +32,10 @@ def add_model_args(p: argparse.ArgumentParser, dtype: str = "float32") -> None:
     p.add_argument("--num_blocks", type=int, nargs=4, default=None)
     p.add_argument("--num_refinement_blocks", type=int, default=None)
     p.add_argument("--fused", action="store_true",
-                   help="promptir only: chain the level stacks through the "
-                        "merged tail + stats kernel (fused_ffn=True)")
+                   help="fused_ffn=True: promptir chains its level stacks "
+                        "through the merged tail + stats kernel; the "
+                        "X-Restormer family takes it and serves as without "
+                        "it; other models refuse it")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu: the kernels' plain versions")
 
@@ -86,10 +88,7 @@ def model_kwargs(args) -> dict:
           "device": args.device}
     kw.update(size_kwargs(args.num_blocks, args.num_refinement_blocks,
                           getattr(args, "dim", None)))
-    if args.fused:
-        if args.model != "promptir":
-            raise SystemExit(f"--fused is not ported for {args.model!r} "
-                             "(promptir only; see ROADMAP.md)")
+    if args.fused:  # create_model refuses it where the model has no such option
         kw["fused_ffn"] = True
     return kw
 

@@ -4,8 +4,9 @@ Counterpart of promptir_tpu/cli/train.py, flag for flag (the reference's
 options.py:1-39 and train.py:303-341): `--model`, `--de_type`, `--epochs`,
 `--batch_size`, `--lr`, `--patch_size`, the corpus and checkpoint paths,
 `--resume`, `--wblogger`, the epoch-end evaluation, `--profile_dir`,
-`--synthetic` and the model-size overrides, plus `--device` (default
-`cuda`; `cpu` runs the kernels' plain versions). Trains on the all-in-one
+`--synthetic`, the model-size overrides and the memory knobs `--fused`,
+`--remat` and `--remat_levels`, plus `--device` (default `cuda`; `cpu`
+runs the kernels' plain versions). Trains on the all-in-one
 corpora in the reference's layout (data/datasets.py:PromptTrainDataset, on
 its native path, as the JAX CLI does: the JAX CLI has no flag for it):
 
@@ -13,9 +14,12 @@ its native path, as the JAX CLI does: the JAX CLI has no flag for it):
       --data_file_dir data_dir/ --denoise_dir data/Train/Denoise/ \\
       --derain_dir data/Train/Derain/ --dehaze_dir data/Train/Dehaze/
 
-The JAX package's mesh and memory knobs have no counterpart yet: a
-non-default `--n_data`, `--remat`, `--remat_levels` or `--fused` exits
-non-zero naming its ROADMAP.md item, and is never ignored.
+`--fused` trains every TransformerBlock as one LnBlock (mdta_stats and
+block_tail forward, the whole block recomputed backward; the PromptIR and
+X-Restormer families), `--remat` checkpoints PromptIR's blocks, and
+`--remat_levels 1 2` only those of levels 1 and 2. The JAX package's mesh
+has no counterpart yet: a non-default `--n_data` exits non-zero naming its
+ROADMAP.md item, and is never ignored.
 """
 
 from __future__ import annotations
@@ -26,14 +30,6 @@ import sys
 # flag -> why it is refused, with the ROADMAP.md item that ports it
 REFUSED = {
     "n_data": "data parallelism is not ported yet (ROADMAP.md Queue 1 item 5)",
-    "remat": "the remat options are not ported yet (ROADMAP.md Queue 3, "
-             "missing model options): the port's blocks already recompute "
-             "their branch in the backward (ops/autodiff.py)",
-    "remat_levels": "the remat options are not ported yet (ROADMAP.md "
-                    "Queue 3, missing model options)",
-    "fused": "training through fused_ffn is not ported (ROADMAP.md Queue 3, "
-             "missing model options): the port trains through its kernels "
-             "by default",
 }
 
 
@@ -64,10 +60,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--n_data", type=int, default=None,
                    help="data-parallel size: not ported (refused)")
-    p.add_argument("--remat", action="store_true", help="not ported (refused)")
+    p.add_argument("--remat", action="store_true",
+                   help="checkpoint PromptIR's transformer blocks: their "
+                        "forward runs again in the backward")
     p.add_argument("--remat_levels", type=int, nargs="*", default=None,
-                   help="not ported (refused)")
-    p.add_argument("--fused", action="store_true", help="not ported (refused)")
+                   help="with --remat: checkpoint only these U-Net levels "
+                        "(1=dim .. 4=latent)")
+    p.add_argument("--fused", action="store_true",
+                   help="train every transformer block as one autograd "
+                        "Function through mdta_stats and block_tail (the "
+                        "PromptIR and X-Restormer families)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler trace of training steps 2-7 here")
     p.add_argument("--synthetic", action="store_true",
@@ -133,6 +135,9 @@ def main(argv=None):
     cfg.system.device = args.device
     cfg.system.compute_dtype = args.dtype
     cfg.system.profile_dir = args.profile_dir
+    cfg.system.remat = args.remat
+    if args.remat_levels is not None:
+        cfg.system.remat_levels = tuple(args.remat_levels)
 
     if args.synthetic:
         from promptir_tpu_torch.data.synthetic import SyntheticTrainDataset
@@ -154,7 +159,13 @@ def main(argv=None):
 
     model = None
     kw = size_kwargs(args.num_blocks, args.num_refinement_blocks, args.dim)
-    if kw:
+    if kw or args.fused:
+        if args.fused:
+            kw["fused_ffn"] = True
+        if args.remat:  # keep remat when the CLI builds the model
+            kw["remat"] = True
+            if args.remat_levels is not None:
+                kw["remat_levels"] = tuple(args.remat_levels)
         torch.manual_seed(args.seed)
         model = create_model(args.model, device=args.device,
                              dtype=DTYPES[args.dtype], train=True, **kw)

@@ -10,10 +10,10 @@ corpora:
   python -m promptir_tpu_torch.cli.train_demo --epochs 3 --batch 4 --dtype bfloat16
 
 A reduced-depth PromptIR (num_blocks (2, 3, 3, 4), 2 refinement blocks, as
-TRAIN_DEMO.md) unless --full. The JAX tool's --fused and --remat have no
-counterpart: the port always trains through its kernels, and each block's
-backward already recomputes its branch (ops/autodiff.py). Exits non-zero
-when the held-out PSNR does not rise. Runs on the card unless --device cpu.
+TRAIN_DEMO.md) unless --full. `--fused` trains each block as one LnBlock
+(mdta_stats and block_tail forward) and `--remat` checkpoints the blocks,
+as the JAX tool's flags do. Exits non-zero when the held-out PSNR does not
+rise. Runs on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -48,6 +48,8 @@ def main(argv=None) -> dict:
     p.add_argument("--lr", type=float, default=2e-4)
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--fused", action="store_true")
+    p.add_argument("--remat", action="store_true")
     p.add_argument("--full", action="store_true",
                    help="full 35.6M-param PromptIR")
     p.add_argument("--device", default="cuda")
@@ -78,6 +80,10 @@ def main(argv=None) -> dict:
 
     kw = {} if args.full else dict(num_blocks=(2, 3, 3, 4),
                                    num_refinement_blocks=2)
+    if args.fused:
+        kw["fused_ffn"] = True
+    if args.remat:
+        kw["remat"] = True
     torch.manual_seed(args.seed)
     model = create_model("promptir", device=args.device,
                          dtype=DTYPES[args.dtype], train=True, **kw)

@@ -56,6 +56,8 @@ class SystemConfig:
     device: str = "cuda"  # "cpu" runs the kernels' plain versions
     compute_dtype: str = "float32"  # or "bfloat16" (float32 master weights)
     profile_dir: Optional[str] = None  # torch.profiler trace of steps 2-7
+    remat: bool = False  # checkpoint the transformer blocks (PromptIR)
+    remat_levels: Optional[tuple] = None  # restrict remat to these levels
 
 
 @dataclass

@@ -15,11 +15,13 @@ everything is computed in float32, per batch element:
     SAME zero padding, depthwise, the mean over everything.
 These are plain PyTorch (`F.avg_pool2d`, a depthwise `F.conv2d` with TF32
 off): no TPU kernel computes them. `AverageMeter` and `Timer` are the reference's
-(val_utils.py:8-26, 76-97). NIQE waits (ROADMAP.md Queue 1).
+(val_utils.py:8-26, 76-97). `compute_niqe` scores NIQE on the host
+through eval/niqe.py, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
@@ -103,6 +105,31 @@ def gaussian_ssim(img1: torch.Tensor, img2: torch.Tensor,
     m = ((2 * mu12 + c1) * (2 * s12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (s1 + s2 + c2))
     return m.mean(dim=(1, 2, 3))
+
+
+def compute_niqe(image, model=None) -> float:
+    """NIQE (reference utils/val_utils.py:69-74 via skvideo) of an HxW or
+    HxWx3 image in [0, 1].
+
+    Runs the published algorithm (eval/niqe.py, a copy of
+    promptir_tpu/eval/niqe.py) against the pristine model at
+    `PROMPTIR_NIQE_MODEL`, else the package's `niqe_model.npz`, unless
+    `model` is given. When neither file exists and skvideo is installed,
+    its bundled parameters are used, for score parity with the
+    reference."""
+    import numpy as np
+
+    from promptir_tpu_torch.eval import niqe as _niqe
+
+    arr = np.clip(np.asarray(image), 0, 1)
+    if model is None and not os.path.exists(_niqe._default_model_path()):
+        try:
+            from skvideo.measure import niqe as sk_niqe  # type: ignore
+
+            return float(sk_niqe(arr).mean())
+        except ImportError:
+            pass  # fall through to our implementation's error message
+    return _niqe.niqe(arr, model=model)
 
 
 class Timer:

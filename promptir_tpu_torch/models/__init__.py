@@ -40,7 +40,9 @@ def create_model(name: str, *, device="cuda", dtype=torch.float32,
     JAX models do with `dtype=bfloat16`; the model is in train mode.
 
     Raises when `device` is a CUDA device and no card is present: the port
-    never falls back to the CPU unless the caller asks for it.
+    never falls back to the CPU unless the caller asks for it, and, as the
+    JAX registry does, a ValueError when `fused_ffn=True` goes to a model
+    without that option (any but the PromptIR and X-Restormer families).
     """
     if name not in _REGISTRY:
         raise KeyError(
@@ -51,7 +53,16 @@ def create_model(name: str, *, device="cuda", dtype=torch.float32,
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the plain versions"
         )
-    model = _REGISTRY[name](**kwargs)
+    try:
+        model = _REGISTRY[name](**kwargs)
+    except TypeError as e:
+        if "fused_ffn" in str(e) and kwargs.get("fused_ffn"):
+            raise ValueError(
+                f"model {name!r} has no fused Pallas path (fused_ffn/"
+                "--fused is supported by the PromptIR and X-Restormer "
+                "families)"
+            ) from e
+        raise
     if not train:
         return model.to(device=device, dtype=dtype).eval()
     model = model.to(device=device, dtype=torch.float32).train()

@@ -5,7 +5,7 @@ Counterpart of promptir_tpu/models/blocks.py. A block computes
 `block_forward` replaces the JAX package's `fused_block_apply` and
 `apply_block_stack`, on NHWC views of a channels_last input. It takes the
 block's four modules explicitly, so the X-Restormer block's channel half
-(norm1, channel_attn, norm2, channel_ffn) runs through it too. It has two
+(norm1, channel_attn, norm2, channel_ffn) runs through it too. It has three
 routes, chosen by what the caller asks of autograd:
   * inference (no gradient recorded): the stats kernel, the tiny softmax and
     the block tail, the whole-block route (`ln_block`, autodiff.py:286);
@@ -14,16 +14,29 @@ routes, chosen by what the caller asks of autograd:
     (stats, softmax, the apply kernel) then `LnGdfn`. Each saves only its
     input and weights and recomputes its branch in the backward, so x2 is
     the saved boundary between the two branches' backward passes and no
-    backward recompute spans the whole block.
+    backward recompute spans the whole block;
+  * training with `whole` (the models' `fused_ffn`, as the JAX package's
+    fused blocks train through `ln_block`, blocks.py:135): `LnBlock`, the
+    inference route's kernels forward, and one recompute of the whole block
+    in the backward, from its input and weights alone.
+`run_block` adds the JAX models' `remat` (nn.remat of a TransformerBlock,
+promptir.py:58-120): under autograd a block that is not `whole` runs under
+a non-reentrant `torch.utils.checkpoint`, so its forward's saved tensors
+are dropped and the forward (its kernels included) runs again in the
+backward. The reentrant form would run the first forward without grad, on
+the inference route, and recompute on the training route. A whole block
+is never wrapped: LnBlock is its own remat boundary, as JAX's fused blocks
+are (promptir.py:81-90).
 The JAX package picks between its routes by whether a stripe fits VMEM
 (autodiff.py:256 block_fits). A Hopper block has no VMEM budget to copy;
 the port picks by mode, and never falls back.
 `run_stack` replaces `apply_block_stack` (blocks.py:254) for a stack of
-TransformerBlocks: `block_forward` per block, or, when the caller asks for
+TransformerBlocks: `run_block` per block, or, when the caller asks for
 the chain (PromptIR's `fused_ffn`) and autograd does not record, block n's
 tail and block n+1's stats pass in one `tail_stats` (ops/cuda/megablock.py),
 so that a stack of n blocks runs one mdta_stats, n - 1 tail_stats and one
-block_tail.
+block_tail. Under autograd the chain becomes `whole` blocks: the
+tail_stats chain is inference only.
 `gdfn_forward` replaces `fused_gdfn_apply` (blocks.py:188): x + GDFN(LN(x))
 through the LN+GDFN kernel, under `LnGdfn` when autograd records.
 Weights are cast to the activations' dtype at use, so a model with float32
@@ -37,9 +50,10 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from promptir_tpu_torch.ops.attention import MDTA
-from promptir_tpu_torch.ops.autodiff import LnGdfn, LnMdta
+from promptir_tpu_torch.ops.autodiff import LnBlock, LnGdfn, LnMdta
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.cuda.block import block_tail
 from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn
@@ -71,13 +85,17 @@ def _cast(dt, *ws):
 
 
 def block_forward(norm1: LayerNorm, attn: MDTA, norm2: LayerNorm, ffn: GDFN,
-                  xh):
-    """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)) on NHWC `xh`."""
+                  xh, whole: bool = False):
+    """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)) on NHWC `xh`; under
+    autograd through LnBlock with `whole`, else LnMdta then LnGdfn."""
     wa = (norm1.body.weight, norm1.body.bias, attn.qkv.weight,
           attn.qkv_dwconv.weight, attn.project_out.weight)
     wf = (norm2.body.weight, norm2.body.bias, ffn.project_in.weight,
           ffn.dwconv.weight, ffn.project_out.weight)
     if records_grad(xh, *wa, attn.temperature, *wf):
+        if whole:
+            return LnBlock.apply(xh, *wa, attn.temperature, *wf,
+                                 attn.num_heads, norm1.bias_free, norm1.eps)
         x2 = LnMdta.apply(xh, *wa, attn.temperature, attn.num_heads,
                           norm1.bias_free, norm1.eps)
         return LnGdfn.apply(x2, *wf, norm2.bias_free, norm2.eps)
@@ -100,16 +118,27 @@ def _tail_weights(blk, dt):
                  blk.ffn.dwconv.weight, blk.ffn.project_out.weight)
 
 
-def run_stack(stack, xh, chain: bool = False):
+def run_block(blk, xh, whole: bool = False, remat: bool = False):
+    """TransformerBlock `blk` on NHWC `xh` through `block_forward`; under
+    autograd, with `remat` and without `whole`, inside a non-reentrant
+    checkpoint."""
+    args = (blk.norm1, blk.attn, blk.norm2, blk.ffn, xh)
+    if remat and not whole and records_grad(xh, *blk.parameters()):
+        return checkpoint(block_forward, *args, use_reentrant=False)
+    return block_forward(*args, whole=whole)
+
+
+def run_stack(stack, xh, chain: bool = False, remat: bool = False):
     """The blocks of `stack` (an nn.Sequential of TransformerBlocks) on NHWC
     `xh`. With `chain`, and without autograd, two or more blocks run
     chained: mdta_stats of block 0; for each n, block n's softmax, then its
     tail fused with block n+1's stats pass (`tail_stats`); block_tail of the
-    last block. Otherwise each block runs `block_forward`."""
+    last block. Otherwise each block runs `run_block`, `whole` when the
+    chain was asked for, under a checkpoint with `remat`."""
     blocks = list(stack)
     if not chain or len(blocks) < 2 or records_grad(xh, *stack.parameters()):
         for blk in blocks:
-            xh = block_forward(blk.norm1, blk.attn, blk.norm2, blk.ffn, xh)
+            xh = run_block(blk, xh, whole=chain, remat=remat)
         return xh
     dt = xh.dtype
     first = blocks[0]

@@ -26,13 +26,15 @@ class PromptXBlock(PromptGenBlock):
                  lin_dim: int, window_size: int = 8,
                  overlap_ratio: float = 0.5, num_channel_heads: int = 1,
                  num_spatial_heads: int = 2, spatial_dim_head: int = 16,
-                 expansion: float = 2.66, bias_free_norm: bool = False):
+                 expansion: float = 2.66, bias_free_norm: bool = False,
+                 fused_ffn: bool = False):
         super().__init__(prompt_dim, prompt_len, prompt_size, lin_dim,
                          align_corners=True)
         dim = lin_dim + prompt_dim
         self.attn = XTransformerBlock(
             dim, window_size, overlap_ratio, num_channel_heads,
-            num_spatial_heads, spatial_dim_head, expansion, bias_free_norm)
+            num_spatial_heads, spatial_dim_head, expansion, bias_free_norm,
+            fused_ffn)
         self.conv = Conv(dim, lin_dim, 3)
 
     def forward(self, x):
@@ -56,7 +58,8 @@ class PromptXRestormer(XRestormer):
                 prompt_dim, 5, prompt_size, lin_dim, window_size=8,
                 overlap_ratio=0.5, num_channel_heads=1,
                 num_spatial_heads=sp_heads, spatial_dim_head=spatial_dim_head,
-                expansion=expansion, bias_free_norm=bias_free_norm)
+                expansion=expansion, bias_free_norm=bias_free_norm,
+                fused_ffn=self.fused_ffn)
 
         self.prompt3 = block(320, 16, 8 * d, 8)
         self.prompt2 = block(128, 32, 4 * d, 4)

@@ -13,9 +13,10 @@ Upsample(4d)`, `reduce_chan_level3: 6d -> 4d`). Registered as
 A ChannelTransformerBlock is a TransformerBlock under the names
 norm1/channel_attn/norm2/channel_ffn, so it runs through
 `blocks.block_forward`: mdta_stats and block_tail served, LnMdta and
-LnGdfn under autograd. The widened blocks are as wide as 8d + 320, 4d + 128
-and 2d + 64 channels (704, 320 and 160 at d = 48). Not ported: the
-`scale > 1` pre-upscale, as for `xrestormerir`.
+LnGdfn under autograd, or one LnBlock with `fused_ffn` (as every channel
+half of the model then trains). The widened blocks are as wide as
+8d + 320, 4d + 128 and 2d + 64 channels (704, 320 and 160 at d = 48). Not
+ported: the `scale > 1` pre-upscale, as for `xrestormerir`.
 """
 
 from __future__ import annotations
@@ -38,8 +39,10 @@ class ChannelTransformerBlock(nn.Module):
     """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)), bias-free convs."""
 
     def __init__(self, dim: int, num_channel_heads: int = 1,
-                 expansion: float = 2.66, bias_free_norm: bool = False):
+                 expansion: float = 2.66, bias_free_norm: bool = False,
+                 fused_ffn: bool = False):
         super().__init__()
+        self.fused_ffn = fused_ffn
         self.norm1 = LayerNorm(dim, bias_free_norm)
         self.channel_attn = MDTA(dim, num_channel_heads)
         self.norm2 = LayerNorm(dim, bias_free_norm)
@@ -47,7 +50,8 @@ class ChannelTransformerBlock(nn.Module):
 
     def forward(self, x):
         return nchw(block_forward(self.norm1, self.channel_attn, self.norm2,
-                                  self.channel_ffn, nhwc(x)))
+                                  self.channel_ffn, nhwc(x),
+                                  whole=self.fused_ffn))
 
 
 class PromptXRestormerEff(XRestormer):
@@ -73,7 +77,7 @@ class PromptXRestormerEff(XRestormer):
                                          1: (64, 64, 2 * d)}.items():
             setattr(self, f"prompt{level}", PromptGenBlock(pdim, 5, size, lin))
             setattr(self, f"noise_level{level}", ChannelTransformerBlock(
-                lin + pdim, 1, expansion, bias_free_norm))
+                lin + pdim, 1, expansion, bias_free_norm, self.fused_ffn))
             out = 4 * d if level > 1 else 2 * d
             setattr(self, f"reduce_noise_level{level}", Conv(lin + pdim, out))
 

@@ -16,7 +16,18 @@ Activations are NCHW in channels_last memory, so the blocks' kernels see
 contiguous NHWC views. The eight level stacks run through
 `blocks.run_stack`: block by block (mdta_stats, then block_tail, served),
 or with `fused_ffn=True`, served, chained through the merged tail + stats
-kernel, 36 launches of it a forward at full depth.
+kernel, 36 launches of it a forward at full depth. In training,
+`fused_ffn=True` runs every block, the three noise blocks included, as one
+`LnBlock` (mdta_stats and block_tail forward, the whole block recomputed
+backward), as the JAX model trains its fused blocks; without it each block
+runs LnMdta then LnGdfn. `remat` and `remat_levels` are the JAX model's
+(promptir.py:58-120): a block at a remat level runs under a non-reentrant
+checkpoint (blocks.run_block), a fused block never. A stack's level is its
+width's: d -> 1, 2d -> 2, 4d -> 3, 8d -> 4, so decoder level 1 and the
+refinement are level 2; the noise blocks are levels 4, 3 and 2.
+With `decoder=False` the model has no prompts, noise blocks or
+reduce_noise_level convs, and up4_3's conv reads the latent's 8d channels,
+as flax infers it (the dead convs stay).
 The level-1 decoder entry runs through the seam kernel (under `Seam`,
 which carries its gradient): up2_1's conv, then pixel-shuffle and the skip
 concat in one pass.
@@ -28,7 +39,7 @@ model with `dtype=bfloat16`; precision.py), else in the weights' dtype.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -39,6 +50,7 @@ from promptir_tpu_torch.models.blocks import (
     TransformerBlock,
     nchw,
     nhwc,
+    run_block,
     run_stack,
 )
 from promptir_tpu_torch.ops.autodiff import Seam
@@ -54,14 +66,22 @@ class PromptIR(nn.Module):
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_refinement_blocks: int = 4,
                  heads: Sequence[int] = (1, 2, 4, 8), expansion: float = 2.66,
-                 bias_free_norm: bool = False, fused_ffn: bool = False):
+                 bias_free_norm: bool = False, decoder: bool = True,
+                 fused_ffn: bool = False, remat: bool = False,
+                 remat_levels: Optional[Sequence[int]] = None):
         """`fused_ffn` is named after the JAX model's option
         (promptir_tpu/models/promptir.py:57, 162), which ties the chained
-        stacks to its fused FFN kernel. Every route of the port runs the
-        kernels, so here it selects only the chaining of the level stacks
-        (blocks.run_stack, tail_stats); without it each block runs alone."""
+        stacks to its fused kernels. Every route of the port runs the
+        kernels, so here it selects, served, the chaining of the level
+        stacks (blocks.run_stack, tail_stats), and in training the
+        whole-block LnBlock; without it each block runs alone, or as LnMdta
+        then LnGdfn. `remat_levels=None` with `remat` checkpoints every
+        level."""
         super().__init__()
         self.fused_ffn = fused_ffn
+        self.remat = remat
+        self.remat_levels = None if remat_levels is None else tuple(remat_levels)
+        self.decoder = decoder
         d, nb, hs = dim, num_blocks, heads
 
         def stack(n, c, h):
@@ -90,24 +110,28 @@ class PromptIR(nn.Module):
         self.down3_4 = Downsample(4 * d)
         self.latent = stack(nb[3], 8 * d, hs[3])
 
-        self.prompt1 = PromptGenBlock(64, 5, 64, 2 * d)
-        self.prompt2 = PromptGenBlock(128, 5, 32, 4 * d)
-        self.prompt3 = PromptGenBlock(320, 5, 16, 8 * d)
-
-        self.noise_level3 = block(8 * d + 320, hs[2])
-        self.reduce_noise_level3 = Conv(8 * d + 320, 4 * d)
+        if decoder:
+            self.prompt1 = PromptGenBlock(64, 5, 64, 2 * d)
+            self.prompt2 = PromptGenBlock(128, 5, 32, 4 * d)
+            self.prompt3 = PromptGenBlock(320, 5, 16, 8 * d)
+            self.noise_level3 = block(8 * d + 320, hs[2])
+            self.reduce_noise_level3 = Conv(8 * d + 320, 4 * d)
         self.up4_3 = Upsample(4 * d)
+        if not decoder:
+            self.up4_3.body[0] = Conv(8 * d, 8 * d, 3)
         self.reduce_chan_level3 = Conv(2 * d + 4 * d, 4 * d)
         self.decoder_level3 = stack(nb[2], 4 * d, hs[2])
 
-        self.noise_level2 = block(4 * d + 128, hs[2])
-        self.reduce_noise_level2 = Conv(4 * d + 128, 4 * d)
+        if decoder:
+            self.noise_level2 = block(4 * d + 128, hs[2])
+            self.reduce_noise_level2 = Conv(4 * d + 128, 4 * d)
         self.up3_2 = Upsample(4 * d)
         self.reduce_chan_level2 = Conv(4 * d, 2 * d)
         self.decoder_level2 = stack(nb[1], 2 * d, hs[1])
 
-        self.noise_level1 = block(2 * d + 64, hs[2])
-        self.reduce_noise_level1 = Conv(2 * d + 64, 2 * d)
+        if decoder:
+            self.noise_level1 = block(2 * d + 64, hs[2])
+            self.reduce_noise_level1 = Conv(2 * d + 64, 2 * d)
         self.up2_1 = Upsample(2 * d)
         self.decoder_level1 = stack(nb[0], 2 * d, hs[0])
         self.refinement = stack(num_refinement_blocks, 2 * d, hs[0])
@@ -120,29 +144,38 @@ class PromptIR(nn.Module):
         inp = inp_img.to(dt).contiguous(memory_format=torch.channels_last)
         cat = torch.cat
 
-        def run(s, x):
-            return nchw(run_stack(s, nhwc(x), self.fused_ffn))
+        def remat(level):
+            return self.remat and (self.remat_levels is None
+                                   or level in self.remat_levels)
 
-        enc1 = run(self.encoder_level1, self.patch_embed(inp))
-        enc2 = run(self.encoder_level2, self.down1_2(enc1))
-        enc3 = run(self.encoder_level3, self.down2_3(enc2))
-        x = run(self.latent, self.down3_4(enc3))
+        def run(s, x, level):
+            return nchw(run_stack(s, nhwc(x), self.fused_ffn, remat(level)))
 
-        x = self.noise_level3(cat([x, self.prompt3(x)], 1))
-        x = self.reduce_noise_level3(x)
+        def prompt(level, x):
+            """The prompt interaction after `level`; its noise block is at
+            remat level `level + 1` (JAX's promptir.py:242, 313, 325)."""
+            if not self.decoder:
+                return x
+            p = getattr(self, f"prompt{level}")(x)
+            x = nchw(run_block(getattr(self, f"noise_level{level}"),
+                               nhwc(cat([x, p], 1)), self.fused_ffn,
+                               remat(level + 1)))
+            return getattr(self, f"reduce_noise_level{level}")(x)
+
+        enc1 = run(self.encoder_level1, self.patch_embed(inp), 1)
+        enc2 = run(self.encoder_level2, self.down1_2(enc1), 2)
+        enc3 = run(self.encoder_level3, self.down2_3(enc2), 3)
+        x = prompt(3, run(self.latent, self.down3_4(enc3), 4))
+
         x = self.reduce_chan_level3(cat([self.up4_3(x), enc3], 1))
-        x = run(self.decoder_level3, x)
+        x = prompt(2, run(self.decoder_level3, x, 3))
 
-        x = self.noise_level2(cat([x, self.prompt2(x)], 1))
-        x = self.reduce_noise_level2(x)
         x = self.reduce_chan_level2(cat([self.up3_2(x), enc2], 1))
-        x = run(self.decoder_level2, x)
+        x = prompt(1, run(self.decoder_level2, x, 2))
 
-        x = self.noise_level1(cat([x, self.prompt1(x)], 1))
-        x = self.reduce_noise_level1(x)
         # up2_1's conv, then pixel-shuffle + skip concat in one seam pass
         x = nchw(Seam.apply(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
-        x = run(self.refinement, run(self.decoder_level1, x))
+        x = run(self.refinement, run(self.decoder_level1, x, 2), 2)
         # the global residual in float32, as the JAX package's jitted forward
         # computes it (XLA keeps the bf16 sum in f32 before the final cast)
         return self.output(x).float() + inp.float()

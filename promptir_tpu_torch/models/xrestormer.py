@@ -10,7 +10,10 @@ with `strict=True`.
 A block's channel half runs through the stats and tail kernels
 (`block_forward`), its spatial FFN through the LN+GDFN kernel
 (`gdfn_forward`); OCAB is plain PyTorch, as the JAX package leaves it to
-XLA. The skip concatenations are `torch.cat`, as in the JAX model: the seam
+XLA. `fused_ffn` is the JAX model's option (xrestormer.py:36-75): served it
+changes nothing, since the channel half always runs the whole-block route;
+under autograd it trains the channel half as one `LnBlock` in place of
+LnMdta then LnGdfn. The skip concatenations are `torch.cat`, as in the JAX model: the seam
 kernel does not run here. Not ported: the `scale > 1` bilinear pre-upscale
 and conv biases (`use_bias`); the reference's all-in-one configs use
 neither.
@@ -47,8 +50,10 @@ class XTransformerBlock(nn.Module):
     def __init__(self, dim: int, window_size: int = 8,
                  overlap_ratio: float = 0.5, num_channel_heads: int = 1,
                  num_spatial_heads: int = 2, spatial_dim_head: int = 16,
-                 expansion: float = 2.66, bias_free_norm: bool = False):
+                 expansion: float = 2.66, bias_free_norm: bool = False,
+                 fused_ffn: bool = False):
         super().__init__()
+        self.fused_ffn = fused_ffn
         self.norm1 = LayerNorm(dim, bias_free_norm)
         self.channel_attn = MDTA(dim, num_channel_heads)
         self.norm2 = LayerNorm(dim, bias_free_norm)
@@ -61,7 +66,7 @@ class XTransformerBlock(nn.Module):
 
     def forward(self, x):
         xh = block_forward(self.norm1, self.channel_attn, self.norm2,
-                           self.channel_ffn, nhwc(x))
+                           self.channel_ffn, nhwc(x), whole=self.fused_ffn)
         n3 = self.norm3
         y = layernorm_nhwc(xh, n3.body.weight, n3.body.bias,
                            bias_free=n3.bias_free, eps=n3.eps)
@@ -77,13 +82,16 @@ class XRestormer(nn.Module):
                  spatial_heads: Sequence[int] = (2, 2, 3, 4),
                  overlap_ratio: Sequence[float] = (0.5, 0.5, 0.5, 0.5),
                  window_size: int = 8, spatial_dim_head: int = 16,
-                 expansion: float = 2.66, bias_free_norm: bool = False):
+                 expansion: float = 2.66, bias_free_norm: bool = False,
+                 fused_ffn: bool = False):
         super().__init__()
         d, nb = dim, num_blocks
         self.window_size = window_size
+        self.fused_ffn = fused_ffn
         block_kw = dict(window_size=window_size,
                         spatial_dim_head=spatial_dim_head,
-                        expansion=expansion, bias_free_norm=bias_free_norm)
+                        expansion=expansion, bias_free_norm=bias_free_norm,
+                        fused_ffn=fused_ffn)
 
         def stack(n, c, level):
             return nn.Sequential(*[

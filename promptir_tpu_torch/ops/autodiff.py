@@ -11,6 +11,12 @@ composition gives them in the JAX package:
     through `plain_ln_mdta` (xla_ln_mdta, autodiff.py:89);
   * `LnGdfn`: x + GDFN(LN(x)) through ops/cuda/gdfn.py:ln_gdfn; backward
     through `plain_ln_gdfn` (xla_ln_gdfn, autodiff.py:78);
+  * `LnBlock`: the whole TransformerBlock, x2 = x + MDTA(LN1(x)) then
+    x2 + GDFN(LN2(x2)), through mdta_stats, the softmax and block_tail
+    (the route blocks.py:block_forward serves by); backward through
+    `plain_ln_block`, plain_ln_mdta then plain_ln_gdfn (_ln_block,
+    autodiff.py:165-203). It saves only x and the weights, so the whole
+    block is recomputed in its backward: it is its own remat boundary;
   * `Seam`: the decoder level-1 seam through ops/cuda/seam.py:seam; backward
     through `seam_plain` (_xla_seam, seam.py:137), i.e. the inverse data
     movement.
@@ -36,8 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from promptir_tpu_torch.ops.conv import dwconv3x3_nhwc
+from promptir_tpu_torch.ops.cuda.block import block_tail
 from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn
-from promptir_tpu_torch.ops.cuda.mdta import ln_mdta
+from promptir_tpu_torch.ops.cuda.mdta import attn_from_stats, ln_mdta, mdta_stats
 from promptir_tpu_torch.ops.cuda.seam import seam, seam_plain
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
 
@@ -80,6 +87,16 @@ def plain_ln_gdfn(x, lnw, lnb, w1, wdw, w2, bias_free: bool = False,
     hid = y @ w1.to(dt).reshape(2 * f, c).t()
     g1, g2 = dwconv3x3_nhwc(hid, wdw.to(dt)).split(f, dim=-1)
     return x + (F.gelu(g1) * g2) @ w2.to(dt).reshape(c, f).t()
+
+
+def plain_ln_block(x, ln1w, ln1b, wqkv, wdwa, wproj, temp, ln2w, ln2b, w1,
+                   wdwf, w2, num_heads: int, bias_free: bool = False,
+                   eps: float = 1e-5):
+    """Unfused TransformerBlock on NHWC `x`: plain_ln_mdta, then
+    plain_ln_gdfn on its output."""
+    x2 = plain_ln_mdta(x, ln1w, ln1b, wqkv, wdwa, wproj, temp, num_heads,
+                       bias_free, eps)
+    return plain_ln_gdfn(x2, ln2w, ln2b, w1, wdwf, w2, bias_free, eps)
 
 
 def _recompute_grads(ctx, fn, grad_out, *config):
@@ -131,6 +148,33 @@ class LnGdfn(torch.autograd.Function):
     def backward(ctx, g):
         grads = _recompute_grads(ctx, plain_ln_gdfn, g, *ctx.config)
         return (*grads, None, None)
+
+
+class LnBlock(torch.autograd.Function):
+    """The whole TransformerBlock: mdta_stats, the softmax and block_tail
+    forward, the plain composition's gradient backward. The weights reach
+    the kernels as fresh casts to x's dtype, so no cached bf16 copy of a
+    weight that an optimizer step has changed in place is ever read."""
+
+    @staticmethod
+    def forward(ctx, x, ln1w, ln1b, wqkv, wdwa, wproj, temp, ln2w, ln2b, w1,
+                wdwf, w2, num_heads, bias_free, eps):
+        ctx.config = (num_heads, bias_free, eps)
+        ctx.save_for_backward(x, ln1w, ln1b, wqkv, wdwa, wproj, temp, ln2w,
+                              ln2b, w1, wdwf, w2)
+        dt = x.dtype
+        v, stats = mdta_stats(x, ln1w.to(dt), _cast(ln1b, dt), wqkv.to(dt),
+                              wdwa.to(dt), num_heads, bias_free=bias_free,
+                              eps=eps)
+        attn = attn_from_stats(stats, temp)
+        return block_tail(v, x, attn, wproj.to(dt), ln2w.to(dt),
+                          _cast(ln2b, dt), w1.to(dt), wdwf.to(dt), w2.to(dt),
+                          bias_free=bias_free, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = _recompute_grads(ctx, plain_ln_block, g, *ctx.config)
+        return (*grads, None, None, None)
 
 
 class Seam(torch.autograd.Function):

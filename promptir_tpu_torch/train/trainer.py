@@ -84,13 +84,21 @@ class Trainer:
         default `cfg.train.model` on `cfg.system.device`, computing in
         `cfg.system.compute_dtype`, its weights drawn from `cfg.train.seed`.
         `eval_hook(eval_step, model) -> dict` runs every
-        `cfg.train.eval_every_epochs` epochs and its metrics are logged."""
+        `cfg.train.eval_every_epochs` epochs and its metrics are logged.
+        `cfg.system.remat` (and `remat_levels`) go to the default model as
+        the JAX trainer passes them (trainer.py:51-54); a model without
+        those options raises its TypeError."""
         self.cfg = cfg
         if model is None:
+            model_kw = {}
+            if cfg.system.remat:
+                model_kw["remat"] = True
+                if cfg.system.remat_levels:
+                    model_kw["remat_levels"] = tuple(cfg.system.remat_levels)
             torch.manual_seed(cfg.train.seed)
             model = create_model(cfg.train.model, device=cfg.system.device,
                                  dtype=DTYPES[cfg.system.compute_dtype],
-                                 train=True)
+                                 train=True, **model_kw)
         self.model = model
         self.device = next(model.parameters()).device
         self.dataset = dataset

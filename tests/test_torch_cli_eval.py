@@ -173,9 +173,18 @@ def test_a_checkpoint_with_a_wrong_key_raises_naming_it(weights, tmp_path):
 
 
 def test_fused_is_refused_for_the_xrestormer_family():
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_test.main(["--mode", "1", "--model", "promptxrestormerir",
-                       "--fused", *TINY])
+    """`--fused` reaches create_model as fused_ffn=True for every model: the
+    X-Restormer family takes it now (its channel halves then train as one
+    LnBlock; served, nothing changes), and a model without the option
+    refuses it with the JAX registry's ValueError."""
+    args = cli_test.build_parser().parse_args(
+        ["--model", "promptxrestormerir", "--fused", *TINY])
+    model = cli_test.build_model(args)
+    halves = [m for m in model.modules() if hasattr(m, "channel_attn")]
+    assert halves and all(m.fused_ffn for m in halves)
+    with pytest.raises(ValueError, match="no fused Pallas path"):
+        cli_test.main(["--mode", "1", "--model", "nafnet", "--fused",
+                       "--derain_path", "unused", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name", ["promptir", "promptxrestormerir"])

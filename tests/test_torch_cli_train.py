@@ -6,7 +6,11 @@
     evaluation and the profiler window write their records; a second run
     with `--resume latest` continues at epoch 1;
   * `--synthetic` trains without a corpus;
-  * each flag the port does not run yet exits non-zero with its message.
+  * `--fused`, and `--remat --remat_levels 1 2`, train an epoch through
+    their routes (LnBlock; checkpointed blocks), the launch counters as
+    the CPU leaves them (0: the plain versions run);
+  * the flag the port does not run yet (`--n_data`) exits 2 with its
+    message.
 """
 
 import json
@@ -101,13 +105,58 @@ def test_train_cli_synthetic(tmp_path):
     assert np.isfinite(records(tmp_path)[-1]["train_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--n_data", "2"], ["--remat"],
-                                  ["--remat_levels", "1", "2"], ["--fused"]],
-                         ids=lambda f: f[0])
+def count_calls(monkeypatch, module, name):
+    """Counts the calls of module.name (it still runs)."""
+    calls = []
+    fn = getattr(module, name)
+    monkeypatch.setattr(module, name,
+                        lambda *a, **k: calls.append(1) or fn(*a, **k))
+    return calls
+
+
+def synthetic_epoch(tmp_path, *flags):
+    return train.main(["--synthetic", "--patch_size", "16", "--batch_size",
+                       "8", "--epochs", "1", "--dim", "8",
+                       "--ckpt_dir", str(tmp_path / "ckpt"),
+                       "--log_dir", str(tmp_path), *flags, *TINY])
+
+
+def test_train_cli_fused_trains_every_block_whole(tmp_path, monkeypatch):
+    """--fused: one optimizer step a batch of the 64 synthetic samples, each
+    of the 11 blocks of the reduced model one LnBlock, recomputed once in
+    its backward (plain_ln_block); no block is checkpointed."""
+    from promptir_tpu_torch.models import blocks
+    from promptir_tpu_torch.ops import autodiff
+
+    whole = count_calls(monkeypatch, autodiff, "plain_ln_block")
+    ckpt = count_calls(monkeypatch, blocks, "checkpoint")
+    trainer = synthetic_epoch(tmp_path, "--fused")
+    assert trainer.global_step == 8 and trainer.model.fused_ffn
+    assert len(whole) == 11 * 8 and not ckpt
+    assert np.isfinite(records(tmp_path)[-1]["train_loss"])
+
+
+def test_train_cli_remat_levels_checkpoint_levels_1_and_2(tmp_path,
+                                                          monkeypatch):
+    """--remat --remat_levels 1 2: of the reduced model's 11 blocks the 6 at
+    levels 1 and 2 (encoder 1 and 2, decoder 2 and 1, the refinement, the
+    level-1 noise block) run under a checkpoint each step."""
+    from promptir_tpu_torch.models import blocks
+
+    ckpt = count_calls(monkeypatch, blocks, "checkpoint")
+    trainer = synthetic_epoch(tmp_path, "--remat", "--remat_levels", "1", "2")
+    model = trainer.model
+    assert (model.remat, model.remat_levels, model.fused_ffn) == (
+        True, (1, 2), False)
+    assert trainer.global_step == 8 and len(ckpt) == 6 * 8
+    assert np.isfinite(records(tmp_path)[-1]["train_loss"])
+
+
+@pytest.mark.parametrize("flag", [["--n_data", "2"]], ids=lambda f: f[0])
 def test_refused_flags_exit_with_their_roadmap_item(flag, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
         train.main(["--synthetic", "--ckpt_dir", str(tmp_path), *flag, *TINY])
-    assert e.value.code != 0
+    assert e.value.code == 2
     err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP.md" in err
+    assert flag[0] in err and "ROADMAP.md" in err and "item 5" in err
     assert not os.listdir(tmp_path)

@@ -59,10 +59,14 @@ NEW_MODULES = [
     "promptir_tpu_torch.ops.flow_warp", "promptir_tpu_torch.ops.camixer",
     "promptir_tpu_torch.models.camixer_prompt_uformer",
     "promptir_tpu_torch.models.camixer_models",
+    "promptir_tpu_torch.eval.niqe", "promptir_tpu_torch.utils.imresize",
+    "promptir_tpu_torch.cli.fit_niqe", "promptir_tpu_torch.cli.viz",
+    "promptir_tpu_torch.cli.train_demo",
 ]
 # Blocks JAX, PIL and the JAX package, imports the evaluation and training
 # surface, reads a committed JPEG fixture and a BMP written by hand, and
-# runs each entry point once on the CPU, so that an import inside a
+# runs each entry point once on the CPU (fit_niqe and viz compare too), so
+# that an import inside a
 # function body (which the AST scan above sees, but a mistake could hide
 # behind a name built at run time) fails here too.
 BLOCKED_RUN = """
@@ -127,8 +131,22 @@ trainer = train.main(["--de_type", "denoise_15", "dehaze", "--epochs", "1",
                       "--dehaze_dir", os.path.join(d, "train", "dehaze") + "/",
                       "--ckpt_dir", os.path.join(d, "ckpt"),
                       "--log_dir", os.path.join(d, "logs"), *tiny])
+from promptir_tpu_torch.cli import fit_niqe, viz
+from promptir_tpu_torch.eval.metrics import compute_niqe
+os.makedirs(os.path.join(d, "pristine"))
+for i in range(2):
+    save_image(os.path.join(d, "pristine", f"p{{i}}.png"), rng.random((100, 100, 3)))
+fit_niqe.main([os.path.join(d, "pristine"), "--out", os.path.join(d, "niqe.npz")])
+niqe_ok = bool(np.isfinite(compute_niqe(rng.random((100, 100, 3)))))
+for name, psnrs in (("a", {{"x": 30.0}}), ("b", {{"x": 31.0}})):
+    json.dump(psnrs, open(os.path.join(d, name + ".json"), "w"))
+viz.main(["compare", os.path.join(d, "a.json"), os.path.join(d, "b.json"),
+          "--out", os.path.join(d, "cmp.json")])
+delta = json.load(open(os.path.join(d, "cmp.json")))["mean_delta"]
 print(json.dumps({{"sets": sorted(r), "served": list(shape),
-                  "decoded": decoded, "trained": trainer.global_step}}))
+                  "decoded": decoded, "trained": trainer.global_step,
+                  "niqe": niqe_ok and os.path.exists(os.path.join(d, "niqe.npz")),
+                  "delta": delta}}))
 """
 
 
@@ -146,4 +164,4 @@ def test_entry_points_run_with_jax_and_pil_blocked(tmp_path):
     assert got == {"sets": ["dehaze", "denoise_15", "denoise_25", "denoise_50",
                             "derain"], "served": [9, 11, 3],
                    "decoded": [[413, 550, 3], [[[255, 0, 0], [0, 255, 0]]]],
-                   "trained": 2}
+                   "trained": 2, "niqe": True, "delta": 1.0}

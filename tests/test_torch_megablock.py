@@ -193,7 +193,8 @@ class Spy:
 def per_block_route(monkeypatch):
     """PromptIR's stacks run as the nn.Sequential of blocks."""
     monkeypatch.setattr(promptir_model, "run_stack",
-                        lambda stack, xh, chain: blocks.nhwc(stack(blocks.nchw(xh))))
+                        lambda stack, xh, chain, remat=False:
+                        blocks.nhwc(stack(blocks.nchw(xh))))
 
 
 def test_run_stack_matches_per_block_route_and_jax(monkeypatch):
