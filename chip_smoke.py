@@ -159,7 +159,25 @@ Phases, each printed with the seconds since start:
      beside it, every PNG of the corpus by the C++ reader as by the plain
      one, and the native samples' crops and dihedrals as numpy's; then
      cli/train.py --synthetic for one epoch with --fused and with --remat
-     --remat_levels 1 2 (TRAIN_CLI_MODES), exact launches a step.
+     --remat_levels 1 2 (TRAIN_CLI_MODES), exact launches a step;
+ 12. the instruments (promptir_tpu_torch/tools/, cli/summary.py,
+     cli/convert.py), each run in this process, its JSON lines printed
+     indented: cli.summary of promptir at B1 256x256 (35,592,263
+     parameters, 16 times the 64x64 FLOP count, a peak memory), kbench of
+     each kernel at one main-path shape (KBENCH), profile_forward (the
+     B4 256x256 bf16 forward by module; its ranges must hold SPLIT_SHARE of
+     the device time, the kernels' launches attributed by correlation id),
+     profile_train in the default and the --fused mode (the bf16 B6 128x128
+     step split into the forward's kernels and other ops, the backward, the
+     optimizer and the idle card; the ranges must hold SPLIT_SHARE of the
+     device time and the forward SPLIT_SHARE of the kernels'), tbench at B6
+     128x128 (the loss must fall), sbench for 10 s (no request shed or
+     timed out), shape_sweep over its grid (every kernel call within TOL of
+     its plain version, the seam bit-exact, each forward within the plain
+     route's gates), cli.convert of the seed-0 .ckpt (its .npz read back bit
+     for bit), and OPTION_CHECKS: promptir with use_bias and the
+     X-Restormer with use_bias and scale 2 on the card against the CPU, no
+     launch.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 
@@ -167,7 +185,8 @@ device record. Any failure raises and exits non-zero before those lines.
 
 builds the kernels and runs phase 4's bf16 forward check only, and takes
 the port from the script's own directory: copied into a checkout of an
-earlier commit, it reads that commit's kernels against its plain versions.
+earlier commit, it reads that commit's kernels against its plain versions
+(phases 3, 5, 6, 9 and 12 import promptir_tpu_torch/tools/ where they run).
 Imports torch, numpy, the standard library and promptir_tpu_torch only.
 """
 
@@ -194,9 +213,6 @@ import torch.nn.functional as F
 
 ROOT = pathlib.Path(__file__).resolve().parent
 T0 = time.perf_counter()
-
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 BUCKETS = [(256, 256), (256, 192)]  # the serving run's padded sizes
 
@@ -455,6 +471,29 @@ TRAIN_CLI_MODES = [("fused", ["--fused"], [47, 47, 0, 1, 0, 0, 2]),
                    ("remat_levels 1 2", ["--remat", "--remat_levels", "1", "2"],
                     [72, 0, 72, 1, 72, 0, 2])]
 JPEG_FIXTURES = ROOT / "tests" / "torch_fixtures" / "jpeg"
+# phase 12's reduced option models on the card against the CPU (GOLDEN_TOL),
+# no launch: label: (model, kwargs, input shape); the X-Restormer's 32x64
+# input upscaled x2 to 64x128 (its windows tile the 1/8 level)
+OPTION_CHECKS = {
+    "promptir use_bias": ("promptir", dict(REDUCED, use_bias=True),
+                          (2, 3, 64, 96)),
+    "xrestormerir use_bias scale 2": (
+        "xrestormerir", dict(XR_TRAIN, **REDUCED, use_bias=True, scale=2),
+        (2, 3, 32, 64)),
+}
+# phase 12's kbench runs: (op, B H W C, heads), each at a shape of a main
+# path: promptir's level 1 at B4 256x256 (stats, tail, seam, the chain), its
+# noise_level3 (the Gram stage), the X-Restormer's level 2 (ln_gdfn), the
+# training forward's level 1 (the apply)
+KBENCH = [("mdta_stats", (4, 256, 256, 48), 1),
+          ("block_tail", (4, 256, 256, 48), 1),
+          ("seam", (4, 256, 256, 48), 1), ("tail_stats", (4, 256, 256, 48), 1),
+          ("mdta_gram", (4, 32, 32, 704), 4), ("ln_gdfn", (4, 128, 128, 96), 1),
+          ("ln_mdta", (6, 128, 128, 48), 1)]
+# the split's gates: the step's ranges hold this share of its device time,
+# and its forward this share of the port's kernels' time
+SPLIT_SHARE = 0.98
+PROMPTIR_PARAMS = 35_592_263
 # every image's PSNR (dB) and SSIM through the kernels against the plain
 # route, fp32; the offline PSNR of the dumped (truncated uint8) PNGs against
 # the runner's float PSNR
@@ -519,52 +558,10 @@ def rel_err(a, b) -> tuple[float, float]:
     return err, err / max(b.abs().max().item(), 1e-30)
 
 
-def block_inputs(shape, dtype, gen, batch=BATCH):
-    h, w, c, heads = shape
-    f = int(c * 2.66)
-
-    def r(*s, scale=1.0):
-        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dtype)
-
-    return dict(
-        x=r(batch, h, w, c), ln1w=1 + r(c, scale=0.1), ln1b=r(c, scale=0.1),
-        wqkv=r(3 * c, c, scale=c ** -0.5), wdw=r(3 * c, 9, scale=0.3),
-        temp=1 + r(heads, 1, 1, scale=0.2).float(),
-        wproj=r(c, c, scale=c ** -0.5), ln2w=1 + r(c, scale=0.1),
-        ln2b=r(c, scale=0.1), w1=r(2 * f, c, scale=c ** -0.5),
-        wdwf=r(2 * f, 9, scale=0.3), w2=r(c, f, scale=f ** -0.5),
-        heads=heads,
-    )
-
-
-def run_stats(fn, a):
-    return fn(a["x"], a["ln1w"], a["ln1b"], a["wqkv"], a["wdw"], a["heads"])
-
-
-def run_tail(fn, a, v, attn):
-    return fn(v, a["x"], attn, a["wproj"], a["ln2w"], a["ln2b"], a["w1"],
-              a["wdwf"], a["w2"])
-
-
-def run_ln_gdfn(fn, a):
-    return fn(a["x"], a["ln2w"], a["ln2b"], a["w1"], a["wdwf"], a["w2"])
-
-
-def run_apply(fn, a, v, attn):
-    return fn(v, a["x"], attn, a["wproj"])
-
-
-def run_tail_stats(fn, a, a2, v, attn):
-    """Block n's tail (inputs and weights a) with block n+1's stats pass
-    (weights a2)."""
-    return fn(v, a["x"], attn, a["wproj"], a["ln2w"], a["ln2b"], a["w1"],
-              a["wdwf"], a["w2"], a2["ln1w"], a2["ln1b"], a2["wqkv"],
-              a2["wdw"], a2["heads"])
-
-
 def run_two_kernels(mdta, block, a, a2, v, attn):
     """The sequence that tail_stats replaces: block_tail, then mdta_stats on
     its output."""
+    from promptir_tpu_torch.tools.kbench import run_tail
     x3 = run_tail(block.block_tail, a, v, attn)
     return (x3, *mdta.mdta_stats(x3, a2["ln1w"], a2["ln1b"], a2["wqkv"],
                                  a2["wdw"], a2["heads"]))
@@ -576,14 +573,6 @@ def chain_shapes():
     and at the tiler's B8 128x128 tile batch."""
     return ([(s, BATCH, n) for hw in BUCKETS for s, n in chain_pairs(*hw)]
             + [(s, TILE_CHUNK, n) for s, n in chain_pairs(TILE, TILE)])
-
-
-def seam_inputs(h, w, dtype, gen, batch=BATCH):
-    """up2_1's conv output (B, h/2, w/2, 192) and the enc1 skip (B, h, w, 48)."""
-    y = torch.randn(batch, h // 2, w // 2, 192, generator=gen,
-                    device="cuda").to(dtype)
-    skip = torch.randn(batch, h, w, 48, generator=gen, device="cuda").to(dtype)
-    return y, skip
 
 
 def up_to(n, base):
@@ -668,6 +657,14 @@ def tensor_core_sass(so) -> dict:
 # ------------------------------------------------------------ phase 3
 
 def check_kernels(mdta, block, gdfn, seam, megablock):
+    from promptir_tpu_torch.tools.kbench import (
+        block_inputs,
+        run_apply,
+        run_ln_gdfn,
+        run_stats,
+        run_tail,
+        seam_inputs,
+    )
     gen = torch.Generator(device="cuda").manual_seed(0)
     # per kernel and dtype: [max |kernel - plain|, that over max |plain|]
     worst = {k: {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
@@ -765,6 +762,11 @@ def check_tail_stats(mdta, block, megablock, record):
     from the stats, each gated by TOL) and against the two-kernel sequence
     on the same inputs: x3 bit for bit, the worst v2 and attn differences
     printed."""
+    from promptir_tpu_torch.tools.kbench import (
+        block_inputs,
+        run_stats,
+        run_tail_stats,
+    )
     gen = torch.Generator(device="cuda").manual_seed(3)
     two = {torch.float32: [0.0, 0.0], torch.bfloat16: [0.0, 0.0]}
     for dtype in (torch.float32, torch.bfloat16):
@@ -874,6 +876,11 @@ def check_bf16_forward(port, counters, reset):
 def serve(port, counters, reset, card, path):
     from promptir_tpu_torch.eval.padding import pad_bases
     from promptir_tpu_torch.serve.engine import InferenceEngine
+    from promptir_tpu_torch.tools.trace import (
+        forward_breakdown,
+        module_shares,
+        time_ms,
+    )
 
     name, kwargs, per_forward = PATHS[path]
     torch.manual_seed(0)
@@ -991,15 +998,14 @@ def seeded_scales(model, seed):
     return model
 
 
-def check_against_cpu(port, counters, reset, name):
+def check_against_cpu(port, counters, reset, name, kwargs, shape):
     """The attention-free and Uformer families have no kernel on their
-    paths, so the card is held against the CPU: the reduced model
-    (CPU_CHECKS) from seed 0 in
+    paths (nor a model built with `use_bias`), so the card is held against
+    the CPU: the reduced model (CPU_CHECKS, OPTION_CHECKS) from seed 0 in
     float32 with TF32 off, the same forward on the card and on the CPU, max
     |difference| within GOLDEN_TOL of max |CPU|; no launch."""
     from promptir_tpu_torch.precision import exact_float32
 
-    kwargs, shape = CPU_CHECKS[name]
     torch.manual_seed(0)
     cpu = seeded_scales(port.create_model(name, device="cpu", **kwargs), 1)
     model = port.create_model(name, device="cuda", **kwargs)
@@ -1255,6 +1261,7 @@ def serve_tiled(port, counters, reset, card):
     photographs through the engine's tiled path: float32 through the
     kernels against float32 through the plain versions, then bf16 timed.
     Returns the launches of the timed bf16 run."""
+    from promptir_tpu_torch.tools.trace import time_ms
     per_image = [n * TILED_FORWARDS for n in PATHS["promptir"][2]]
     rng = np.random.default_rng(0)
     imgs = [rng.random((*TILED_HW, 3), dtype=np.float32) for _ in range(2)]
@@ -1355,6 +1362,7 @@ def check_ln_block_grads(counters, reset):
     error)}, each over max |plain|."""
     from promptir_tpu_torch.ops import autodiff
     from promptir_tpu_torch.ops.cuda import block, mdta
+    from promptir_tpu_torch.tools.kbench import block_inputs
 
     gen = torch.Generator(device="cuda").manual_seed(5)
     names = ("ln1w", "ln1b", "wqkv", "wdw", "wproj", "temp", "ln2w", "ln2b",
@@ -1658,127 +1666,6 @@ def demo():
 
 # ------------------------------------------------------------ phase 9
 
-def time_ms(fn, reps=20, warmup=3) -> float:
-    """Median of `reps` CUDA-event timings of fn() (after a warm-up)."""
-    for _ in range(warmup):
-        fn()
-    evs = [(torch.cuda.Event(enable_timing=True),
-            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for s, e in evs:
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in evs]))
-
-
-def module_shares(fn, spans, reps=2) -> str:
-    """Where fn()'s device time goes by module: each `spans` entry, label:
-    (class, method name), runs inside a torch.profiler record_function
-    range of that label for one window over `reps` calls (after a warm-up
-    call). A label's device time is its range's kernels' (the CPU-side
-    range's device_time_total), beside all kernels' device time a call
-    (the kernels' own rows); the device-side range's span (kernels and
-    the gaps between them) is printed too."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    with contextlib.ExitStack() as stack:
-        for label, (cls, name) in spans.items():
-            real = getattr(cls, name)
-
-            def wrapped(self, *a, _real=real, _label=label, **k):
-                with record_function(_label):
-                    return _real(self, *a, **k)
-
-            stack.enter_context(mock.patch.object(cls, name, wrapped))
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    rows = prof.key_averages()
-
-    def dev(e, attr):
-        return getattr(e, attr, getattr(e, attr.replace("device", "cuda"), 0.0))
-
-    def on(e, device):
-        return str(getattr(e, "device_type", "")).endswith(device)
-
-    # the kernels' own rows: an op's row counts its kernels' time again
-    busy = sum(dev(e, "self_device_time_total") for e in rows
-               if on(e, "CUDA") and not getattr(e, "is_user_annotation", False)
-               ) / reps / 1e3
-    out = []
-    for label in spans:
-        cpu = [e for e in rows if e.key == label and on(e, "CPU")]
-        gpu = [e for e in rows if e.key == label and e not in cpu]
-        ms = sum(dev(e, "device_time_total") for e in cpu) / reps / 1e3
-        span = sum(dev(e, "self_device_time_total") for e in gpu) / reps / 1e3
-        out.append(f"{label} {ms:.2f} ms ({ms / max(busy, 1e-9):.1%}; device "
-                   f"span {span:.2f} ms)")
-    return (f"device time by module over {reps} calls: " + "; ".join(out)
-            + f"; all kernels {busy:.2f} ms a call")
-
-
-def profiled_ms(fn, reps=10, windows=2) -> float:
-    """Device time of one fn() in ms: the sum of the kernels' device times
-    in a torch.profiler window over `reps` calls (after a warm-up call),
-    over the calls; no host time. The larger of `windows` windows: a window
-    now and then loses kernel records (it reads low, even 0)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    best = 0.0
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = 0.0
-        for e in prof.key_averages():
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-        best = max(best, total / reps / 1e3)
-    return best
-
-
-def forward_breakdown(fn, reps=10) -> str:
-    """Where the time of a forward with no kernel of the port goes, read
-    from the same calls: a torch.profiler window (the card's activity) over
-    `reps` calls of fn() after a warm-up call, timed by CUDA events from the
-    first call's start to the last call's end. The kernels launched a call,
-    their device time a call beside that wall time a call, the share of it
-    the card is idle, and the five kernels that take most device time.
-    Beside it the median of `reps` unprofiled calls and the idle share
-    against it: the profiler's own host cost lengthens a host-bound call,
-    so the two idle shares bracket the card's."""
-    from torch.profiler import ProfilerActivity, profile
-
-    alone = time_ms(fn, reps=reps, warmup=1)
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / reps
-    rows = [(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / reps / 1e3,
-             e.count / reps, e.key) for e in prof.key_averages()]
-    busy = sum(r[0] for r in rows)
-    top = sorted(rows, reverse=True)[:5]
-    return (f"profile over {reps} calls: {sum(r[1] for r in rows):.0f} kernels "
-            f"a forward, device time {busy:.2f} ms of {wall:.2f} ms wall a "
-            f"call (CUDA events over the same calls; idle {1 - busy / wall:.1%}"
-            f"); unprofiled median {alone:.2f} ms (idle against it "
-            f"{1 - busy / alone:.1%}); busiest: " + "; ".join(
-                f"{k[:60]} x{n:.0f} {ms:.2f} ms" for ms, n, k in top))
-
-
 def plan_text(mdta, gdfn, k, shape, batch) -> str:
     """The bf16 plan of ln_gdfn or the apply at one shape."""
     h, w, c, heads = shape
@@ -1789,41 +1676,6 @@ def plan_text(mdta, gdfn, k, shape, batch) -> str:
     return (f"{p.pixels} px x {p.cols} cols, attn {p.heads_staged} heads x "
             f"{p.attn_rows} rows, {p.slots} blocks an image, W_proj "
             + ("resident" if p.resident else "streamed"))
-
-
-def block_work(shape, nbytes, batch=BATCH):
-    """(operations, bytes) of the stats and tail functions at one shape:
-    each input read once, each output written once."""
-    h, w, c, heads = shape
-    d, f, px = c // heads, int(c * 2.66), batch * h * w
-    st_ops = 2 * px * (3 * c * c + 27 * c + d * c + 2 * c) + 8 * px * c
-    st_bytes = nbytes * (2 * px * c + 3 * c * c + 27 * c + 2 * c) \
-        + 4 * batch * heads * (d * d + 2 * d)
-    tl_ops = 2 * px * (d * c + c * c + 2 * f * c + 18 * f + f * c) \
-        + px * (8 * c + 10 * f)
-    tl_bytes = nbytes * (3 * px * c + c * c + 2 * c + 2 * f * c + 18 * f
-                         + f * c) + 4 * batch * heads * d * d
-    return (st_ops, st_bytes), (tl_ops, tl_bytes)
-
-
-def gdfn_work(shape, nbytes, batch=BATCH):
-    """(operations, bytes) of ln_gdfn at one shape: the JAX kernel's cost
-    estimate (promptir_tpu/ops/pallas/gdfn.py:584) for the operations; x
-    read, out written and each weight read once for the bytes."""
-    h, w, c, _ = shape
-    f, px = int(c * 2.66), batch * h * w
-    ops = 2 * px * (c * 2 * f + f * c) + 18 * px * 2 * f
-    return ops, nbytes * (2 * px * c + 2 * c + 2 * f * c + 18 * f + f * c)
-
-
-def apply_work(shape, nbytes, batch=BATCH):
-    """(operations, bytes) of the apply kernel (ln_mdta) at one shape: attn v
-    and the projection, 2dC + 2C^2 operations a pixel, and the residual; v
-    and x read, x2 written, W_proj and the fp32 attention read once."""
-    h, w, c, heads = shape
-    d, px = c // heads, batch * h * w
-    ops = 2 * px * (d * c + c * c) + px * c
-    return ops, nbytes * (3 * px * c + c * c) + 4 * batch * heads * d * d
 
 
 def chain_pairs(h, w):
@@ -1839,18 +1691,13 @@ def chain_pairs(h, w):
     ]
 
 
-def pair_work(shape, nbytes, batch=BATCH):
-    """(operations, bytes) of tail_stats at one shape: block n's tail and
-    block n+1's stats pass, where n's output x3 feeds n+1 without being
-    read back (one px * C read less than the two functions apart)."""
-    h, w, c, _ = shape
-    (so, sb), (to, tb) = block_work(shape, nbytes, batch)
-    return so + to, sb + tb - nbytes * batch * h * w * c
-
-
 def megablock_bound(shapes, batch, dtype=torch.bfloat16):
     """The bound of tail_stats (megablock.py:165 fused_tail_stats_padded)
     over the block pairs of one promptir forward."""
+    from promptir_tpu_torch.tools.kbench import (
+        bound_ms,
+        pair_work,
+    )
     ops = nbytes = pairs = 0
     for shape, n in shapes:
         o, b = pair_work(shape, 2, batch)
@@ -1865,17 +1712,20 @@ def megablock_bound(shapes, batch, dtype=torch.bfloat16):
     return b
 
 
-def bound_ms(ops, nbytes, dtype) -> tuple[float, str]:
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
-
-
 def time_tail_stats(mdta, block, megablock, gen, tot):
     """tail_stats per launch at every block pair of the promptir stacks,
     beside its plain version and the two-kernel sequence it replaces, summed
     per chained forward of the serving path (B4 256x256) and of the tiled
     path (the tiler's B8 128x128 chunk); then the chained route's decision
     (CHAIN_RATIO at every shape, CHAIN_FORWARD_MS a serving forward)."""
+    from promptir_tpu_torch.tools.kbench import (
+        block_inputs,
+        bound_ms,
+        pair_work,
+        run_stats,
+        run_tail_stats,
+    )
+    from promptir_tpu_torch.tools.trace import time_ms
     dtype = torch.bfloat16
     ratios, per_forward = [], {}
     for path, hw, batch in [("promptir_chained", BUCKETS[0], BATCH),
@@ -1927,6 +1777,7 @@ def time_gram(mdta, q, k, heads, batch, shape, dtype):
     """The Gram kernel at one wide shape: (ms, plain ms, library ms, ops,
     bytes); the library call is one cuBLAS batched product of the same q and
     k (torch.matmul, output in their dtype)."""
+    from promptir_tpu_torch.tools.trace import time_ms
     h, w, c, _ = shape
     d, px = c // heads, h * w
     qh = q.reshape(batch, px, heads, d).permute(0, 2, 3, 1)
@@ -1948,6 +1799,23 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
     an earlier path timed keeps that time (promptxrestormereffir's shapes
     are promptxrestormerir's; the --fused training forward's mdta_stats is
     the training forward's)."""
+    from promptir_tpu_torch.tools.kbench import (
+        HBM_BYTES_PER_S,
+        apply_work,
+        block_inputs,
+        block_work,
+        bound_ms,
+        gdfn_work,
+        run_apply,
+        run_ln_gdfn,
+        run_stats,
+        run_tail,
+        seam_inputs,
+    )
+    from promptir_tpu_torch.tools.trace import (
+        profiled_ms,
+        time_ms,
+    )
     dtype = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(1)
     paths = {
@@ -2488,12 +2356,7 @@ def evaluate(port, mdta, counters, reset, card):
             "reader and the plain one; reading a 481x321 PNG on the host: "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in read_ms.items())
             + " (median of 5)")
-        torch.manual_seed(0)
-        model = port.create_model("promptir", device="cuda")
-        torch.save({"state_dict": {"net." + k: v.cpu() for k, v in
-                                   model.state_dict().items()}},
-                   root / "promptir.ckpt")
-        del model
+        seed0_ckpt(port, root / "promptir.ckpt")
         paths = ["--denoise_path", str(root / "bsd68"),
                  "--derain_path", str(root / "rain100l"),
                  "--dehaze_path", str(root / "sots"),
@@ -3169,6 +3032,136 @@ def train_cli_mode(counters, card, label, flags, per_step):
     return ran
 
 
+# ----------------------------------------------------------- phase 12
+
+def seed0_ckpt(port, path):
+    """Full-depth promptir's seed-0 weights on the card, saved as a
+    Lightning .ckpt (`net.` keys); returns its state dict on the CPU."""
+    torch.manual_seed(0)
+    model = port.create_model("promptir", device="cuda")
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    torch.save({"state_dict": {"net." + k: v for k, v in sd.items()}}, path)
+    return sd
+
+
+def run_tool(label, main, argv):
+    """A tool's main(argv) with its printed lines said, indented (a bare
+    JSON line of the smoke is only its last two); returns its result."""
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = main(argv)
+    except SystemExit as e:
+        fail(f"{label} exited {e.code}")
+    finally:
+        for line in buf.getvalue().splitlines():
+            print("    " + line, flush=True)
+    say(f"tools: {label} done")
+    return out
+
+
+def check_split(label, line):
+    """profile_train's gates: the step's ranges hold SPLIT_SHARE of its
+    device time; its forward SPLIT_SHARE of the port's kernels' time."""
+    parts, held = line["parts_ms"], line["kernels_in_forward"] or 0.0
+    say(f"tools: {label} split ms a step ({line['dtype']} B{line['batch']} "
+        f"{line['size']}x{line['size']}, window {line['window_ms_per_step']:.2f}"
+        f" ms, device {line['device_ms_per_step']:.2f} ms, idle "
+        f"{line['idle']:.1%}): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in parts.items())
+        + f"; ranges hold {line['in_ranges']:.2%} of the device time, the "
+        f"forward {held:.2%} of the kernels'")
+    if line["in_ranges"] < SPLIT_SHARE:
+        fail(f"{label}: the step's ranges hold {line['in_ranges']:.2%} of its "
+             f"device time (< {SPLIT_SHARE:.0%})")
+    if held < SPLIT_SHARE:
+        fail(f"{label}: the forward holds {held:.2%} of the kernels' device "
+             "time")
+
+
+def tools_phase(port, counters, reset):
+    """Phase 12: the instruments on the card. cli.summary of promptir at B1
+    256x256, kbench at KBENCH, profile_forward, profile_train (default and
+    --fused, SPLIT_SHARE gated), tbench at B6 128x128, sbench for 10 s,
+    shape_sweep over its grid (its gates), cli.convert of the seed-0 .ckpt
+    (read back bit for bit), and OPTION_CHECKS against the CPU."""
+    from promptir_tpu_torch.cli import convert, summary
+    from promptir_tpu_torch.compat.jax_params import (
+        load_params_npz,
+        state_dict_from_flax,
+    )
+    from promptir_tpu_torch.tools import (
+        kbench,
+        profile_forward,
+        profile_train,
+        sbench,
+        shape_sweep,
+        tbench,
+    )
+
+    t_phase = time.perf_counter()
+    cost = run_tool("cli.summary", summary.main,
+                    ["--model", "promptir", "--size", "256"])
+    ratio = cost["flops"] / (16 * 21_592_952_384)
+    say(f"tools: promptir B1 256x256 {cost['params']} params, "
+        f"{cost['flops']} FLOPs ({ratio:.5f} of 16 x the 64x64 count), "
+        f"{cost['bytes_accessed']} bytes, peak {cost['peak_memory_mb']} MB")
+    if (cost["params"] != PROMPTIR_PARAMS or abs(ratio - 1) > 1e-3
+            or not cost["peak_memory_mb"]):
+        fail(f"cli.summary gave {cost}")
+    for op, shape, heads in KBENCH:
+        line = run_tool(f"kbench {op}", kbench.main, [
+            "--op", op, "--shape", *map(str, shape), "--heads", str(heads),
+            "--reps", "20"])
+        if not (line["ms"] > 0 and line["bound_ms"] > 0):
+            fail(f"kbench {op}: {line}")
+    line = run_tool("profile_forward", profile_forward.main, ["--iters", "3"])
+    say(f"tools: promptir B4 256x256 bf16 forward {line['forward_ms']:.2f} ms, "
+        f"device {line['device_ms']:.2f} ms ({line['kernels_ms']:.2f} in the "
+        f"kernels), idle {line['idle']:.1%}; ranges hold "
+        f"{line['in_ranges']:.2%}; by group: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in line["groups_ms"].items()))
+    if line["in_ranges"] < SPLIT_SHARE or not line["kernels_ms"] > 0:
+        fail(f"profile_forward: ranges {line['in_ranges']}, kernels "
+             f"{line['kernels_ms']} ms")
+    for flags in ([], ["--fused"]):
+        label = " ".join(["profile_train", *flags])
+        check_split(label, run_tool(label, profile_train.main,
+                                    ["--iters", "2", *flags]))
+    line = run_tool("tbench", tbench.main, ["--steps", "5", "--warmup", "2"])
+    if not line["loss_last"] < line["loss_first"]:
+        fail(f"tbench: the loss did not fall: {line}")
+    line = run_tool("sbench", sbench.main, ["--seconds", "10"])
+    if line["errors"] or line["rejected"] or line["timed_out"]:
+        fail(f"sbench: {line}")
+    run_tool("shape_sweep", shape_sweep.main, [])
+    root = ROOT / "logs" / "chip_smoke_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        sd = seed0_ckpt(port, root / "promptir.ckpt")
+        run_tool("cli.convert", convert.main, [str(root / "promptir.ckpt"),
+                                               str(root / "promptir.npz")])
+        with torch.device("meta"):
+            meta = port.create_model("promptir", device="meta")
+        back = state_dict_from_flax(load_params_npz(str(root / "promptir.npz")),
+                                    meta)
+        if sorted(back) != sorted(sd) or not all(
+                torch.equal(back[k], sd[k]) for k in sd):
+            fail("cli.convert's .npz does not read back as the .ckpt")
+        say(f"tools: cli.convert wrote {len(back)} tensors, read back bit for "
+            "bit")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for label, (name, kwargs, shape) in OPTION_CHECKS.items():
+        say(f"tools: {label}")
+        check_against_cpu(port, counters, reset, name, kwargs, shape)
+    reset()  # the tools' launches are not a main path's
+    say(f"tools: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> None:
@@ -3229,8 +3222,8 @@ def main() -> None:
         reset()
         launches[path] = serve(port, counters, reset, card, path)
     check_forward_fp32(port, counters, reset, EFF)
-    for name in CPU_CHECKS:
-        check_against_cpu(port, counters, reset, name)
+    for name, (kwargs, shape) in CPU_CHECKS.items():
+        check_against_cpu(port, counters, reset, name, kwargs, shape)
     check_window_counts(port, counters, reset)
     for name in CA_CHECKS:
         check_ca_against_cpu(port, counters, reset, name)
@@ -3252,6 +3245,7 @@ def main() -> None:
         reset()
         launches[f"train_cli {label}"] = train_cli_mode(
             counters, card, label, flags, per_step)
+    tools_phase(port, counters, reset)
 
     replaces = {
         "mdta_stats": ("promptir_tpu_torch/csrc/mdta_stats.cu",

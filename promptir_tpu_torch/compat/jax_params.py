@@ -16,6 +16,10 @@ flax leaf: the model's own copy is kept, as the JAX converter skips them.
 `load_params_npz` reads the flat `.npz` that the JAX package's
 `train/checkpoints.py:save_params_npz` writes ('/'-joined paths) back into
 that tree, so a model trained by the JAX package loads into the port.
+The other way, `flax_from_state_dict` lays a state dict out as that tree
+(the JAX converter's layout, promptir_tpu/compat/torch_ckpt.py:
+convert_state_dict) and `save_params_npz` writes the same flat file, so a
+torch checkpoint converted by the port loads into either package.
 """
 
 from __future__ import annotations
@@ -112,3 +116,55 @@ def state_dict_from_flax(variables: Mapping[str, Any],
             f"{missing[:8]}; unexpected ({len(unexpected)}) {unexpected[:8]}"
         )
     return out
+
+
+def _to_flax_layout(t: torch.Tensor, key: str) -> np.ndarray:
+    """The flax array of state-dict tensor `key`: the inverse of
+    _to_torch_layout."""
+    a = t.detach().cpu().float().numpy()
+    leaf = key.rsplit(".", 1)[-1]
+    if key.endswith("modulator.weight"):
+        return a  # (N, dim) in both
+    if key.endswith("deconv.0.weight"):
+        return a.transpose(0, 2, 3, 1)  # (cin, cout, 2, 2) -> (cin, 2, 2, cout)
+    if leaf == "weight" and a.ndim == 4:
+        return a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if leaf == "weight" and a.ndim == 2:
+        return a.T  # (out, in) -> (in, out)
+    if leaf == "prompt_param":
+        return a[0].transpose(0, 2, 3, 1)  # (1, L, C, S, S) -> (L, S, S, C)
+    if leaf in ("temperature", "beta", "gamma"):
+        return a.reshape(-1)  # (heads, 1, 1) and NAFBlock's (1, C, 1, 1)
+    return a
+
+
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor],
+                         model: torch.nn.Module = None) -> Dict[str, Any]:
+    """The nested flax parameter tree of a torch `state_dict`, float32, as
+    the JAX converter lays it out; integer buffers (the Uformer's
+    `relative_position_index`) are left out, as the JAX converter leaves
+    them. With `model`, first raise (compat/torch_ckpt.py:check_state_dict)
+    listing the keys the state dict lacks, those the model does not have
+    and those whose shapes differ."""
+    if model is not None:
+        from promptir_tpu_torch.compat.torch_ckpt import check_state_dict
+
+        check_state_dict(model, state_dict)
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        if not t.is_floating_point() or key.endswith("relative_position_index"):
+            continue
+        node = tree
+        *parents, leaf = flax_path(key, t.dim())
+        for p in parents:
+            node = node.setdefault(p, {})
+        if leaf in node:
+            raise ValueError(f"two tensors map to {'/'.join(parents + [leaf])}")
+        node[leaf] = _to_flax_layout(t, key)
+    return tree
+
+
+def save_params_npz(path: str, params: Mapping[str, Any]) -> None:
+    """The flat `.npz` of a parameter tree, '/'-joined paths, as the JAX
+    package's train/checkpoints.py:save_params_npz writes it."""
+    np.savez(path, **{"/".join(p): np.asarray(v) for p, v in _flatten(params)})

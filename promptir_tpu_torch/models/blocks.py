@@ -39,6 +39,11 @@ block_tail. Under autograd the chain becomes `whole` blocks: the
 tail_stats chain is inference only.
 `gdfn_forward` replaces `fused_gdfn_apply` (blocks.py:188): x + GDFN(LN(x))
 through the LN+GDFN kernel, under `LnGdfn` when autograd records.
+The kernels take no conv bias. A block built with one (the models'
+`use_bias`) runs its modules' plain composition on every device
+(`plain_branch`), as the JAX models run their unfused blocks under
+`fused_ffn and not use_bias` (promptir.py:81, xrestormer.py:58): a gate
+chosen by the model's configuration, never a fallback on failure.
 Weights are cast to the activations' dtype at use, so a model with float32
 weights can compute in bfloat16; without autograd the cast copy is kept
 beside its weight (`cast_weight`, ops/cuda/packed.py). A tensor on the card
@@ -80,6 +85,17 @@ def nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
+def biased(conv) -> bool:
+    """True when `conv` carries a bias: its block runs the plain route."""
+    return conv.bias is not None
+
+
+def plain_branch(norm, module, xh):
+    """xh + module(norm(xh)) on NHWC `xh` through the modules' own
+    forward (NCHW, channels_last): the route of a biased block."""
+    return xh + nhwc(module(norm(nchw(xh))))
+
+
 def _cast(dt, *ws):
     return [cast_weight(t, dt) for t in ws]
 
@@ -87,7 +103,10 @@ def _cast(dt, *ws):
 def block_forward(norm1: LayerNorm, attn: MDTA, norm2: LayerNorm, ffn: GDFN,
                   xh, whole: bool = False):
     """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)) on NHWC `xh`; under
-    autograd through LnBlock with `whole`, else LnMdta then LnGdfn."""
+    autograd through LnBlock with `whole`, else LnMdta then LnGdfn; a
+    biased block through its modules' plain composition."""
+    if biased(attn.qkv):
+        return plain_branch(norm2, ffn, plain_branch(norm1, attn, xh))
     wa = (norm1.body.weight, norm1.body.bias, attn.qkv.weight,
           attn.qkv_dwconv.weight, attn.project_out.weight)
     wf = (norm2.body.weight, norm2.body.bias, ffn.project_in.weight,
@@ -121,7 +140,9 @@ def _tail_weights(blk, dt):
 def run_block(blk, xh, whole: bool = False, remat: bool = False):
     """TransformerBlock `blk` on NHWC `xh` through `block_forward`; under
     autograd, with `remat` and without `whole`, inside a non-reentrant
-    checkpoint."""
+    checkpoint. A biased block is never `whole`: it checkpoints under
+    `remat` as the JAX models' unfused blocks do."""
+    whole = whole and not biased(blk.attn.qkv)
     args = (blk.norm1, blk.attn, blk.norm2, blk.ffn, xh)
     if remat and not whole and records_grad(xh, *blk.parameters()):
         return checkpoint(block_forward, *args, use_reentrant=False)
@@ -136,7 +157,8 @@ def run_stack(stack, xh, chain: bool = False, remat: bool = False):
     last block. Otherwise each block runs `run_block`, `whole` when the
     chain was asked for, under a checkpoint with `remat`."""
     blocks = list(stack)
-    if not chain or len(blocks) < 2 or records_grad(xh, *stack.parameters()):
+    if (not chain or len(blocks) < 2 or biased(blocks[0].attn.qkv)
+            or records_grad(xh, *stack.parameters())):
         for blk in blocks:
             xh = run_block(blk, xh, whole=chain, remat=remat)
         return xh
@@ -157,7 +179,10 @@ def run_stack(stack, xh, chain: bool = False, remat: bool = False):
 
 
 def gdfn_forward(norm: LayerNorm, ffn: GDFN, xh):
-    """x + GDFN(LN(x)) on NHWC `xh` through the LN+GDFN kernel."""
+    """x + GDFN(LN(x)) on NHWC `xh` through the LN+GDFN kernel (a biased
+    GDFN through its plain composition)."""
+    if biased(ffn.project_in):
+        return plain_branch(norm, ffn, xh)
     ws = (norm.body.weight, norm.body.bias, ffn.project_in.weight,
           ffn.dwconv.weight, ffn.project_out.weight)
     if records_grad(xh, *ws):
@@ -167,23 +192,24 @@ def gdfn_forward(norm: LayerNorm, ffn: GDFN, xh):
 
 
 class TransformerBlock(nn.Module):
-    """Bias-free convs (the PromptIR family's setting); `bias_free_norm`
-    selects the BiasFree LayerNorm."""
+    """Bias-free convs by default (the PromptIR family's setting; `bias`
+    is the models' `use_bias`); `bias_free_norm` selects the BiasFree
+    LayerNorm."""
 
     def __init__(self, dim: int, num_heads: int, expansion: float = 2.66,
-                 bias_free_norm: bool = False):
+                 bias_free_norm: bool = False, bias: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, bias_free_norm)
-        self.attn = MDTA(dim, num_heads)
+        self.attn = MDTA(dim, num_heads, bias)
         self.norm2 = LayerNorm(dim, bias_free_norm)
-        self.ffn = GDFN(dim, expansion)
+        self.ffn = GDFN(dim, expansion, bias)
 
     def forward(self, x):
         return nchw(block_forward(self.norm1, self.attn, self.norm2, self.ffn,
                                   nhwc(x)))
 
 
-def DeadConv(cin: int, cout: int) -> Conv:
+def DeadConv(cin: int, cout: int, bias: bool = False) -> Conv:
     """A 1x1 conv the reference builds but never calls
     (net/model.py:271-287); released checkpoints hold its weight."""
-    return Conv(cin, cout, 1)
+    return Conv(cin, cout, 1, bias=bias)

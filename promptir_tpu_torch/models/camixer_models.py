@@ -21,8 +21,9 @@ levels 3 and 2 is PromptIR's (PromptGenBlock, then a channel block at
 8d + 320, 4d + 128 and 2d + 64 channels, the concatenation's widths, then a
 1x1 reduce): Eff's `ChannelTransformerBlock` (one head) for v1 and v2,
 `EasyChannelTransformerBlock` for CATA. The state-dict names are the
-reference's; `use_bias` is not ported (the all-in-one configs leave it
-off).
+reference's. `use_bias` biases the convs that the JAX models build with it
+(not the mixers', which keep their own); a biased block runs its plain
+composition (blocks.plain_branch) and launches no kernel.
 
 The blocks work on NHWC views. Their channel half, x + MDTA(LN(x)) then +
 GDFN(LN(x)), runs `blocks.block_forward` (mdta_stats and block_tail when
@@ -92,19 +93,21 @@ def norm_nhwc(norm: LayerNorm, xh):
 
 class CATransformerBlock(nn.Module):
     """channel-attn -> channel-ffn -> CAMixer `mixer` -> spatial-ffn, each
-    behind its LayerNorm; bias-free convs. NHWC; returns (x, decision)."""
+    behind its LayerNorm; bias-free convs unless `bias`. NHWC; returns (x,
+    decision)."""
 
     def __init__(self, dim: int, mixer: nn.Module, num_channel_heads: int = 1,
-                 expansion: float = 2.66, bias_free_norm: bool = False):
+                 expansion: float = 2.66, bias_free_norm: bool = False,
+                 bias: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, bias_free_norm)
-        self.channel_attn = MDTA(dim, num_channel_heads)
+        self.channel_attn = MDTA(dim, num_channel_heads, bias)
         self.norm2 = LayerNorm(dim, bias_free_norm)
-        self.channel_ffn = GDFN(dim, expansion)
+        self.channel_ffn = GDFN(dim, expansion, bias)
         self.norm3 = LayerNorm(dim, bias_free_norm)
         self.spatial_attn = mixer
         self.norm4 = LayerNorm(dim, bias_free_norm)
-        self.spatial_ffn = GDFN(dim, expansion)
+        self.spatial_ffn = GDFN(dim, expansion, bias)
 
     def forward(self, xh, cond, deterministic: bool = True, generator=None):
         xh = block_forward(self.norm1, self.channel_attn, self.norm2,
@@ -122,7 +125,7 @@ class CATABlock(nn.Module):
                  hard_ratio: float = 0.5, num_channel_heads: int = 1,
                  num_heads: int = 4, dim_head: int = 16,
                  overlap_ratio: float = 0.5, expansion: float = 2.66,
-                 bias_free_norm: bool = False):
+                 bias_free_norm: bool = False, bias: bool = False):
         super().__init__()
         for i in (1, 2, 3, 4):
             setattr(self, f"norm{i}", LayerNorm(dim, bias_free_norm))
@@ -130,12 +133,12 @@ class CATABlock(nn.Module):
         self.spatial_attn = CAMixerV2(dim, window_size, overlap_ratio,
                                       num_heads, dim_head, ratio,
                                       cond_dim=COND_DIM)
-        self.hard_spatial_ffn = GDFN(dim, expansion)
-        self.hard_channel_attn = MDTA(dim, num_channel_heads)
-        self.hard_channel_ffn = GDFN(dim, expansion)
-        self.easy_spatial_ffn = EasyFeedForward(dim, expansion)
-        self.easy_channel_attn = EasyChannelAttention(dim)
-        self.easy_channel_ffn = EasyFeedForward(dim, expansion)
+        self.hard_spatial_ffn = GDFN(dim, expansion, bias)
+        self.hard_channel_attn = MDTA(dim, num_channel_heads, bias)
+        self.hard_channel_ffn = GDFN(dim, expansion, bias)
+        self.easy_spatial_ffn = EasyFeedForward(dim, expansion, bias)
+        self.easy_channel_attn = EasyChannelAttention(dim, bias)
+        self.easy_channel_ffn = EasyFeedForward(dim, expansion, bias)
 
     def forward(self, xh, cond, deterministic: bool = True, generator=None):
         label = self.branch_selector(xh, deterministic, generator)  # (B,)
@@ -184,7 +187,8 @@ class CAPromptXRestormer(nn.Module):
                  window_size: int = 8, dim_head: int = 16,
                  overlap_ratio: float = 0.5, ratio: float = 0.5,
                  hard_ratio: float = 0.5, expansion: float = 2.66,
-                 bias_free_norm: bool = False, prompt: bool = True):
+                 use_bias: bool = False, bias_free_norm: bool = False,
+                 prompt: bool = True):
         super().__init__()
         d, nb = dim, num_blocks
         self.window_size = window_size
@@ -196,7 +200,7 @@ class CAPromptXRestormer(nn.Module):
                 return CATABlock(c, window_size, ratio, hard_ratio,
                                  channel_heads[level], spatial_heads[level],
                                  dim_head, overlap_ratio, expansion,
-                                 bias_free_norm)
+                                 bias_free_norm, use_bias)
             if self.variant == "v1":
                 mixer = CAMixerV1(c, window_size, ratio, cond_dim=COND_DIM)
             else:
@@ -204,12 +208,12 @@ class CAPromptXRestormer(nn.Module):
                                   spatial_heads[level], dim_head, ratio,
                                   cond_dim=COND_DIM)
             return CATransformerBlock(c, mixer, channel_heads[level],
-                                      expansion, bias_free_norm)
+                                      expansion, bias_free_norm, use_bias)
 
         def stage(n, c, level):
             return CALayer([block(c, level) for _ in range(n)])
 
-        self.patch_embed = OverlapPatchEmbed(inp_channels, d)
+        self.patch_embed = OverlapPatchEmbed(inp_channels, d, use_bias)
         self.global_predictor = nn.Sequential(
             Conv(d, 8, bias=True), nn.LeakyReLU(0.1),
             Conv(8, COND_DIM, 3, bias=True), nn.LeakyReLU(0.1))
@@ -224,15 +228,15 @@ class CAPromptXRestormer(nn.Module):
         self.up4_3 = Upsample(4 * d)
         if not prompt:  # flax infers the latent's 8d channels
             self.up4_3.body[0] = Conv(8 * d, 8 * d, 3)
-        self.reduce_chan_level3 = Conv(6 * d, 4 * d)
+        self.reduce_chan_level3 = Conv(6 * d, 4 * d, bias=use_bias)
         self.decoder_level3 = stage(nb[2], 4 * d, 2)
         self.up3_2 = Upsample(4 * d)
-        self.reduce_chan_level2 = Conv(4 * d, 2 * d)
+        self.reduce_chan_level2 = Conv(4 * d, 2 * d, bias=use_bias)
         self.decoder_level2 = stage(nb[1], 2 * d, 1)
         self.up2_1 = Upsample(2 * d)
         self.decoder_level1 = stage(nb[0], 2 * d, 0)
         self.refinement = stage(num_refinement_blocks, 2 * d, 0)
-        self.output = FewChannelConv3(2 * d, out_channels)
+        self.output = FewChannelConv3(2 * d, out_channels, use_bias)
         if not prompt:
             return
         for level, (pdim, size, lin) in {3: (320, 16, 8 * d),
@@ -241,13 +245,14 @@ class CAPromptXRestormer(nn.Module):
             setattr(self, f"prompt{level}", PromptGenBlock(pdim, 5, size, lin))
             if self.variant == "cata":
                 inter = EasyChannelTransformerBlock(lin + pdim, expansion,
-                                                    bias_free_norm)
+                                                    bias_free_norm, use_bias)
             else:
                 inter = ChannelTransformerBlock(lin + pdim, 1, expansion,
-                                                bias_free_norm)
+                                                bias_free_norm, bias=use_bias)
             setattr(self, f"noise_level{level}", inter)
             out = 4 * d if level > 1 else 2 * d
-            setattr(self, f"reduce_noise_level{level}", Conv(lin + pdim, out))
+            setattr(self, f"reduce_noise_level{level}",
+                    Conv(lin + pdim, out, bias=use_bias))
 
     def prompt(self, level: int, x):
         if not self.use_prompt:

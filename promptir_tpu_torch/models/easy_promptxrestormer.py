@@ -40,10 +40,12 @@ class EasyLayer(nn.Module):
     """A stack of EasyTransformerBlocks (the reference's XRestormerLayer)."""
 
     def __init__(self, dim: int, depth: int, inner_dim: int,
-                 expansion: float = 2.66, bias_free_norm: bool = False):
+                 expansion: float = 2.66, bias_free_norm: bool = False,
+                 bias: bool = False):
         super().__init__()
         self.layer = nn.Sequential(*[
-            EasyTransformerBlock(dim, inner_dim, expansion, bias_free_norm)
+            EasyTransformerBlock(dim, inner_dim, expansion, bias_free_norm,
+                                 bias)
             for _ in range(depth)
         ])
 
@@ -56,17 +58,20 @@ class EasyPromptXRestormer(nn.Module):
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_refinement_blocks: int = 4,
                  inner_dim: Sequence[int] = (16, 32, 64, 128),
-                 expansion: float = 2.66, bias_free_norm: bool = False,
-                 prompt: bool = True):
+                 expansion: float = 2.66, use_bias: bool = False,
+                 bias_free_norm: bool = False, prompt: bool = True):
         super().__init__()
         d, nb = dim, num_blocks
         self.use_prompt = prompt
 
         def layer(c, depth, level):
             return EasyLayer(c, depth, inner_dim[level], expansion,
-                             bias_free_norm)
+                             bias_free_norm, use_bias)
 
-        self.patch_embed = OverlapPatchEmbed(inp_channels, d)
+        def conv1(cin, cout):
+            return Conv(cin, cout, bias=use_bias)
+
+        self.patch_embed = OverlapPatchEmbed(inp_channels, d, use_bias)
         self.encoder_level1 = layer(d, nb[0], 0)
         self.down1_2 = Downsample(d)
         self.encoder_level2 = layer(2 * d, nb[1], 1)
@@ -83,23 +88,23 @@ class EasyPromptXRestormer(nn.Module):
                         PromptGenBlock(pdim, 5, size, lin))
                 setattr(self, f"noise_level{level}",
                         EasyChannelTransformerBlock(lin + pdim, expansion,
-                                                    bias_free_norm))
+                                                    bias_free_norm, use_bias))
                 out = 4 * d if level > 1 else 2 * d
                 setattr(self, f"reduce_noise_level{level}",
-                        Conv(lin + pdim, out))
+                        conv1(lin + pdim, out))
 
         self.up4_3 = Upsample(4 * d)
         if not prompt:  # the latent's 8d channels reach up4_3's conv
             self.up4_3.body[0] = Conv(8 * d, 8 * d, 3)
-        self.reduce_chan_level3 = Conv(2 * d + 4 * d, 4 * d)
+        self.reduce_chan_level3 = conv1(2 * d + 4 * d, 4 * d)
         self.decoder_level3 = layer(4 * d, nb[2], 2)
         self.up3_2 = Upsample(4 * d)
-        self.reduce_chan_level2 = Conv(2 * d + 2 * d, 2 * d)
+        self.reduce_chan_level2 = conv1(2 * d + 2 * d, 2 * d)
         self.decoder_level2 = layer(2 * d, nb[1], 1)
         self.up2_1 = Upsample(2 * d)
         self.decoder_level1 = layer(2 * d, nb[0], 0)
         self.refinement = layer(2 * d, num_refinement_blocks, 0)
-        self.output = FewChannelConv3(2 * d, out_channels)
+        self.output = FewChannelConv3(2 * d, out_channels, use_bias)
 
     def prompt(self, level: int, x):
         if not self.use_prompt:

@@ -22,14 +22,19 @@ downsamples, then win x win windows; eval/padding.py:pad_bases gives the
 base, and a forward off it raises. The global residual is summed in
 float32: the JAX model writes a bf16 sum cast to float32, which its jitted
 forward keeps in float32 (tests/test_torch_uformer.py measures it).
-`drop_path_rate` (never sampled by the JAX trainer) and `cross_modulator`
-(never read by the JAX body) are not ported (ROADMAP.md Queue 3).
+`drop_path_rate` is the JAX model's stochastic depth: rates from 0 up to it
+over the encoder blocks, it at the bottleneck, the encoder's reversed over
+the decoder, none in the prompt blocks; sampled only by `forward(x,
+deterministic=False, generator=...)` (the trainers apply this model
+deterministically, as promptir_tpu/train/trainer.py:71 does).
+`cross_modulator` is accepted and read by nothing, as in the JAX body.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -55,18 +60,19 @@ class BasicUformerLayer(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, win_size: int = 8,
                  mlp_ratio: float = 4.0, token_projection: str = "linear",
                  token_mlp: str = "leff", shift_flag: bool = True,
-                 modulator: bool = False):
+                 modulator: bool = False, drop_path: Sequence[float] = ()):
         super().__init__()
         self.blocks = nn.ModuleList([
             LeWinTransformerBlock(
                 dim, num_heads, win_size,
                 0 if (i % 2 == 0 or not shift_flag) else win_size // 2,
-                mlp_ratio, token_projection, token_mlp, modulator)
+                mlp_ratio, token_projection, token_mlp, modulator,
+                drop_path[i] if i < len(drop_path) else 0.0)
             for i in range(depth)])
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, deterministic, generator)
         return x
 
 
@@ -158,13 +164,21 @@ class PromptUformerIR(UformerUNet):
                  num_heads: Sequence[int] = (1, 2, 4, 8, 16, 16, 8, 4, 2),
                  win_size: int = 8, mlp_ratio: float = 4.0,
                  token_projection: str = "linear", token_mlp: str = "leff",
-                 shift_flag: bool = True, modulator: bool = False,
+                 drop_path_rate: float = 0.1, shift_flag: bool = True,
+                 modulator: bool = False, cross_modulator: bool = False,
                  prompt: bool = True):
+        enc = np.linspace(0, drop_path_rate, sum(depths[:4])).tolist()
+        at = np.cumsum([0, *depths[:4]]).tolist()
+        dec = np.cumsum([0, *depths[5:]]).tolist()
+        rates = ([enc[at[i]:at[i + 1]] for i in range(4)]
+                 + [[drop_path_rate] * depths[4]]
+                 + [enc[::-1][dec[i]:dec[i + 1]] for i in range(4)])
+
         def stage(i, dim):
             return BasicUformerLayer(
                 dim, depths[i], num_heads[i], win_size, mlp_ratio,
                 token_projection, token_mlp, shift_flag,
-                modulator and i >= 5)
+                modulator and i >= 5, rates[i])
 
         def prompt_block(i, lin):
             pdim, size, heads = PROMPTS[i]
@@ -175,8 +189,9 @@ class PromptUformerIR(UformerUNet):
         super().__init__(stage, prompt_block, in_chans, dd_in, embed_dim,
                          win_size, prompt)
 
-    def forward(self, x):
-        return self.unet_forward(x, lambda stage, y: stage(y))
+    def forward(self, x, deterministic: bool = True, generator=None):
+        return self.unet_forward(
+            x, lambda stage, y: stage(y, deterministic, generator))
 
 
 @register_model("promptuformerir")

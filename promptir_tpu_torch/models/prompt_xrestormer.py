@@ -5,7 +5,9 @@ net/prompt_xrestormer.py:322-473). `PromptXBlock` is prompt generation
 (bilinear resize with align_corners=True, :351), an XTransformerBlock at
 lin_dim + prompt_dim channels with one channel head, and a 3x3 reduce
 conv; the blocks run after the latent and decoder levels 3 and 2 of the
-symmetric X-Restormer decoder.
+symmetric X-Restormer decoder; with `prompt=False` none are built and the
+model is the X-Restormer (promptir_tpu/models/prompt_xrestormer.py:90).
+`use_bias` reaches the blocks' convs, not the prompt convs, as in JAX.
 """
 
 from __future__ import annotations
@@ -27,14 +29,14 @@ class PromptXBlock(PromptGenBlock):
                  overlap_ratio: float = 0.5, num_channel_heads: int = 1,
                  num_spatial_heads: int = 2, spatial_dim_head: int = 16,
                  expansion: float = 2.66, bias_free_norm: bool = False,
-                 fused_ffn: bool = False):
+                 fused_ffn: bool = False, bias: bool = False):
         super().__init__(prompt_dim, prompt_len, prompt_size, lin_dim,
                          align_corners=True)
         dim = lin_dim + prompt_dim
         self.attn = XTransformerBlock(
             dim, window_size, overlap_ratio, num_channel_heads,
             num_spatial_heads, spatial_dim_head, expansion, bias_free_norm,
-            fused_ffn)
+            fused_ffn, bias)
         self.conv = Conv(dim, lin_dim, 3)
 
     def forward(self, x):
@@ -47,11 +49,14 @@ class PromptXRestormer(XRestormer):
 
     def __init__(self, dim: int = 48, spatial_dim_head: int = 16,
                  expansion: float = 2.66, bias_free_norm: bool = False,
-                 **kwargs):
+                 prompt: bool = True, **kwargs):
         super().__init__(dim=dim, spatial_dim_head=spatial_dim_head,
                          expansion=expansion, bias_free_norm=bias_free_norm,
                          **kwargs)
         d = dim
+        self.use_prompt = prompt
+        if not prompt:
+            return
 
         def block(prompt_dim, prompt_size, lin_dim, sp_heads):
             return PromptXBlock(
@@ -59,13 +64,15 @@ class PromptXRestormer(XRestormer):
                 overlap_ratio=0.5, num_channel_heads=1,
                 num_spatial_heads=sp_heads, spatial_dim_head=spatial_dim_head,
                 expansion=expansion, bias_free_norm=bias_free_norm,
-                fused_ffn=self.fused_ffn)
+                fused_ffn=self.fused_ffn, bias=self.use_bias)
 
         self.prompt3 = block(320, 16, 8 * d, 8)
         self.prompt2 = block(128, 32, 4 * d, 4)
         self.prompt1 = block(64, 64, 2 * d, 2)
 
     def prompt(self, level: int, x):
+        if not self.use_prompt:
+            return x
         return getattr(self, f"prompt{level}")(x)
 
 

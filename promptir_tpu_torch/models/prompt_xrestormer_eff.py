@@ -15,8 +15,8 @@ norm1/channel_attn/norm2/channel_ffn, so it runs through
 `blocks.block_forward`: mdta_stats and block_tail served, LnMdta and
 LnGdfn under autograd, or one LnBlock with `fused_ffn` (as every channel
 half of the model then trains). The widened blocks are as wide as
-8d + 320, 4d + 128 and 2d + 64 channels (704, 320 and 160 at d = 48). Not
-ported: the `scale > 1` pre-upscale, as for `xrestormerir`.
+8d + 320, 4d + 128 and 2d + 64 channels (704, 320 and 160 at d = 48).
+`use_bias` and `scale` are the X-Restormer's (models/xrestormer.py).
 """
 
 from __future__ import annotations
@@ -36,17 +36,18 @@ from promptir_tpu_torch.ops.resample import Upsample
 
 
 class ChannelTransformerBlock(nn.Module):
-    """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)), bias-free convs."""
+    """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)), bias-free convs unless
+    `bias`."""
 
     def __init__(self, dim: int, num_channel_heads: int = 1,
                  expansion: float = 2.66, bias_free_norm: bool = False,
-                 fused_ffn: bool = False):
+                 fused_ffn: bool = False, bias: bool = False):
         super().__init__()
         self.fused_ffn = fused_ffn
         self.norm1 = LayerNorm(dim, bias_free_norm)
-        self.channel_attn = MDTA(dim, num_channel_heads)
+        self.channel_attn = MDTA(dim, num_channel_heads, bias)
         self.norm2 = LayerNorm(dim, bias_free_norm)
-        self.channel_ffn = GDFN(dim, expansion)
+        self.channel_ffn = GDFN(dim, expansion, bias)
 
     def forward(self, x):
         return nchw(block_forward(self.norm1, self.channel_attn, self.norm2,
@@ -69,7 +70,7 @@ class PromptXRestormerEff(XRestormer):
         self.up4_3 = Upsample(4 * d)
         if not prompt:
             self.up4_3.body[0] = Conv(8 * d, 8 * d, 3)
-        self.reduce_chan_level3 = Conv(2 * d + 4 * d, 4 * d)
+        self.reduce_chan_level3 = Conv(6 * d, 4 * d, bias=self.use_bias)
         if not prompt:
             return
         for level, (pdim, size, lin) in {3: (320, 16, 8 * d),
@@ -77,9 +78,11 @@ class PromptXRestormerEff(XRestormer):
                                          1: (64, 64, 2 * d)}.items():
             setattr(self, f"prompt{level}", PromptGenBlock(pdim, 5, size, lin))
             setattr(self, f"noise_level{level}", ChannelTransformerBlock(
-                lin + pdim, 1, expansion, bias_free_norm, self.fused_ffn))
+                lin + pdim, 1, expansion, bias_free_norm, self.fused_ffn,
+                self.use_bias))
             out = 4 * d if level > 1 else 2 * d
-            setattr(self, f"reduce_noise_level{level}", Conv(lin + pdim, out))
+            setattr(self, f"reduce_noise_level{level}",
+                    Conv(lin + pdim, out, bias=self.use_bias))
 
     def prompt(self, level: int, x):
         if not self.use_prompt:

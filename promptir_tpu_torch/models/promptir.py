@@ -25,6 +25,11 @@ runs LnMdta then LnGdfn. `remat` and `remat_levels` are the JAX model's
 checkpoint (blocks.run_block), a fused block never. A stack's level is its
 width's: d -> 1, 2d -> 2, 4d -> 3, 8d -> 4, so decoder level 1 and the
 refinement are level 2; the noise blocks are levels 4, 3 and 2.
+`use_bias` gives every conv that the JAX model builds with it a bias
+(the blocks, the patch embed, the 1x1 reduces, the dead convs and the
+output); the kernels take no bias, so a biased model's blocks run their
+plain composition on every device (blocks.plain_branch), its stacks never
+chain and its level-1 decoder entry is `torch.cat`: it launches no kernel.
 With `decoder=False` the model has no prompts, noise blocks or
 reduce_noise_level convs, and up4_3's conv reads the latent's 8d channels,
 as flax infers it (the dead convs stay).
@@ -66,7 +71,8 @@ class PromptIR(nn.Module):
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_refinement_blocks: int = 4,
                  heads: Sequence[int] = (1, 2, 4, 8), expansion: float = 2.66,
-                 bias_free_norm: bool = False, decoder: bool = True,
+                 use_bias: bool = False, bias_free_norm: bool = False,
+                 decoder: bool = True,
                  fused_ffn: bool = False, remat: bool = False,
                  remat_levels: Optional[Sequence[int]] = None):
         """`fused_ffn` is named after the JAX model's option
@@ -82,25 +88,31 @@ class PromptIR(nn.Module):
         self.remat = remat
         self.remat_levels = None if remat_levels is None else tuple(remat_levels)
         self.decoder = decoder
+        self.use_bias = use_bias
         d, nb, hs = dim, num_blocks, heads
+
+        bias = use_bias
 
         def stack(n, c, h):
             return nn.Sequential(*[
-                TransformerBlock(c, h, expansion, bias_free_norm)
+                TransformerBlock(c, h, expansion, bias_free_norm, bias)
                 for _ in range(n)
             ])
 
         def block(c, h):
-            return TransformerBlock(c, h, expansion, bias_free_norm)
+            return TransformerBlock(c, h, expansion, bias_free_norm, bias)
 
-        self.patch_embed = OverlapPatchEmbed(inp_channels, d)
+        def conv1(cin, cout):
+            return Conv(cin, cout, bias=bias)
+
+        self.patch_embed = OverlapPatchEmbed(inp_channels, d, bias)
         # dead layers (checkpoint parity only)
-        self.chnl_reduce1 = DeadConv(64, 64)
-        self.chnl_reduce2 = DeadConv(128, 128)
-        self.chnl_reduce3 = DeadConv(320, 256)
-        self.reduce_noise_channel_1 = DeadConv(d + 64, d)
-        self.reduce_noise_channel_2 = DeadConv(2 * d + 128, 2 * d)
-        self.reduce_noise_channel_3 = DeadConv(4 * d + 256, 4 * d)
+        self.chnl_reduce1 = DeadConv(64, 64, bias)
+        self.chnl_reduce2 = DeadConv(128, 128, bias)
+        self.chnl_reduce3 = DeadConv(320, 256, bias)
+        self.reduce_noise_channel_1 = DeadConv(d + 64, d, bias)
+        self.reduce_noise_channel_2 = DeadConv(2 * d + 128, 2 * d, bias)
+        self.reduce_noise_channel_3 = DeadConv(4 * d + 256, 4 * d, bias)
 
         self.encoder_level1 = stack(nb[0], d, hs[0])
         self.down1_2 = Downsample(d)
@@ -115,27 +127,27 @@ class PromptIR(nn.Module):
             self.prompt2 = PromptGenBlock(128, 5, 32, 4 * d)
             self.prompt3 = PromptGenBlock(320, 5, 16, 8 * d)
             self.noise_level3 = block(8 * d + 320, hs[2])
-            self.reduce_noise_level3 = Conv(8 * d + 320, 4 * d)
+            self.reduce_noise_level3 = conv1(8 * d + 320, 4 * d)
         self.up4_3 = Upsample(4 * d)
         if not decoder:
             self.up4_3.body[0] = Conv(8 * d, 8 * d, 3)
-        self.reduce_chan_level3 = Conv(2 * d + 4 * d, 4 * d)
+        self.reduce_chan_level3 = conv1(2 * d + 4 * d, 4 * d)
         self.decoder_level3 = stack(nb[2], 4 * d, hs[2])
 
         if decoder:
             self.noise_level2 = block(4 * d + 128, hs[2])
-            self.reduce_noise_level2 = Conv(4 * d + 128, 4 * d)
+            self.reduce_noise_level2 = conv1(4 * d + 128, 4 * d)
         self.up3_2 = Upsample(4 * d)
-        self.reduce_chan_level2 = Conv(4 * d, 2 * d)
+        self.reduce_chan_level2 = conv1(4 * d, 2 * d)
         self.decoder_level2 = stack(nb[1], 2 * d, hs[1])
 
         if decoder:
             self.noise_level1 = block(2 * d + 64, hs[2])
-            self.reduce_noise_level1 = Conv(2 * d + 64, 2 * d)
+            self.reduce_noise_level1 = conv1(2 * d + 64, 2 * d)
         self.up2_1 = Upsample(2 * d)
         self.decoder_level1 = stack(nb[0], 2 * d, hs[0])
         self.refinement = stack(num_refinement_blocks, 2 * d, hs[0])
-        self.output = FewChannelConv3(2 * d, out_channels)
+        self.output = FewChannelConv3(2 * d, out_channels, bias)
 
     def forward(self, inp_img):
         """inp_img: (B, 3, H, W) float, H and W multiples of 8. Returns the
@@ -173,8 +185,10 @@ class PromptIR(nn.Module):
         x = self.reduce_chan_level2(cat([self.up3_2(x), enc2], 1))
         x = prompt(1, run(self.decoder_level2, x, 2))
 
-        # up2_1's conv, then pixel-shuffle + skip concat in one seam pass
-        x = nchw(Seam.apply(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
+        if self.use_bias:  # a biased model launches no kernel
+            x = cat([self.up2_1(x), enc1], 1)
+        else:  # up2_1's conv, then pixel-shuffle + skip concat in one pass
+            x = nchw(Seam.apply(nhwc(self.up2_1.body[0](x)), nhwc(enc1)))
         x = run(self.refinement, run(self.decoder_level1, x, 2), 2)
         # the global residual in float32, as the JAX package's jitted forward
         # computes it (XLA keeps the bf16 sum in f32 before the final cast)

@@ -14,9 +14,13 @@ XLA. `fused_ffn` is the JAX model's option (xrestormer.py:36-75): served it
 changes nothing, since the channel half always runs the whole-block route;
 under autograd it trains the channel half as one `LnBlock` in place of
 LnMdta then LnGdfn. The skip concatenations are `torch.cat`, as in the JAX model: the seam
-kernel does not run here. Not ported: the `scale > 1` bilinear pre-upscale
-and conv biases (`use_bias`); the reference's all-in-one configs use
-neither.
+kernel does not run here. `use_bias` gives the convs that the JAX model
+builds with it a bias; its blocks then run their plain composition
+(blocks.plain_branch) and launch no kernel. `scale > 1` upscales the input
+bilinearly (align_corners=False) before the network, as
+promptir_tpu/parallel/spatial.py:146 upscale_input does on one device; the
+window check applies to the upscaled image, and the global residual adds
+it.
 """
 
 from __future__ import annotations
@@ -40,29 +44,31 @@ from promptir_tpu_torch.ops.gdfn import GDFN
 from promptir_tpu_torch.ops.norm import LayerNorm, layernorm_nhwc
 from promptir_tpu_torch.ops.ocab import OCAB
 from promptir_tpu_torch.ops.resample import Downsample, FewChannelConv3, Upsample
+from promptir_tpu_torch.ops.resize import resize_bilinear
 from promptir_tpu_torch.precision import compute_dtype
 
 
 class XTransformerBlock(nn.Module):
     """channel-attn -> channel-ffn -> spatial-attn (OCAB) -> spatial-ffn,
-    each with its own LayerNorm and residual; bias-free convs."""
+    each with its own LayerNorm and residual; bias-free convs unless
+    `bias` (the models' `use_bias`)."""
 
     def __init__(self, dim: int, window_size: int = 8,
                  overlap_ratio: float = 0.5, num_channel_heads: int = 1,
                  num_spatial_heads: int = 2, spatial_dim_head: int = 16,
                  expansion: float = 2.66, bias_free_norm: bool = False,
-                 fused_ffn: bool = False):
+                 fused_ffn: bool = False, bias: bool = False):
         super().__init__()
         self.fused_ffn = fused_ffn
         self.norm1 = LayerNorm(dim, bias_free_norm)
-        self.channel_attn = MDTA(dim, num_channel_heads)
+        self.channel_attn = MDTA(dim, num_channel_heads, bias)
         self.norm2 = LayerNorm(dim, bias_free_norm)
-        self.channel_ffn = GDFN(dim, expansion)
+        self.channel_ffn = GDFN(dim, expansion, bias)
         self.norm3 = LayerNorm(dim, bias_free_norm)
         self.spatial_attn = OCAB(dim, window_size, overlap_ratio,
-                                 num_spatial_heads, spatial_dim_head)
+                                 num_spatial_heads, spatial_dim_head, bias)
         self.norm4 = LayerNorm(dim, bias_free_norm)
-        self.spatial_ffn = GDFN(dim, expansion)
+        self.spatial_ffn = GDFN(dim, expansion, bias)
 
     def forward(self, x):
         xh = block_forward(self.norm1, self.channel_attn, self.norm2,
@@ -82,16 +88,19 @@ class XRestormer(nn.Module):
                  spatial_heads: Sequence[int] = (2, 2, 3, 4),
                  overlap_ratio: Sequence[float] = (0.5, 0.5, 0.5, 0.5),
                  window_size: int = 8, spatial_dim_head: int = 16,
-                 expansion: float = 2.66, bias_free_norm: bool = False,
+                 expansion: float = 2.66, use_bias: bool = False,
+                 bias_free_norm: bool = False, scale: int = 1,
                  fused_ffn: bool = False):
         super().__init__()
         d, nb = dim, num_blocks
         self.window_size = window_size
         self.fused_ffn = fused_ffn
+        self.use_bias = use_bias
+        self.scale = scale
         block_kw = dict(window_size=window_size,
                         spatial_dim_head=spatial_dim_head,
                         expansion=expansion, bias_free_norm=bias_free_norm,
-                        fused_ffn=fused_ffn)
+                        fused_ffn=fused_ffn, bias=use_bias)
 
         def stack(n, c, level):
             return nn.Sequential(*[
@@ -102,7 +111,7 @@ class XRestormer(nn.Module):
                 for _ in range(n)
             ])
 
-        self.patch_embed = OverlapPatchEmbed(inp_channels, d)
+        self.patch_embed = OverlapPatchEmbed(inp_channels, d, use_bias)
         self.encoder_level1 = stack(nb[0], d, 0)
         self.down1_2 = Downsample(d)
         self.encoder_level2 = stack(nb[1], 2 * d, 1)
@@ -112,15 +121,15 @@ class XRestormer(nn.Module):
         self.latent = stack(nb[3], 8 * d, 3)
 
         self.up4_3 = Upsample(8 * d)
-        self.reduce_chan_level3 = Conv(8 * d, 4 * d)
+        self.reduce_chan_level3 = Conv(8 * d, 4 * d, bias=use_bias)
         self.decoder_level3 = stack(nb[2], 4 * d, 2)
         self.up3_2 = Upsample(4 * d)
-        self.reduce_chan_level2 = Conv(4 * d, 2 * d)
+        self.reduce_chan_level2 = Conv(4 * d, 2 * d, bias=use_bias)
         self.decoder_level2 = stack(nb[1], 2 * d, 1)
         self.up2_1 = Upsample(2 * d)
         self.decoder_level1 = stack(nb[0], 2 * d, 0)
         self.refinement = stack(num_refinement_blocks, 2 * d, 0)
-        self.output = FewChannelConv3(2 * d, out_channels)
+        self.output = FewChannelConv3(2 * d, out_channels, use_bias)
 
     def prompt(self, level: int, x):
         """The prompt interaction after encoder/decoder `level` (3 is the
@@ -128,9 +137,12 @@ class XRestormer(nn.Module):
         return x
 
     def forward(self, inp_img):
-        """inp_img: (B, 3, H, W) float, H and W multiples of 8 windows
-        (64): the window must tile the 1/8 level. Returns the restored image
-        in float32."""
+        """inp_img: (B, 3, H, W) float; H and W times `scale` multiples of 8
+        windows (64): the window must tile the 1/8 level. Returns the
+        restored image in float32, `scale` times the input's size."""
+        if self.scale > 1:
+            h, w = inp_img.shape[-2:]
+            inp_img = resize_bilinear(inp_img, (h * self.scale, w * self.scale))
         h, w = inp_img.shape[-2:]
         m = 8 * self.window_size
         if h % m or w % m:

@@ -17,8 +17,8 @@ Counterpart of promptir_tpu/ops/easy.py, in its order:
   * local_avg_pool (the TLC local pool of NAFNetLocal) and NAFBlock.
 The state-dict names are the reference's, so its checkpoints load verbatim.
 The projections carry the reference's all-in-one biases (`use_bias=False`:
-none on `project_out` and `proj_v`); the JAX modules' `use_bias` option is
-not ported.
+none on `project_out` and `proj_v`); `bias=True` gives those a bias too, as
+the JAX modules' `use_bias` does.
 
 No kernel of the port runs here: the convolutions are `F.conv2d`, the rest
 plain PyTorch, as the JAX module leaves all of it to XLA. The rounding
@@ -79,19 +79,19 @@ class ChannelsLN(nn.Module):
 
 
 class EasyFeedForward(nn.Module):
-    def __init__(self, dim: int, expansion: float = 2.66):
+    def __init__(self, dim: int, expansion: float = 2.66, bias: bool = False):
         super().__init__()
         ffn = round_to_nearest_power_of_2(int(expansion * dim))
         self.conv1 = Conv(dim, ffn, bias=True)
         self.conv2 = Conv(ffn // 2, dim, bias=True)
-        self.project_out = Conv(dim, dim)
+        self.project_out = Conv(dim, dim, bias=bias)
 
     def forward(self, x):
         return self.project_out(self.conv2(simple_gate(self.conv1(x))))
 
 
 class EasyChannelAttention(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, bias: bool = False):
         super().__init__()
         c = dim
         self.conv1 = Conv(c, c, bias=True)
@@ -100,7 +100,7 @@ class EasyChannelAttention(nn.Module):
         # `sca.1`; the pool is mean_hw
         self.sca = nn.Sequential(nn.Identity(), Conv(c // 2, c // 2, bias=True))
         self.conv3 = Conv(c // 2, c, bias=True)
-        self.project_out = Conv(c, c)
+        self.project_out = Conv(c, c, bias=bias)
 
     def forward(self, x):
         y = simple_gate(self.conv2(self.conv1(x)))
@@ -109,14 +109,14 @@ class EasyChannelAttention(nn.Module):
 
 
 class EasySpatialAttention(nn.Module):
-    def __init__(self, dim: int, inner_dim: int = 64):
+    def __init__(self, dim: int, inner_dim: int = 64, bias: bool = False):
         super().__init__()
         q = inner_dim // 4
-        self.proj_v = Conv(dim, inner_dim)
+        self.proj_v = Conv(dim, inner_dim, bias=bias)
         self.in_conv = nn.Sequential(Conv(inner_dim, q, bias=True),
                                      ChannelsLN(q), nn.LeakyReLU(0.1))
         self.out_SA = nn.Sequential(Conv(q, 1, 3, bias=True), nn.Sigmoid())
-        self.project_out = Conv(inner_dim, dim)
+        self.project_out = Conv(inner_dim, dim, bias=bias)
 
     def forward(self, x):
         vs = self.proj_v(x)
@@ -127,16 +127,16 @@ class EasyTransformerBlock(nn.Module):
     """4-norm easy block: ch-attn -> ch-ffn -> spatial-attn -> spatial-ffn."""
 
     def __init__(self, dim: int, inner_dim: int = 64, expansion: float = 2.66,
-                 bias_free_norm: bool = False):
+                 bias_free_norm: bool = False, bias: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, bias_free_norm)
-        self.channel_attn = EasyChannelAttention(dim)
+        self.channel_attn = EasyChannelAttention(dim, bias)
         self.norm2 = LayerNorm(dim, bias_free_norm)
-        self.channel_ffn = EasyFeedForward(dim, expansion)
+        self.channel_ffn = EasyFeedForward(dim, expansion, bias)
         self.norm3 = LayerNorm(dim, bias_free_norm)
-        self.spatial_attn = EasySpatialAttention(dim, inner_dim)
+        self.spatial_attn = EasySpatialAttention(dim, inner_dim, bias)
         self.norm4 = LayerNorm(dim, bias_free_norm)
-        self.spatial_ffn = EasyFeedForward(dim, expansion)
+        self.spatial_ffn = EasyFeedForward(dim, expansion, bias)
 
     def forward(self, x):
         x = x + self.channel_attn(self.norm1(x))
@@ -150,12 +150,12 @@ class EasyChannelTransformerBlock(nn.Module):
     interaction)."""
 
     def __init__(self, dim: int, expansion: float = 2.66,
-                 bias_free_norm: bool = False):
+                 bias_free_norm: bool = False, bias: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, bias_free_norm)
-        self.channel_attn = EasyChannelAttention(dim)
+        self.channel_attn = EasyChannelAttention(dim, bias)
         self.norm2 = LayerNorm(dim, bias_free_norm)
-        self.channel_ffn = EasyFeedForward(dim, expansion)
+        self.channel_ffn = EasyFeedForward(dim, expansion, bias)
 
     def forward(self, x):
         x = x + self.channel_attn(self.norm1(x))

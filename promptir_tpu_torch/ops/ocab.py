@@ -65,19 +65,23 @@ class RelPosEmb(nn.Module):
         return bias.reshape(n, win * win, rs * rs)
 
 
+def _at(bias, dt):
+    return None if bias is None else bias.to(dt)
+
+
 class OCAB(nn.Module):
     def __init__(self, dim: int, window_size: int = 8,
                  overlap_ratio: float = 0.5, num_heads: int = 2,
-                 dim_head: int = 16):
+                 dim_head: int = 16, bias: bool = False):
         super().__init__()
         self.window_size = window_size
         self.overlap_win = int(window_size * overlap_ratio) + window_size
         self.num_heads = num_heads
         self.dim_head = dim_head
         inner = dim_head * num_heads
-        self.qkv = Conv(dim, inner * 3, 1)
+        self.qkv = Conv(dim, inner * 3, 1, bias=bias)
         self.rel_pos_emb = RelPosEmb(window_size, self.overlap_win, dim_head)
-        self.project_out = Conv(inner, dim, 1)
+        self.project_out = Conv(inner, dim, 1, bias=bias)
 
     def forward(self, x):
         """x: (B, H, W, C) with H and W multiples of the window. Returns
@@ -93,7 +97,8 @@ class OCAB(nn.Module):
         nwin = nh * nw
         dt = x.dtype
 
-        qkv = F.linear(x, self.qkv.weight.reshape(3 * inner, c).to(dt))
+        qkv = F.linear(x, self.qkv.weight.reshape(3 * inner, c).to(dt),
+                       _at(self.qkv.bias, dt))
         qs, ks, vs = qkv.split(inner, dim=-1)
         qs = qs.reshape(b, nh, win, nw, win, inner).permute(0, 1, 3, 2, 4, 5)
         # channel = head * d + c (the reference's '(head c)')
@@ -109,4 +114,5 @@ class OCAB(nn.Module):
         out = torch.einsum("bwhqk,bwkhd->bwqhd", attn.float(), vs.float()).to(dt)
         out = out.reshape(b, nh, nw, win, win, inner).permute(0, 1, 3, 2, 4, 5)
         out = out.reshape(b, h, w, inner)
-        return F.linear(out, self.project_out.weight.reshape(c, inner).to(dt))
+        return F.linear(out, self.project_out.weight.reshape(c, inner).to(dt),
+                        _at(self.project_out.bias, dt))

@@ -18,8 +18,9 @@ module's: q scaled in its dtype, the logits, the bias, the shift mask and
 the softmax in float32, the probabilities rounded to v's dtype before PV
 (a float32 product), the result rounded to x's dtype before `proj`; the
 transposed convolution of `UformerUpsample` computes in float32 in any
-model. Stochastic depth is not sampled: the JAX trainer applies these
-models deterministically (ROADMAP.md Queue 3).
+model. `DropPath` is the JAX module's stochastic depth: the identity at rate
+0 or when deterministic (how the trainers apply these models), else one
+keep draw an image from an explicit generator.
 """
 
 from __future__ import annotations
@@ -107,11 +108,18 @@ def shift_attn_mask(h: int, w: int, win: int, shift: int) -> np.ndarray:
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=None)
+# a model's shifted stages meet ~4 window sizes a padded input shape; a
+# server sees a few shapes: 16 masks keep those without holding every shape
+# it ever saw (one 256x256 input's first level alone is 16.8 MB)
+SHIFT_MASKS = 16
+
+
+@functools.lru_cache(maxsize=SHIFT_MASKS)
 def shift_mask(h: int, w: int, win: int, shift: int, device: torch.device):
-    """shift_attn_mask as a float32 tensor on `device`, made once per
-    (H, W, win, shift, device). Made outside inference mode, so that a
-    training forward may use a mask a served forward made."""
+    """shift_attn_mask as a float32 tensor on `device`, kept for the
+    SHIFT_MASKS most recent (H, W, win, shift, device). Made outside
+    inference mode, so that a training forward may use a mask a served
+    forward made."""
     with torch.inference_mode(False):
         return torch.from_numpy(shift_attn_mask(h, w, win, shift)).to(device)
 
@@ -233,15 +241,37 @@ class LeFF(nn.Module):
         return linear(y, self.linear2[0])
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm's, as
+    promptir_tpu/ops/window_attention.py:53 DropPath): the identity at rate
+    0 or when `deterministic`; else each image is kept with probability
+    1 - rate (a uniform draw from `generator`) and scaled by its inverse,
+    or zeroed."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, deterministic: bool = True, generator=None):
+        if self.rate == 0.0 or deterministic:
+            return x
+        keep = 1.0 - self.rate
+        draw = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                          generator=generator, device=x.device)
+        return torch.where(draw < keep, x / keep, torch.zeros_like(x))
+
+
 class LeWinTransformerBlock(nn.Module):
     """x + WMSA(LN(x)) with the cyclic shift and the optional per-window
-    `modulator` (the reference's nn.Embedding), then + FFN(LN(x))."""
+    `modulator` (the reference's nn.Embedding), then + FFN(LN(x)); each
+    branch through `drop_path`'s stochastic depth."""
 
     def __init__(self, dim: int, num_heads: int, win_size: int = 8,
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  token_projection: str = "linear", token_mlp: str = "leff",
-                 modulator: bool = False):
+                 modulator: bool = False, drop_path: float = 0.0):
         super().__init__()
+        self.drop_path = DropPath(drop_path)
         self.win_size, self.shift_size = win_size, shift_size
         self.norm1 = TorchLayerNorm(dim)
         self.attn = WindowAttention(dim, win_size, num_heads, token_projection)
@@ -252,7 +282,7 @@ class LeWinTransformerBlock(nn.Module):
         self.mlp = Mlp(dim, hidden) if token_mlp in ("ffn", "mlp") \
             else LeFF(dim, hidden)
 
-    def forward(self, x):
+    def forward(self, x, deterministic: bool = True, generator=None):
         """x: (B, H, W, C), H and W multiples of the window."""
         b, h, w, c = x.shape
         win, shift = self.win_size, self.shift_size
@@ -270,8 +300,9 @@ class LeWinTransformerBlock(nn.Module):
         y = window_reverse(self.attn(yw, mask), win, h, w)
         if shift > 0:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        x = x + self.drop_path(y, deterministic, generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), deterministic,
+                                  generator)
 
 
 class InputProj(nn.Module):

@@ -13,6 +13,11 @@ update, as the JAX step does with a `lax.scan`: equal microbatches make the
 mean of the microbatch L1 losses the full batch's. A float32 model runs
 with TF32 off (precision.py).
 
+The forward with its loss runs inside a torch.profiler range "forward" and
+the update (the norm, the clip, AdamW) inside "optimizer", so that a trace
+of the step splits into them and autograd's backward
+(tools/profile_train.py); a range costs nothing without a profiler.
+
 A stochastic model (the CAMixer family, told by its `variant`, as the JAX
 trainer tells them) is called with `deterministic=False` and a torch.Generator
 seeded from (seed, step * grad_accum + microbatch), the fold of the JAX
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from promptir_tpu_torch.precision import compute_dtype, exact_float32
 from promptir_tpu_torch.train.losses import l1_loss, ratio_loss
@@ -81,22 +87,25 @@ def make_train_step(model, grad_accum: int = 1, seed: int = 0):
         with exact_float32(compute_dtype(model)):
             for i in range(grad_accum):
                 sl = slice(i * m, (i + 1) * m)
-                mloss = loss_of(to_nchw(batch["degraded"][sl], device),
-                                to_nchw(batch["clean"][sl], device),
-                                state.step * grad_accum + i)
+                with record_function("forward"):
+                    mloss = loss_of(to_nchw(batch["degraded"][sl], device),
+                                    to_nchw(batch["clean"][sl], device),
+                                    state.step * grad_accum + i)
                 (mloss / grad_accum).backward()
                 loss = loss + mloss.detach()
-        # a parameter the forward never reads (the reference's dead convs)
-        # gets a zero gradient, so that AdamW still decays it, as optax does
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        if state.grad_clip is not None:
-            norm = clip_by_global_norm(grads, state.grad_clip)
-        else:
-            norm = global_norm(grads)
-        state.optimizer.step()
+        with record_function("optimizer"):
+            # a parameter the forward never reads (the reference's dead
+            # convs) gets a zero gradient, so that AdamW still decays it, as
+            # optax does
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            if state.grad_clip is not None:
+                norm = clip_by_global_norm(grads, state.grad_clip)
+            else:
+                norm = global_norm(grads)
+            state.optimizer.step()
         state.step += 1
         return {"train_loss": loss / grad_accum, "grad_norm": norm}
 

@@ -62,6 +62,13 @@ NEW_MODULES = [
     "promptir_tpu_torch.eval.niqe", "promptir_tpu_torch.utils.imresize",
     "promptir_tpu_torch.cli.fit_niqe", "promptir_tpu_torch.cli.viz",
     "promptir_tpu_torch.cli.train_demo",
+    "promptir_tpu_torch.utils.flops", "promptir_tpu_torch.utils.init",
+    "promptir_tpu_torch.cli.summary", "promptir_tpu_torch.cli.convert",
+    "promptir_tpu_torch.tools.trace", "promptir_tpu_torch.tools.kbench",
+    "promptir_tpu_torch.tools.profile_forward",
+    "promptir_tpu_torch.tools.profile_train",
+    "promptir_tpu_torch.tools.tbench", "promptir_tpu_torch.tools.sbench",
+    "promptir_tpu_torch.tools.shape_sweep",
 ]
 # Blocks JAX, PIL and the JAX package, imports the evaluation and training
 # surface, reads a committed JPEG fixture and a BMP written by hand, and
