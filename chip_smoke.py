@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Sixteen main paths are driven: serving PromptIR (`promptir`, each block
+Eighteen main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
 with `fused_ffn=True`), the X-Restormer family's PromptXRestormer
 (`promptxrestormerir`) and PromptXRestormerEff (`promptxrestormereffir`),
@@ -18,9 +18,10 @@ serving PromptIR through the overlap-blend tiler (`tiled`),
 training PromptIR, PromptXRestormer, PromptXRestormerEff,
 EasyPromptXRestormer, NAFNet, both Uformers and the three CAMixer
 X-Restormers (`train`), the evaluation
-entry points (`eval`: all-in-one evaluation, demo, HTTP server) and the
+entry points (`eval`: all-in-one evaluation, demo, HTTP server), the
 training entry point over the all-in-one corpora through the native loader
-(`train_cli`). No kernel lies on the attention-free and Uformer families'
+(`train_cli`), PromptIR's data-parallel training step (`dp_train`) and its
+exact H-sharded forward (`spatial`). No kernel lies on the attention-free and Uformer families'
 paths: their launches are gated at 0, and their card forwards are held
 against the CPU's.
 Phases, each printed with the seconds since start:
@@ -177,7 +178,24 @@ Phases, each printed with the seconds since start:
      route's gates), cli.convert of the seed-0 .ckpt (its .npz read back bit
      for bit), and OPTION_CHECKS: promptir with use_bias and the
      X-Restormer with use_bias and scale 2 on the card against the CPU, no
-     launch.
+     launch;
+ 13. the port's parallel code (promptir_tpu_torch/parallel/) on the one
+     card, in spawned ranks (parallel/mesh.py:launch; the kernels built by
+     this process first): (a) a world of one over NCCL, the data-parallel
+     step of full-depth promptir (bf16, B6 128x128, DP_STEPS steps) bit-equal
+     to the same steps without a group, 47/0/47/1/47/0/2 launches a step;
+     (b) two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+     card; all_reduce and broadcast are the collectives gloo takes on CUDA
+     tensors, and the port's all go through them): a broadcast from rank 0,
+     the fp32 DP step (B3 a rank) against the one-process B6 step
+     (GRAD_TOL), the exact H-sharded fp32 forward of full-depth promptir at
+     SPATIAL_HW against the unsharded forward through the kernels
+     (GOLDEN_TOL of max |ref|; the block kernels off, the seam once), two
+     TILED_HW photographs through the tiler with the group against the
+     one-process tiler (GOLDEN_TOL), and tensor-parallel GDFN and MDTA
+     (TP_CASES) against their modules (GOLDEN_TOL); the steps' ms, the
+     forward's ms and its all_reduce bytes, and the backend of each.
+     Two ranks on one card measure the collective code's cost, not scaling.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
 
@@ -3162,6 +3180,310 @@ def tools_phase(port, counters, reset):
     say(f"tools: phase 12 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------- phase 13
+
+# phase 13's sharded forward and TP shapes: promptir fp32 B1 256x256 split
+# in two stripes; GDFN at promptir's level-1 and latent widths, MDTA at its
+# level-2 width (level 1 has one head, which two ranks cannot split) and at
+# the latent's, each at the rows of a 256x256 image's level
+SPATIAL_HW = (256, 256)
+TP_CASES = {  # label: (module, constructor arguments, input NCHW shape)
+    "gdfn 48 (level 1)": ("gdfn", (48,), (1, 48, 256, 256)),
+    "gdfn 384 (latent)": ("gdfn", (384,), (1, 384, 32, 32)),
+    "mdta 96, 2 heads (level 2)": ("mdta", (96, 2), (1, 96, 128, 128)),
+    "mdta 384, 8 heads (latent)": ("mdta", (384, 8), (1, 384, 32, 32)),
+}
+DP_STEPS = 3  # the NCCL world of one: steps with and without the group
+RANK_TIMEOUT_S = 300
+
+
+def rank_kernels():
+    """The kernel wrappers in KERNELS' order, imported in a rank."""
+    from promptir_tpu_torch.ops.cuda import block, gdfn, mdta, megablock, seam
+
+    return (mdta.mdta_stats, block.block_tail, gdfn.ln_gdfn, seam.seam,
+            mdta.ln_mdta, megablock.tail_stats, mdta.mdta_gram)
+
+
+def rank_counts():
+    return [k.launches for k in rank_kernels()]
+
+
+def train_batch(rows=slice(None)):
+    """Phase 7's fixed batch (B6 128x128 synthetic), its `rows`, on the card."""
+    from promptir_tpu_torch.data.loader import TrainLoader
+    from promptir_tpu_torch.data.synthetic import SyntheticTrainDataset
+
+    ds = SyntheticTrainDataset(n=TRAIN_BATCH, patch_size=TRAIN_HW[0])
+    batch = next(TrainLoader(ds, batch_size=TRAIN_BATCH, shuffle=False,
+                             num_workers=2).epoch(0))
+    return {k: v[rows].cuda() for k, v in batch.items()}
+
+
+def grad_capture(st, model):
+    """A list that each optimizer step appends its flat gradient to."""
+    grads = []
+    st.optimizer.register_step_pre_hook(lambda *a: grads.append(torch.cat(
+        [p.grad.reshape(-1) for p in model.parameters()]).clone()))
+    return grads
+
+
+def timed(fn):
+    """(fn(), ms by CUDA events)."""
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def dp_world_of_one_rank():
+    """One rank over NCCL: DP_STEPS steps of full-depth promptir (bf16
+    compute) with the world as its data group, each beside the same step of
+    an identical model without a group. Returns the launches, losses and
+    ms of each, whether the weights stayed bit-equal, and the traffic."""
+    import torch.distributed as dist
+
+    import promptir_tpu_torch as port
+    from promptir_tpu_torch.parallel.mesh import all_reduce_sum
+    from promptir_tpu_torch.train.state import TrainState, make_optimizer
+    from promptir_tpu_torch.train.step import make_train_step
+
+    batch = train_batch()
+    runs = {}
+    for tag, group in (("group", dist.group.WORLD), ("alone", None)):
+        torch.manual_seed(0)
+        model = port.create_model("promptir", device="cuda",
+                                  dtype=torch.bfloat16, train=True)
+        st = TrainState(model, make_optimizer(model.parameters()))
+        runs[tag] = (model, st, make_train_step(model, group=group))
+    out = {t: dict(launches=[], losses=[], ms=[]) for t in runs}
+    calls, nbytes = all_reduce_sum.calls, all_reduce_sum.bytes
+    for i in range(DP_STEPS):
+        for tag, (model, st, step) in runs.items():
+            before = rank_counts()
+            metrics, ms = timed(lambda: step(st, batch))
+            out[tag]["launches"].append(
+                [a - b for a, b in zip(rank_counts(), before)])
+            out[tag]["losses"].append(metrics["train_loss"].item())
+            out[tag]["ms"].append(ms)
+    pa = [p.detach() for p in runs["group"][0].parameters()]
+    pb = [p.detach() for p in runs["alone"][0].parameters()]
+    out["bit_equal"] = all(torch.equal(a, b) for a, b in zip(pa, pb))
+    out["traffic"] = (all_reduce_sum.calls - calls, all_reduce_sum.bytes - nbytes)
+    out["backend"] = dist.get_backend()
+    return out
+
+
+def shared_card_rank(tile_seed):
+    """One of two gloo ranks on cuda:0: the fp32 DP step (B3 a rank) beside
+    the one-process B6 step (rank 0), the sharded fp32 forward of
+    full-depth promptir at SPATIAL_HW beside the unsharded forward through
+    the kernels (rank 0), two TILED_HW photographs through the tiler with
+    the group beside the one-process tiler (rank 0), and TP_CASES beside
+    their modules. Returns the numbers phase 13 prints and gates."""
+    import torch.distributed as dist
+
+    import promptir_tpu_torch as port
+    from promptir_tpu_torch.eval.tiling import tiled_inference
+    from promptir_tpu_torch.ops.attention import MDTA
+    from promptir_tpu_torch.ops.gdfn import GDFN
+    from promptir_tpu_torch.parallel import tp
+    from promptir_tpu_torch.parallel.mesh import all_reduce_sum, broadcast
+    from promptir_tpu_torch.parallel.spatial import spatial_sharded_apply
+    from promptir_tpu_torch.precision import exact_float32
+    from promptir_tpu_torch.train.state import TrainState, make_optimizer
+    from promptir_tpu_torch.train.step import make_train_step
+
+    g = dist.group.WORLD
+    r, n = dist.get_rank(), dist.get_world_size()
+    out = {"backend": dist.get_backend(g)}
+    b = TRAIN_BATCH // n
+    # broadcast, the trainer's start (rank 0's weights to every rank)
+    t = torch.full((1024,), float(r + 1), device="cuda")
+    broadcast([t], g)
+    out["broadcast"] = bool((t == 1.0).all())
+
+    def fresh(train):
+        torch.manual_seed(0)
+        return port.create_model("promptir", device="cuda", train=train)
+
+    # the DP step, fp32 (TF32 off inside the step)
+    model = fresh(True)
+    st = TrainState(model, make_optimizer(model.parameters()))
+    grads = grad_capture(st, model)
+    step = make_train_step(model, group=g)
+    mine = train_batch(slice(r * b, (r + 1) * b))
+    calls, nbytes = all_reduce_sum.calls, all_reduce_sum.bytes
+    losses, ms = [], []
+    for _ in range(2):
+        metrics, t = timed(lambda: step(st, mine))
+        losses.append(metrics["train_loss"].item())
+        ms.append(t)
+    out["dp"] = dict(losses=losses, ms=ms, traffic=(
+        all_reduce_sum.calls - calls, all_reduce_sum.bytes - nbytes))
+    if r == 0:
+        ref = fresh(True)
+        st_ref = TrainState(ref, make_optimizer(ref.parameters()))
+        grads_ref = grad_capture(st_ref, ref)
+        step_ref = make_train_step(ref)
+        whole = train_batch()
+        ref_losses, ref_ms = [], []
+        for _ in range(2):
+            metrics, t = timed(lambda: step_ref(st_ref, whole))
+            ref_losses.append(metrics["train_loss"].item())
+            ref_ms.append(t)
+        worst, i = 0.0, 0
+        for p in model.parameters():
+            a = grads[0][i:i + p.numel()]
+            w = grads_ref[0][i:i + p.numel()]
+            i += p.numel()
+            worst = max(worst, ((a - w).abs().max()
+                                / w.abs().max().clamp_min(1e-30)).item())
+        out["dp"].update(ref_losses=ref_losses, ref_ms=ref_ms, grad_err=worst)
+        del ref, st_ref, step_ref, grads_ref
+    del model, st, step, grads
+    torch.cuda.empty_cache()
+
+    # the sharded forward, fp32, and the tiler with the group
+    model = fresh(False)
+    gen = torch.Generator().manual_seed(tile_seed)
+    x = torch.rand((1, *SPATIAL_HW, 3), generator=gen).cuda()
+    imgs = [torch.rand((1, *TILED_HW, 3), generator=gen).cuda()
+            for _ in range(2)]
+    with torch.inference_mode(), exact_float32(torch.float32):
+        spatial_sharded_apply(model, x, g)  # warm-up
+        torch.cuda.synchronize()
+        before = rank_counts()
+        calls, nbytes = all_reduce_sum.calls, all_reduce_sum.bytes
+        y, t = timed(lambda: spatial_sharded_apply(model, x, g))
+        out["spatial"] = dict(
+            ms=t, launches=[a - c for a, c in zip(rank_counts(), before)],
+            traffic=(all_reduce_sum.calls - calls,
+                     all_reduce_sum.bytes - nbytes),
+            finite=bool(torch.isfinite(y).all()), shape=tuple(y.shape))
+        tiled = []
+        for im in imgs:
+            o, t = timed(lambda: tiled_inference(
+                model, im, tile=TILE, overlap=TILE_OVERLAP, chunk=TILE_CHUNK,
+                group=g))
+            tiled.append((o, t))
+        out["tiled"] = dict(ms=[t for _, t in tiled])
+        if r == 0:
+            ref = model(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            out["spatial"]["err"] = ((y - ref).abs().max()
+                                     / ref.abs().max()).item()
+            errs, ref_ms = [], []
+            for im, (o, _) in zip(imgs, tiled):
+                want, t = timed(lambda: tiled_inference(
+                    model, im, tile=TILE, overlap=TILE_OVERLAP,
+                    chunk=TILE_CHUNK))
+                errs.append((o - want).abs().max().item())
+                ref_ms.append(t)
+            out["tiled"].update(err=max(errs), ref_ms=ref_ms)
+        # TP: each module's plain forward beside its tensor-parallel apply
+        out["tp"] = {}
+        for label, (kind, args, shape) in TP_CASES.items():
+            torch.manual_seed(1)
+            mod = (GDFN if kind == "gdfn" else MDTA)(*args).cuda()
+            xt = torch.randn(shape, generator=gen).cuda()
+            apply = tp.tp_gdfn_apply if kind == "gdfn" else tp.tp_mdta_apply
+            got, t = timed(lambda: apply(mod, xt, g))
+            want = mod(xt)
+            out["tp"][label] = dict(ms=t, err=((got - want).abs().max()
+                                               / want.abs().max()).item())
+    return out
+
+
+def parallel_phase(card):
+    """Phase 13: the port's parallel code on one card. (a) A world of one
+    over NCCL: the DP step of full-depth promptir, bf16, B6 128x128, bit-equal
+    to the same steps without a group, TRAIN_PER_STEP launches a step. (b)
+    Two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one card;
+    all_reduce and broadcast are what gloo takes on CUDA tensors, and every
+    collective of the port goes through them): the fp32 DP step, B3 a rank,
+    against the one-process B6 step (GRAD_TOL), the sharded fp32 forward at
+    SPATIAL_HW against the unsharded card forward (GOLDEN_TOL of max |ref|;
+    the block kernels gated off, the seam on), the tiler with the group
+    against the one-process tiler, and TP_CASES against their modules. The
+    kernels are built by this process before the ranks start. Returns the
+    launches of the paths `dp_train` and `spatial`."""
+    from promptir_tpu_torch.parallel.mesh import launch
+
+    (a,) = launch(dp_world_of_one_rank, 1, "cuda", timeout_s=RANK_TIMEOUT_S)
+    g, al = a["group"], a["alone"]
+    say(f"parallel: a world of one over {a['backend']} (torch.distributed "
+        f"all_reduce on CUDA tensors): full-depth promptir bf16 B{TRAIN_BATCH} "
+        f"{TRAIN_HW[0]}x{TRAIN_HW[1]} DP step with the group "
+        f"{', '.join(f'{v:.1f}' for v in g['ms'])} ms, without "
+        f"{', '.join(f'{v:.1f}' for v in al['ms'])} ms (CUDA events, the first "
+        f"a warm-up) on {card}; losses {g['losses']} vs {al['losses']}; "
+        f"weights bit-equal {a['bit_equal']}; {a['traffic'][0]} all_reduces, "
+        f"{a['traffic'][1]} bytes; launches {LAUNCH_NAMES} a step "
+        f"{g['launches']}")
+    if not a["bit_equal"] or g["losses"] != al["losses"]:
+        fail("the NCCL world of one is not bit-equal to the step without a "
+             "group")
+    for ran in g["launches"] + al["launches"]:
+        if ran != TRAIN_PER_STEP:
+            fail(f"a DP step launched {ran} != {TRAIN_PER_STEP}")
+
+    res = launch(shared_card_rank, 2, "cuda", backend="gloo", share_card=True,
+                 args=(0,), timeout_s=RANK_TIMEOUT_S)
+    b0, dp, sp, tl = res[0], res[0]["dp"], res[0]["spatial"], res[0]["tiled"]
+    if not all(r["broadcast"] for r in res):
+        fail("gloo's broadcast of a CUDA tensor did not reach every rank")
+    say(f"parallel: two ranks on cuda:0 over {b0['backend']} (all_reduce and "
+        f"broadcast on CUDA tensors): full-depth promptir fp32 (TF32 off) DP step B"
+        f"{TRAIN_BATCH // 2} a rank {', '.join(f'{v:.1f}' for v in dp['ms'])} "
+        f"ms (rank 1 {', '.join(f'{v:.1f}' for v in res[1]['dp']['ms'])}), "
+        f"the one-process B{TRAIN_BATCH} step "
+        f"{', '.join(f'{v:.1f}' for v in dp['ref_ms'])} ms (the first of each "
+        f"a warm-up) on {card}; losses {dp['losses']} vs {dp['ref_losses']}; "
+        f"max |grad - one-process grad| / max over tensors "
+        f"{dp['grad_err']:.3e} (gate {GRAD_TOL}); {dp['traffic'][0]} "
+        f"all_reduces, {dp['traffic'][1]} bytes a rank")
+    if not dp["grad_err"] <= GRAD_TOL or not all(
+            np.isfinite(dp["losses"] + dp["ref_losses"])):
+        fail(f"the two-rank DP step's gradient is {dp['grad_err']:.3e} from "
+             "the one-process step's")
+    if abs(dp["losses"][0] - dp["ref_losses"][0]) > GRAD_TOL * dp["ref_losses"][0]:
+        fail(f"the two-rank loss {dp['losses'][0]} is not the one-process "
+             f"loss {dp['ref_losses'][0]}")
+    say(f"parallel: sharded forward of full-depth promptir fp32 B1 "
+        f"{SPATIAL_HW[0]}x{SPATIAL_HW[1]} over two ranks: {sp['ms']:.1f} ms "
+        f"(rank 1 {res[1]['spatial']['ms']:.1f}) on {card}; "
+        f"{sp['traffic'][0]} all_reduces, {sp['traffic'][1]} bytes a rank; "
+        f"max |sharded - unsharded through the kernels| / max "
+        f"{sp['err']:.3e} (gate {GOLDEN_TOL}); launches {LAUNCH_NAMES} "
+        f"{sp['launches']} (the block kernels off, the seam on the stripe)")
+    spatial_launches = [0, 0, 0, 1, 0, 0, 0]
+    if not sp["err"] <= GOLDEN_TOL or not sp["finite"] or sp["shape"] != (
+            1, *SPATIAL_HW, 3):
+        fail(f"the sharded forward is {sp['err']:.3e} from the unsharded one")
+    for r in res:
+        if r["spatial"]["launches"] != spatial_launches:
+            fail(f"the sharded forward launched {r['spatial']['launches']} != "
+                 f"{spatial_launches}")
+    say(f"parallel: tiler with the group, full-depth promptir fp32, two "
+        f"{TILED_HW[0]}x{TILED_HW[1]} photographs (tile {TILE}, overlap "
+        f"{TILE_OVERLAP}, chunk {TILE_CHUNK}: {TILE_CHUNK // 2} tiles a rank "
+        f"a forward): {', '.join(f'{v:.1f}' for v in tl['ms'])} ms, one "
+        f"process {', '.join(f'{v:.1f}' for v in tl['ref_ms'])} ms on {card}; "
+        f"max |sharded - one-process| {tl['err']:.3e} (gate {GOLDEN_TOL})")
+    if not tl["err"] <= GOLDEN_TOL:
+        fail(f"the sharded tiler is {tl['err']:.3e} from the one-process tiler")
+    for label, v in res[0]["tp"].items():
+        worst = max(r["tp"][label]["err"] for r in res)
+        say(f"parallel: TP {label} over two ranks: {v['ms']:.2f} ms; max |TP "
+            f"- module| / max {worst:.3e} (gate {GOLDEN_TOL})")
+        if not worst <= GOLDEN_TOL:
+            fail(f"TP {label} is {worst:.3e} from its module")
+    return {"dp_train": [sum(c) for c in zip(*g["launches"])],
+            "spatial": sp["launches"]}
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> None:
@@ -3246,6 +3568,7 @@ def main() -> None:
         launches[f"train_cli {label}"] = train_cli_mode(
             counters, card, label, flags, per_step)
     tools_phase(port, counters, reset)
+    launches.update(parallel_phase(card))
 
     replaces = {
         "mdta_stats": ("promptir_tpu_torch/csrc/mdta_stats.cu",

@@ -17,9 +17,14 @@ its native path, as the JAX CLI does: the JAX CLI has no flag for it):
 `--fused` trains every TransformerBlock as one LnBlock (mdta_stats and
 block_tail forward, the whole block recomputed backward; the PromptIR and
 X-Restormer families), `--remat` checkpoints PromptIR's blocks, and
-`--remat_levels 1 2` only those of levels 1 and 2. The JAX package's mesh
-has no counterpart yet: a non-default `--n_data` exits non-zero naming its
-ROADMAP.md item, and is never ignored.
+`--remat_levels 1 2` only those of levels 1 and 2.
+
+`--n_data N` trains data-parallel over N ranks (parallel/mesh.py:launch):
+one a card over NCCL, or N gloo ranks on the CPU with `--device cpu`; the
+default, every visible card (one process on the CPU). `--batch_size` is a
+rank's, as the JAX CLI's ("per DP shard"), so the global batch is
+batch_size * N. A stochastic CAMixer model with N > 1 exits non-zero
+naming its ROADMAP.md item (REFUSED), and is never run otherwise.
 """
 
 from __future__ import annotations
@@ -27,10 +32,28 @@ from __future__ import annotations
 import argparse
 import sys
 
-# flag -> why it is refused, with the ROADMAP.md item that ports it
+# the models whose training forward samples (train/step.py:STOCHASTIC)
+STOCHASTIC_MODELS = frozenset({
+    "capromptuformerir", "capromptxrestormereff", "capromptxrestormereffv2",
+    "catapromptxrestormer"})
+
+# flag -> (whether the arguments ask what the port does not run, why),
+# with the ROADMAP.md item that ports it
 REFUSED = {
-    "n_data": "data parallelism is not ported yet (ROADMAP.md Queue 1 item 5)",
+    "n_data": (lambda args: args.model in STOCHASTIC_MODELS
+               and n_ranks(args) > 1,
+               "data-parallel training of the stochastic CAMixer models is "
+               "not ported yet (ROADMAP.md Queue 1 item 5: DP for the "
+               "stochastic models)"),
 }
+
+
+def n_ranks(args) -> int:
+    """The data-parallel ranks `--n_data` asks for (None: every visible
+    card; one on the CPU)."""
+    from promptir_tpu_torch.parallel.mesh import data_size
+
+    return data_size(args.n_data, args.device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--n_data", type=int, default=None,
-                   help="data-parallel size: not ported (refused)")
+                   help="data-parallel ranks, --batch_size each (default: "
+                        "every visible card; one process on the CPU)")
     p.add_argument("--remat", action="store_true",
                    help="checkpoint PromptIR's transformer blocks: their "
                         "forward runs again in the backward")
@@ -92,21 +116,36 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def refused(args) -> list:
-    """The messages of the flags given away from their defaults that the
-    port does not run."""
-    defaults = build_parser().parse_args([])
-    return [f"--{k}: {why}" for k, why in REFUSED.items()
-            if getattr(args, k) != getattr(defaults, k)]
+    """The messages of the flags whose values ask what the port does not
+    run."""
+    return [f"--{k}: {why}" for k, (asks, why) in REFUSED.items() if asks(args)]
 
 
 def main(argv=None):
-    """Train; returns the Trainer after its last epoch."""
+    """Train; returns the Trainer after its last epoch (None when the run
+    went to N > 1 ranks)."""
     args = build_parser().parse_args(argv)
     bad = refused(args)
     if bad:
         print("\n".join(bad), file=sys.stderr)
         raise SystemExit(2)
+    n = n_ranks(args)
+    if n > 1:
+        from promptir_tpu_torch.parallel.mesh import launch
 
+        launch(rank_main, n, args.device, args=(args, n))
+        return None
+    return train(args, n)
+
+
+def rank_main(args, n: int) -> None:
+    """One rank of `--n_data N`: train, return nothing."""
+    train(args, n)
+
+
+def train(args, n: int):
+    """Train with the CLI's arguments in this process: one process, or one
+    rank of n."""
     import torch
 
     from promptir_tpu_torch.cli.test import size_kwargs
@@ -136,6 +175,7 @@ def main(argv=None):
     cfg.system.compute_dtype = args.dtype
     cfg.system.profile_dir = args.profile_dir
     cfg.system.remat = args.remat
+    cfg.system.n_data = n
     if args.remat_levels is not None:
         cfg.system.remat_levels = tuple(args.remat_levels)
 

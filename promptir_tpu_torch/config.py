@@ -3,8 +3,8 @@
 Counterpart of promptir_tpu/config.py, which covers the reference's
 options.py field for field. This copy holds the fields the port's trainer
 and cli/train.py read, with the JAX package's defaults; the evaluation
-options and the mesh, remat and tiling knobs wait for the modules that
-read them (ROADMAP.md Queue 1).
+options and the tiling knobs wait for the modules that read them
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -58,6 +58,8 @@ class SystemConfig:
     profile_dir: Optional[str] = None  # torch.profiler trace of steps 2-7
     remat: bool = False  # checkpoint the transformer blocks (PromptIR)
     remat_levels: Optional[tuple] = None  # restrict remat to these levels
+    n_data: Optional[int] = None  # data-parallel ranks (None: the world's)
+    n_model: int = 1  # model-parallel ranks (parallel/tp.py)
 
 
 @dataclass

@@ -9,6 +9,13 @@ and keeps PREFETCH batches ahead of the training loop.
 Determinism: the sample order of an epoch is a shuffle seeded by
 (seed, epoch) and every noise draw derives from (seed, epoch, index), as in
 the JAX loader, so the same seed gives the same batches in both packages.
+
+Data parallelism: with `world` ranks, a global batch is `batch_size *
+world` samples of the epoch's order and rank `rank` yields (and decodes)
+only its rows [rank b, (rank + 1) b). A sample's draws depend on its index
+alone, so those rows are exactly the rows the one-process loader yields
+there at the global batch size, as the JAX loader's sharded batch
+(loader.py:64) holds them.
 """
 
 from __future__ import annotations
@@ -32,17 +39,24 @@ class TrainLoader:
         shuffle: bool = True,
         num_workers: int = 4,
         pin_memory: bool = False,
+        rank: int = 0,
+        world: int = 1,
     ):
+        """`batch_size` is a rank's; the global batch is batch_size * world."""
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} is not in a world of {world}")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank = rank
+        self.world = world
         self.seed = seed
         self.shuffle = shuffle
         self.num_workers = num_workers
         self.pin_memory = pin_memory
 
     def __len__(self) -> int:
-        """Full batches of an epoch; the last partial one is dropped."""
-        return len(self.dataset) // self.batch_size
+        """Full global batches of an epoch; the last partial one is dropped."""
+        return len(self.dataset) // (self.batch_size * self.world)
 
     def order(self, epoch: int) -> np.ndarray:
         """The sample order of `epoch` (loader.py:52)."""
@@ -58,7 +72,8 @@ class TrainLoader:
         nb = len(self)
 
         def make_batch(b: int) -> dict:
-            idxs = order[b * self.batch_size : (b + 1) * self.batch_size]
+            start = (b * self.world + self.rank) * self.batch_size
+            idxs = order[start : start + self.batch_size]
             de, deg, cln = [], [], []
             for i in idxs:
                 rng = np.random.default_rng((self.seed, epoch, int(i)))

@@ -1,7 +1,7 @@
 """Padding helpers for whole-image inference, on tensors or numpy arrays.
 
 Counterpart of promptir_tpu/eval/padding.py (target_size,
-pad_to_multiple_flip, pad_to_multiple_reflect, crop) and of the one-chip case of
+pad_to_multiple_flip, pad_to_multiple_reflect, crop) and of
 promptir_tpu/parallel/spatial.py:pad_bases, kept as the port's own copies:
 the JAX modules import JAX. The flip pad is the reference's test-time pad
 (test.py:100-104): the flipped image appended, then cropped to the target
@@ -11,39 +11,49 @@ size. Reflect padding is the reference demo's (demo.py:17-24, torch
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 
-# (base_h, base_w) of each model: the X-Restormer families run 8x8 windows
-# (OCAB or CAMixer) at all four levels, so both sides must be multiples of
-# 8 * 2^3 = 64; the window-free families (PromptIR, Easy, NAFNet) need only
-# even sizes through three downsamples (NAFNet pads to its own multiple of
-# 16 inside the model); the Uformer family downsamples four times to H/16
-# and runs 8x8 windows there, so both sides must be multiples of 128.
-_PAD_BASES = {
-    "promptir": (8, 8),
-    "xrestormerir": (64, 64),
-    "promptxrestormerir": (64, 64),
-    "promptxrestormereffir": (64, 64),
-    "capromptxrestormereff": (64, 64),
-    "capromptxrestormereffv2": (64, 64),
-    "catapromptxrestormer": (64, 64),
-    "easypromptxrestormer": (8, 8),
-    "nafnet": (8, 8),
-    "nafnetlocal": (8, 8),
-    "promptuformerir": (128, 128),
-    "capromptuformerir": (128, 128),
-}
+# the pad bases' families (promptir_tpu/parallel/spatial.py:229-238)
+_OCAB_FAMILIES = frozenset(
+    {"xrestormerir", "promptxrestormerir", "promptxrestormereffir"})
+_CAMIXER_XR_FAMILIES = frozenset(
+    {"capromptxrestormereff", "capromptxrestormereffv2",
+     "catapromptxrestormer"})
+_UFORMER_FAMILIES = frozenset({"promptuformerir", "capromptuformerir"})
+_WINDOW_FREE = frozenset(
+    {"promptir", "easypromptxrestormer", "nafnet", "nafnetlocal"})
 
 
-def pad_bases(model_name: str) -> tuple[int, int]:
+def pad_bases(model_name: str, n_shards: int = 1) -> tuple[int, int]:
     """(base_h, base_w) to pad an image to before a whole-image forward of
-    `model_name` on one card."""
-    if model_name not in _PAD_BASES:
-        raise KeyError(f"unknown model {model_name!r}; available: "
-                       f"{sorted(_PAD_BASES)}")
-    return _PAD_BASES[model_name]
+    `model_name` over `n_shards` H-stripes (1: one card), the JAX
+    package's formula (promptir_tpu/parallel/spatial.py:241-263):
+      * the X-Restormer skeletons run 8x8 windows (OCAB or CAMixer) at all
+        four levels, so both sides are multiples of 8 * 2^3 = 64; sharded
+        OCAB windows each stripe, so H is a multiple of 64 n; CAMixer routes
+        through a gather, so only even stripes (8 n) join the global 64;
+      * the Uformer skeletons downsample four times to H/16 and window
+        there: 128, and H also a multiple of 16 n for even stripes;
+      * the window-free families (PromptIR, Easy, NAFNet) need only even
+        stripes through three downsamples: 8 n, and 8 on W (NAFNet pads to
+        its own multiple of 16 inside the model).
+    """
+    n = int(n_shards)
+    if model_name in _UFORMER_FAMILIES:
+        return math.lcm(128, 16 * n), 128
+    if model_name in _OCAB_FAMILIES:
+        return 64 * n, 64
+    if model_name in _CAMIXER_XR_FAMILIES:
+        return math.lcm(64, 8 * n), 64
+    if model_name in _WINDOW_FREE:
+        return 8 * n, 8
+    known = (_OCAB_FAMILIES | _CAMIXER_XR_FAMILIES | _UFORMER_FAMILIES
+             | _WINDOW_FREE)
+    raise KeyError(f"unknown model {model_name!r}; available: {sorted(known)}")
 
 
 def target_size(h: int, w: int, base) -> tuple[int, int]:

@@ -43,7 +43,11 @@ The kernels take no conv bias. A block built with one (the models'
 `use_bias`) runs its modules' plain composition on every device
 (`plain_branch`), as the JAX models run their unfused blocks under
 `fused_ffn and not use_bias` (promptir.py:81, xrestormer.py:58): a gate
-chosen by the model's configuration, never a fallback on failure.
+chosen by the model's configuration, never a fallback on failure. So does
+every block under the H-sharded forward (parallel/spatial.py), a gate
+chosen by the mode, and no stack chains there: the kernels sum their Gram
+over their whole input and zero-pad its top and bottom rows, which on a
+stripe would be wrong; the modules' ops carry the sharded reductions.
 Weights are cast to the activations' dtype at use, so a model with float32
 weights can compute in bfloat16; without autograd the cast copy is kept
 beside its weight (`cast_weight`, ops/cuda/packed.py). A tensor on the card
@@ -67,6 +71,7 @@ from promptir_tpu_torch.ops.cuda.megablock import tail_stats
 from promptir_tpu_torch.ops.cuda.packed import cast_weight
 from promptir_tpu_torch.ops.gdfn import GDFN
 from promptir_tpu_torch.ops.norm import LayerNorm
+from promptir_tpu_torch.parallel.spatial import current_spatial_group
 
 
 def records_grad(*tensors) -> bool:
@@ -90,6 +95,12 @@ def biased(conv) -> bool:
     return conv.bias is not None
 
 
+def runs_plain(conv) -> bool:
+    """True when the block of `conv` runs its plain composition: a biased
+    block, or any block under the H-sharded forward."""
+    return biased(conv) or current_spatial_group() is not None
+
+
 def plain_branch(norm, module, xh):
     """xh + module(norm(xh)) on NHWC `xh` through the modules' own
     forward (NCHW, channels_last): the route of a biased block."""
@@ -104,8 +115,9 @@ def block_forward(norm1: LayerNorm, attn: MDTA, norm2: LayerNorm, ffn: GDFN,
                   xh, whole: bool = False):
     """x2 = x + MDTA(LN1(x)); x2 + GDFN(LN2(x2)) on NHWC `xh`; under
     autograd through LnBlock with `whole`, else LnMdta then LnGdfn; a
-    biased block through its modules' plain composition."""
-    if biased(attn.qkv):
+    biased block, or one under the H-sharded forward, through its modules'
+    plain composition."""
+    if runs_plain(attn.qkv):
         return plain_branch(norm2, ffn, plain_branch(norm1, attn, xh))
     wa = (norm1.body.weight, norm1.body.bias, attn.qkv.weight,
           attn.qkv_dwconv.weight, attn.project_out.weight)
@@ -157,7 +169,7 @@ def run_stack(stack, xh, chain: bool = False, remat: bool = False):
     last block. Otherwise each block runs `run_block`, `whole` when the
     chain was asked for, under a checkpoint with `remat`."""
     blocks = list(stack)
-    if (not chain or len(blocks) < 2 or biased(blocks[0].attn.qkv)
+    if (not chain or len(blocks) < 2 or runs_plain(blocks[0].attn.qkv)
             or records_grad(xh, *stack.parameters())):
         for blk in blocks:
             xh = run_block(blk, xh, whole=chain, remat=remat)
@@ -180,8 +192,9 @@ def run_stack(stack, xh, chain: bool = False, remat: bool = False):
 
 def gdfn_forward(norm: LayerNorm, ffn: GDFN, xh):
     """x + GDFN(LN(x)) on NHWC `xh` through the LN+GDFN kernel (a biased
-    GDFN through its plain composition)."""
-    if biased(ffn.project_in):
+    GDFN, or one under the H-sharded forward, through its plain
+    composition)."""
+    if runs_plain(ffn.project_in):
         return plain_branch(norm, ffn, xh)
     ws = (norm.body.weight, norm.body.bias, ffn.project_in.weight,
           ffn.dwconv.weight, ffn.project_out.weight)

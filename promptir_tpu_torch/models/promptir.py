@@ -37,6 +37,11 @@ The level-1 decoder entry runs through the seam kernel (under `Seam`,
 which carries its gradient): up2_1's conv, then pixel-shuffle and the skip
 concat in one pass.
 
+Its ops carry the hooks of the exact H-sharded forward
+(parallel/spatial.py, `spatial_hooks`): under it the blocks run their
+plain composition, the stacks never chain, and the seam, which is
+row-local, runs on the stripe.
+
 The forward computes in the model's `compute_dtype` when it has one (a
 model for training: float32 weights, bfloat16 activations, as the JAX
 model with `dtype=bfloat16`; precision.py), else in the weights' dtype.
@@ -67,6 +72,8 @@ from promptir_tpu_torch.precision import compute_dtype
 
 
 class PromptIR(nn.Module):
+    spatial_hooks = True  # parallel/spatial.py:spatial_sharded_apply runs it
+
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_refinement_blocks: int = 4,

@@ -9,6 +9,12 @@ channels; out = attn v, then a 1x1 projection.
 `MDTA.forward` is the plain composition. Inside a TransformerBlock the
 module only holds the weights: the block runs them through the stats and
 tail kernels (models/blocks.py).
+
+Under the H-sharded forward (parallel/spatial.py) each rank holds a stripe
+of rows: the q and k sums of squares and the Gram are taken over the local
+rows and summed over the group before the softmax, so that every rank's
+attention matrix is the whole image's (promptir_tpu/ops/attention.py:
+40-60).
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from promptir_tpu_torch.ops.conv import Conv
+from promptir_tpu_torch.parallel.mesh import all_reduce_sum
+from promptir_tpu_torch.parallel.spatial import current_spatial_group
 
 
 def channel_attention(q, k, v, temperature, num_heads: int):
@@ -28,9 +36,18 @@ def channel_attention(q, k, v, temperature, num_heads: int):
     d = c // num_heads
     dt = q.dtype
     q, k, v = (t.reshape(b, num_heads, d, h * w).float() for t in (q, k, v))
-    q = F.normalize(q, dim=-1)
-    k = F.normalize(k, dim=-1)
-    attn = (q @ k.transpose(-2, -1)) * temperature.float()
+    group = current_spatial_group()
+    if group is None:
+        q = F.normalize(q, dim=-1)
+        k = F.normalize(k, dim=-1)
+        attn = q @ k.transpose(-2, -1)
+    else:  # the norms and the Gram over the whole image's rows
+        sq = all_reduce_sum(torch.stack([q.square().sum(-1, keepdim=True),
+                                         k.square().sum(-1, keepdim=True)]),
+                            group)
+        q, k = (t / s.sqrt().clamp_min(1e-12) for t, s in zip((q, k), sq))
+        attn = all_reduce_sum(q @ k.transpose(-2, -1), group)
+    attn = attn * temperature.float()
     attn = attn.softmax(dim=-1).to(dt).float()  # as the JAX composition rounds it
     return (attn @ v).to(dt).reshape(b, c, h, w)
 

@@ -29,10 +29,12 @@ effv2.py:325-551, ca_ta_promptxrestormer.py:317-357), channels-last:
     max(1, round(B * hard_ratio)) images of the batch by label (ties keep
     more), in training the straight-through Gumbel sample over the batch
     axis (one image of the batch is hard).
-The spatially sharded gather waits for parallelism (ROADMAP.md Queue 1
-item 5). No kernel of the port runs here; the rounding points are the JAX
-module's (float32 logits, bias and softmax, the probabilities rounded to
-the compute dtype before a float32 PV, the result in x's dtype).
+The spatially sharded gather (promptir_tpu/ops/camixer.py:168-185) waits
+for the other families' spatial hooks (ROADMAP.md Queue 1 item 5; the
+port's sharded forward, parallel/spatial.py, runs PromptIR). No kernel of
+the port runs here; the rounding points are the JAX module's (float32
+logits, bias and softmax, the probabilities rounded to the compute dtype
+before a float32 PV, the result in x's dtype).
 """
 
 from __future__ import annotations

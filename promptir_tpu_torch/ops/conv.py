@@ -6,12 +6,37 @@ bias by default, so its `weight` (and `bias`) load the reference's keys
 verbatim; torch's default initialization is the reference's. NAFNet's 2x2
 stride-2 downsampling is `Conv(c, 2 * c, 2, stride=2, padding=0,
 bias=True)`. The plain convolutions of the model stay `F.conv2d`.
+
+`Conv` is also the hook of the exact H-sharded forward
+(parallel/spatial.py): under `spatial_sharding(group)` each conv takes the
+first plan that applies, as the JAX Conv does (promptir_tpu/ops/conv.py:
+66-162):
+  * stride 1, odd kernel height kh > 1, row padding kh // 2: exchange
+    kh // 2 rows with the neighbours and crop the rows recomputed at each
+    end (zeros at the global borders: the unsharded conv's padding);
+  * stride == kernel, no padding, the stripe a multiple of the stride:
+    every window lies inside one stripe, so the conv is local;
+  * kh == s + 2 p with 0 < p <= s (a strided overlap, the Uformer 4x4/s2/p1
+    downsample), the stripe a multiple of s: exchange s rows, conv, crop
+    one output row at each end;
+  * kh == 1 otherwise: local;
+  * anything else: gather the rows, convolve the whole, keep the local
+    output rows (NotImplementedError when they do not partition).
 """
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 from torch import nn
+
+from promptir_tpu_torch.parallel.mesh import group_size
+from promptir_tpu_torch.parallel.spatial import (
+    current_spatial_group,
+    exchange_rows,
+    gather_rows,
+    slice_local_rows,
+    spatial_sharding,
+)
 
 
 class Conv(nn.Conv2d):
@@ -25,8 +50,41 @@ class Conv(nn.Conv2d):
         """The convolution in x's dtype: the float32 weights of a model that
         computes in bfloat16 are cast at use, as a flax module with
         `dtype=bfloat16` casts its float32 params (a no-op when they match)."""
+        group = current_spatial_group()
+        if group is not None:
+            return self._sharded(x, group)
+        return self._plain(x)
+
+    def _plain(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), b)
+
+    def _sharded(self, x, group):
+        """The conv of an NCHW stripe under the sharded forward's plan."""
+        kh, sh, h = self.kernel_size[0], self.stride[0], x.shape[2]
+        plain_rows = self.dilation[0] == 1 and not isinstance(self.padding, str)
+        ph = self.padding[0] if plain_rows else -1
+        if plain_rows and sh == 1 and kh > 1 and kh % 2 and ph == kh // 2:
+            y = self._plain(exchange_rows(x, ph, group, dim=2))
+            return y[:, :, ph:y.shape[2] - ph]
+        if plain_rows and sh == kh and ph == 0 and h % sh == 0:
+            return self._plain(x)
+        if plain_rows and kh == sh + 2 * ph and 0 < ph <= sh and h % sh == 0:
+            # a halo of s rows keeps the conv's own zero padding in phase
+            # with the global conv: output row q of the haloed stripe reads
+            # global rows i hl + (q - 1) s - p ..., the unsharded output for
+            # q in [1, hl / s]
+            y = self._plain(exchange_rows(x, sh, group, dim=2))
+            return y[:, :, 1:y.shape[2] - 1]
+        if kh == 1:
+            return self._plain(x)
+        with spatial_sharding(None):
+            yg = self._plain(gather_rows(x, group, dim=2))
+        if yg.shape[2] % group_size(group):
+            raise NotImplementedError(
+                "spatial sharding: gathered conv output rows do not "
+                f"partition the group (H_out={yg.shape[2]})")
+        return slice_local_rows(yg, group, dim=2)
 
 
 def dwconv3x3_nhwc(h, taps):

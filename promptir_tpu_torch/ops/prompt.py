@@ -8,6 +8,11 @@ conv. Rounding points as the JAX module's (promptir_tpu/ops/prompt.py:36-38,
 63-67): the GAP (an fp32 mean) and the Linear in x's dtype, the softmax
 and the mix in float32, the mix rounded to x's dtype before the resize,
 which computes in float32 and rounds again.
+
+Under the H-sharded forward (parallel/spatial.py) `x` is a stripe: the GAP
+is the whole image's (`global_mean_hw`), and the mix is resized at the
+global rows (the stripe's times the group size) and sliced to the stripe,
+as the JAX module does (promptir_tpu/ops/prompt.py:34-70).
 """
 
 from __future__ import annotations
@@ -18,6 +23,12 @@ from torch import nn
 
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.resize import resize_bilinear
+from promptir_tpu_torch.parallel.mesh import group_size
+from promptir_tpu_torch.parallel.spatial import (
+    current_spatial_group,
+    global_mean_hw,
+    slice_local_rows,
+)
 
 
 class PromptGenBlock(nn.Module):
@@ -35,11 +46,17 @@ class PromptGenBlock(nn.Module):
     def forward(self, x):
         h, w = x.shape[-2:]
         dt = x.dtype
-        emb = x.float().mean(dim=(-2, -1)).to(dt)
+        emb = global_mean_hw(x, dims=(-2, -1), keepdim=False).to(dt)
         lin = self.linear_layer
         logits = F.linear(emb, lin.weight.to(dt), lin.bias.to(dt))
         weights = logits.float().softmax(-1)
         prompt = torch.einsum("bl,lchw->bchw", weights,
                               self.prompt_param[0].float()).to(dt)
-        prompt = resize_bilinear(prompt.float(), (h, w), self.align_corners)
+        group = current_spatial_group()
+        if group is None:
+            prompt = resize_bilinear(prompt.float(), (h, w), self.align_corners)
+        else:
+            prompt = slice_local_rows(
+                resize_bilinear(prompt.float(), (h * group_size(group), w),
+                                self.align_corners), group, dim=2)
         return self.conv3x3(prompt.to(dt))

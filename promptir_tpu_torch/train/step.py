@@ -2,10 +2,21 @@
 
 Counterpart of promptir_tpu/train/step.py: forward, L1 loss, backward and
 one AdamW update (the reference's train.py:37-56). The JAX step is one
-jitted function over a data-parallel mesh; this one runs eagerly on one
-card (data parallelism is ROADMAP Queue 1 item 5). It updates the state in
-place and returns its metrics as tensors on the card, so that the loop
-does not wait for the card at every step.
+jitted function over a data-parallel mesh (step.py:130-138); this one runs
+eagerly in each rank of a data group, on its rank's rows of the global
+batch. It updates the state in place and returns its metrics as tensors on
+the card, so that the loop does not wait for the card at every step.
+
+With a `group` of n ranks, after the microbatches come, in this order: the
+dead convs' zero gradients, one all_reduce of the flat gradient over the
+group divided by n (its mean: equal rank batches make it the global
+batch's gradient), then the global-norm clip and AdamW, as the JAX step
+sums its gradient over the mesh before `clip_by_global_norm`. The logged
+loss is the group's mean. The all_reduce is explicit, not
+DistributedDataParallel: that keeps `grad_accum`'s single update, the zero
+gradients of the never-read dead convs (DDP refuses unused parameters) and
+the clip of the averaged gradient. Overlapping it with the backward is
+later speed work (ROADMAP.md).
 
 `grad_accum > 1` splits the batch into that many equal microbatches, runs
 them one after the other and averages their gradients before the single
@@ -31,6 +42,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from promptir_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 from promptir_tpu_torch.precision import compute_dtype, exact_float32
 from promptir_tpu_torch.train.losses import l1_loss, ratio_loss
 from promptir_tpu_torch.train.state import TrainState, clip_by_global_norm, global_norm
@@ -44,6 +56,27 @@ def to_nchw(x: torch.Tensor, device) -> torch.Tensor:
 # the CAMixer variants, whose training forward samples (the JAX trainer's
 # list); v1 returns its mean decision, the others their losses
 STOCHASTIC = ("v1", "v2", "cata")
+# why a stochastic model does not train data-parallel yet: every rank would
+# draw the same Gumbel uniforms, v1's ratio loss squares a batch mean (a
+# mean of rank means is not the global value), and CATA's selector couples
+# the images of the whole batch
+STOCHASTIC_DP = ("data-parallel training of the stochastic CAMixer models "
+                 "is not ported yet (ROADMAP.md Queue 1 item 5: DP for the "
+                 "stochastic models)")
+
+
+def average_gradients(grads, group) -> None:
+    """Replace each of `grads` with its mean over `group`: one all_reduce
+    of their concatenation (none in a lone process, group None)."""
+    if group is None:
+        return
+    n = group_size(group)
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    all_reduce_sum(flat, group).div_(n)
+    i = 0
+    for g in grads:
+        g.copy_(flat[i:i + g.numel()].view_as(g))
+        i += g.numel()
 
 
 def draw_generator(device, seed: int, index: int) -> torch.Generator:
@@ -53,9 +86,10 @@ def draw_generator(device, seed: int, index: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
-def make_train_step(model, grad_accum: int = 1, seed: int = 0):
+def make_train_step(model, grad_accum: int = 1, seed: int = 0, group=None):
     """Build `step(state, batch) -> metrics` for `model`; `seed` seeds a
-    stochastic model's draws.
+    stochastic model's draws; `group` is the data group whose ranks each
+    step on their rows of the global batch (None: one process).
 
     `batch`: {"degraded", "clean"} (B, H, W, 3) float tensors (from
     data/loader.py), B a multiple of grad_accum. Returns {"train_loss",
@@ -66,6 +100,9 @@ def make_train_step(model, grad_accum: int = 1, seed: int = 0):
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
     stochastic = getattr(model, "variant", None) in STOCHASTIC
+    n_ranks = group_size(group)
+    if stochastic and n_ranks > 1:
+        raise NotImplementedError(STOCHASTIC_DP)
 
     def loss_of(x, y, index):
         if not stochastic:
@@ -101,6 +138,9 @@ def make_train_step(model, grad_accum: int = 1, seed: int = 0):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
+            average_gradients(grads, group)
+            if group is not None:
+                loss = all_reduce_sum(loss.reshape(1), group)[0] / n_ranks
             if state.grad_clip is not None:
                 norm = clip_by_global_norm(grads, state.grad_clip)
             else:

@@ -1,13 +1,24 @@
-"""The training harness: epochs on one card.
+"""The training harness: epochs on one card, or on each rank of a mesh.
 
 Counterpart of promptir_tpu/train/trainer.py, the reference's Lightning
-setup (train.py:303-341) on one device: the train step of step.py, the
+setup (train.py:303-341): the train step of step.py, the
 per-epoch warmup-cosine learning rate, a checkpoint every epoch, an
 epoch-end evaluation hook (train.py:134-172), JSONL (and wandb) metric
 logging, a SIGTERM/SIGINT guard that checkpoints and returns, and the
 profiler window: with `cfg.system.profile_dir` set, a torch.profiler trace
 of the global steps [2, 7) of the first epoch run, written there as a
-Chrome trace. Data parallelism is not ported yet (ROADMAP.md).
+Chrome trace.
+
+Inside a rank of a distributed run (parallel/mesh.py:launch) the trainer
+builds its mesh from `cfg.system.n_data` and `n_model`
+(promptir_tpu/train/trainer.py:45-47): the global batch is `batch_size *
+n_data`, each rank loads its rows of it and the step averages the gradient
+over the data group. At start rank 0's weights and buffers are broadcast to
+every rank. Rank 0 alone writes checkpoints, logs, the profiler trace and
+runs the epoch-end evaluation; every rank resumes from the same checkpoint;
+the ranks agree at every step whether one was preempted (one all_reduce of
+a flag, which waits for the step), and rank 0 saves once. A stochastic
+model (train/step.py:STOCHASTIC) with more than one data rank raises.
 """
 
 from __future__ import annotations
@@ -17,10 +28,12 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from promptir_tpu_torch.config import Config
 from promptir_tpu_torch.data.loader import TrainLoader
 from promptir_tpu_torch.models import create_model
+from promptir_tpu_torch.parallel.mesh import all_reduce_sum, broadcast, create_mesh
 from promptir_tpu_torch.train.checkpoints import CheckpointManager
 from promptir_tpu_torch.train.metrics_logger import MetricLogger
 from promptir_tpu_torch.train.preemption import PreemptionGuard
@@ -71,6 +84,16 @@ class ProfilerWindow:
         print(f"profiler trace written to {path}")
 
 
+class NullLogger:
+    """The logger of a rank other than 0: logs nothing."""
+
+    def log(self, metrics: dict, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class Trainer:
     def __init__(
         self,
@@ -87,8 +110,13 @@ class Trainer:
         `cfg.train.eval_every_epochs` epochs and its metrics are logged.
         `cfg.system.remat` (and `remat_levels`) go to the default model as
         the JAX trainer passes them (trainer.py:51-54); a model without
-        those options raises its TypeError."""
+        those options raises its TypeError. Inside a distributed run the
+        mesh is `cfg.system.n_data` x `n_model` ranks."""
         self.cfg = cfg
+        self.mesh = create_mesh(cfg.system.n_data, cfg.system.n_model,
+                                cfg.system.device)
+        self.lead = self.mesh.rank == 0
+        self.global_batch = cfg.train.batch_size * self.mesh.n_data
         if model is None:
             model_kw = {}
             if cfg.system.remat:
@@ -101,6 +129,8 @@ class Trainer:
                                  train=True, **model_kw)
         self.model = model
         self.device = next(model.parameters()).device
+        self.world = dist.group.WORLD if dist.is_initialized() else None
+        broadcast(list(model.parameters()) + list(model.buffers()), self.world)
         self.dataset = dataset
         self.eval_hook = eval_hook
         self.loader = TrainLoader(
@@ -109,20 +139,24 @@ class Trainer:
             seed=cfg.train.seed,
             num_workers=cfg.data.num_workers,
             pin_memory=self.device.type == "cuda",
+            rank=self.mesh.data_rank,
+            world=self.mesh.n_data,
         )
         self.state = TrainState(
             model, make_optimizer(model.parameters(), cfg.train.lr,
                                   cfg.train.weight_decay),
             grad_clip=cfg.train.grad_clip)
         self.step_fn = make_train_step(model, cfg.train.grad_accum,
-                                       cfg.train.seed)
+                                       cfg.train.seed, self.mesh.data_group)
         self.eval_step = make_eval_step(model)
         self.schedule = warmup_cosine(
             cfg.train.lr, cfg.train.warmup_epochs, cfg.train.cosine_max_epochs
         )
         self.ckpt = CheckpointManager(cfg.train.ckpt_dir)
-        self.logger = MetricLogger(cfg.train.log_dir, cfg.train.wandb_project)
-        self.profiler = ProfilerWindow(cfg.system.profile_dir, self.device)
+        self.logger = (MetricLogger(cfg.train.log_dir, cfg.train.wandb_project)
+                       if self.lead else NullLogger())
+        self.profiler = ProfilerWindow(
+            cfg.system.profile_dir if self.lead else None, self.device)
         self.start_epoch = 0
         # pass a guard to share it (cooperative shutdown, tests); by default
         # fit() installs one for its own duration
@@ -135,18 +169,29 @@ class Trainer:
     def resume(self, epoch: Optional[int] = None) -> None:
         self.ckpt.restore(self.state, epoch)
         self.start_epoch = self.state.epoch + 1
-        print(f"resumed from epoch {self.state.epoch}")
+        if self.lead:
+            print(f"resumed from epoch {self.state.epoch}")
 
     def _save_preempted(self, epoch: int) -> None:
         """Checkpoint so that `resume()` replays the interrupted epoch: the
         state is saved mid-epoch but tagged epoch - 1. The partial progress
         of the interrupted epoch is kept in the weights."""
         self.state.epoch = epoch - 1
-        self.ckpt.save(epoch, self.state)
+        if self.lead:
+            self.ckpt.save(epoch, self.state)
         self.logger.log({"preempted_in_epoch": epoch}, self.global_step)
         self.logger.close()
-        print(f"preempted in epoch {epoch}: checkpoint saved "
-              "(resume replays the epoch)")
+        if self.lead:
+            print(f"preempted in epoch {epoch}: checkpoint saved "
+                  "(resume replays the epoch)")
+
+    def _preempted(self, guard) -> bool:
+        """Whether any rank was preempted (this process's guard alone
+        outside a distributed run)."""
+        if self.world is None:
+            return guard.preempted()
+        flag = torch.tensor([float(guard.preempted())], device=self.device)
+        return bool(all_reduce_sum(flag, self.world).item())
 
     def fit(self) -> None:
         guard = self.preemption
@@ -174,7 +219,7 @@ class Trainer:
                 metrics = self.step_fn(self.state, batch)
                 self.profiler.after_step(self.global_step)
                 losses.append(metrics["train_loss"])
-                if guard.preempted():
+                if self._preempted(guard):
                     self._save_preempted(epoch)
                     return
                 if self.global_step % 50 == 0:
@@ -185,17 +230,19 @@ class Trainer:
                           else float("nan"))
             self.profiler.close()  # a first epoch shorter than the window
             dt = time.time() - t0
-            imgs = len(self.loader) * cfg.train.batch_size
-            print(f"epoch {epoch}: loss {epoch_loss:.4f} lr {lr:.2e} "
-                  f"{imgs / max(dt, 1e-9):.1f} img/s")
+            imgs = len(self.loader) * self.global_batch
+            if self.lead:
+                print(f"epoch {epoch}: loss {epoch_loss:.4f} lr {lr:.2e} "
+                      f"{imgs / max(dt, 1e-9):.1f} img/s")
             # an epoch-level record always: the per-step one is every 50
             # steps, so a short run would leave metrics.jsonl empty
             self.logger.log({"train_loss": epoch_loss, "lr": lr, "epoch": epoch,
                              "imgs_per_sec": imgs / max(dt, 1e-9)},
                             self.global_step)
             self.state.epoch = epoch
-            self.ckpt.save(epoch, self.state)
-            if (self.eval_hook is not None
+            if self.lead:
+                self.ckpt.save(epoch, self.state)
+            if (self.lead and self.eval_hook is not None
                     and (epoch + 1) % cfg.train.eval_every_epochs == 0):
                 self.logger.log(self.eval_hook(self.eval_step, self.model),
                                 self.global_step)

@@ -9,8 +9,9 @@
   * `--fused`, and `--remat --remat_levels 1 2`, train an epoch through
     their routes (LnBlock; checkpointed blocks), the launch counters as
     the CPU leaves them (0: the plain versions run);
-  * the flag the port does not run yet (`--n_data`) exits 2 with its
-    message.
+  * the flag value the port does not run yet (`--n_data 2` with a
+    stochastic CAMixer model) exits 2 with its message;
+    tests/test_torch_parallel.py trains PromptIR with `--n_data 2`.
 """
 
 import json
@@ -152,7 +153,9 @@ def test_train_cli_remat_levels_checkpoint_levels_1_and_2(tmp_path,
     assert np.isfinite(records(tmp_path)[-1]["train_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--n_data", "2"]], ids=lambda f: f[0])
+@pytest.mark.parametrize("flag", [["--n_data", "2", "--model",
+                                   "capromptxrestormereff"]],
+                         ids=lambda f: f[0])
 def test_refused_flags_exit_with_their_roadmap_item(flag, capsys, tmp_path):
     with pytest.raises(SystemExit) as e:
         train.main(["--synthetic", "--ckpt_dir", str(tmp_path), *flag, *TINY])
