@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eighteen main paths are driven: serving PromptIR (`promptir`, each block
+Twenty main paths are driven: serving PromptIR (`promptir`, each block
 alone, and `promptir_chained`, its level stacks chained through tail_stats
 with `fused_ffn=True`), the X-Restormer family's PromptXRestormer
 (`promptxrestormerir`) and PromptXRestormerEff (`promptxrestormereffir`),
@@ -21,7 +21,10 @@ X-Restormers (`train`), the evaluation
 entry points (`eval`: all-in-one evaluation, demo, HTTP server), the
 training entry point over the all-in-one corpora through the native loader
 (`train_cli`), PromptIR's data-parallel training step (`dp_train`) and its
-exact H-sharded forward (`spatial`). No kernel lies on the attention-free and Uformer families'
+exact H-sharded forward (`spatial`), the stochastic CAMixer models'
+data-parallel training steps (`dp_train_stochastic`) and the exact
+H-sharded forwards of the other eleven models (`spatial_families`). No
+kernel lies on the attention-free and Uformer families'
 paths: their launches are gated at 0, and their card forwards are held
 against the CPU's.
 Phases, each printed with the seconds since start:
@@ -194,7 +197,27 @@ Phases, each printed with the seconds since start:
      TILED_HW photographs through the tiler with the group against the
      one-process tiler (GOLDEN_TOL), and tensor-parallel GDFN and MDTA
      (TP_CASES) against their modules (GOLDEN_TOL); the steps' ms, the
-     forward's ms and its all_reduce bytes, and the backend of each.
+     forward's ms and its all_reduce bytes, and the backend of each;
+     (c) on the two ranks, the exact H-sharded fp32 forward of each of the
+     other eleven models (SPATIAL_FAMILIES: full width and depth, B1
+     SPATIAL_HW) against its unsharded card forward (GOLDEN_TOL of max
+     |ref|), no launch, the windows each CAMixer call keeps and the images
+     each selector call picks equal to the unsharded forward's; (d) the
+     stochastic CAMixer models in their training config (STOCHASTIC): in
+     the NCCL world of one, bf16 B6 128x128, DP_STEPS steps bit-equal to the
+     steps without a group under torch.use_deterministic_algorithms, phase
+     7's launches a step; on the two ranks the fp32 step, B3 a rank,
+     against the one-process B6 step on the one-process step's side of
+     every kink (tools/parity.py:Kinks): each tensor's gradient within
+     GRAD_TOL of its own max (parity.grad_errors), the whole gradient
+     within GRAD_TOL, relative, and the gradient at each mask and each
+     selector's labels within GRAD_TOL (parity.tap_errors); the same step
+     without the forcing beside it, every element it puts on another side
+     of a kink lying within KINK_NEAR of the kink, and a tensor past
+     GRAD_TOL there only with such an element (deterministic algorithms,
+     so that each run repeats the last's); the windows and images routed
+     equal, CATA's selectors picking one image of the global batch each,
+     over both ranks.
      Two ranks on one card measure the collective code's cost, not scaling.
 It ends with one JSON line of kernel records and, as the last line, the
 device record. Any failure raises and exits non-zero before those lines.
@@ -211,6 +234,7 @@ Imports torch, numpy, the standard library and promptir_tpu_torch only.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -3194,7 +3218,23 @@ TP_CASES = {  # label: (module, constructor arguments, input NCHW shape)
     "mdta 384, 8 heads (latent)": ("mdta", (384, 8), (1, 384, 32, 32)),
 }
 DP_STEPS = 3  # the NCCL world of one: steps with and without the group
-RANK_TIMEOUT_S = 300
+RANK_TIMEOUT_S = 600
+# (c): the sharded forwards of the other eleven models, full width and
+# depth at their JAX defaults, the X-Restormers and CAMixer X-Restormers in
+# the training config (PATHS'), the CA models at ratio and hard ratio 0.5;
+# NAFBlock's beta and gamma seeded (seeded_scales), or NAFNet is the
+# identity
+SPATIAL_FAMILIES = {
+    "xrestormerir": XR_TRAIN, "promptxrestormerir": XR_TRAIN, EFF: XR_TRAIN,
+    "easypromptxrestormer": {}, "nafnet": {}, "nafnetlocal": {},
+    "promptuformerir": {}, "capromptuformerir": {},
+    **{name: XR_TRAIN for name in CA_XR}}
+# (d): the stochastic models' DP steps in their training config, and their
+# launches a step (phase 7's)
+STOCHASTIC = ("capromptuformerir",) + CA_XR
+STOCHASTIC_KW = {"capromptuformerir": {}, **{n: XR_TRAIN for n in CA_XR}}
+STOCHASTIC_PER_STEP = {"capromptuformerir": [0] * len(KERNELS),
+                       **CA_TRAIN_PER_STEP}
 
 
 def rank_kernels():
@@ -3250,6 +3290,9 @@ def dp_world_of_one_rank():
     from promptir_tpu_torch.train.state import TrainState, make_optimizer
     from promptir_tpu_torch.train.step import make_train_step
 
+    # cuBLAS's deterministic workspace, set before this rank's first product
+    # (stochastic_world_of_one runs under torch.use_deterministic_algorithms)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     batch = train_batch()
     runs = {}
     for tag, group in (("group", dist.group.WORLD), ("alone", None)):
@@ -3273,6 +3316,182 @@ def dp_world_of_one_rank():
     out["bit_equal"] = all(torch.equal(a, b) for a, b in zip(pa, pb))
     out["traffic"] = (all_reduce_sum.calls - calls, all_reduce_sum.bytes - nbytes)
     out["backend"] = dist.get_backend()
+    del runs
+    torch.cuda.empty_cache()
+    out["stochastic"] = {name: stochastic_world_of_one(name, batch)
+                         for name in STOCHASTIC}
+    return out
+
+
+def stochastic_world_of_one(name, batch):
+    """(d) in the world of one: DP_STEPS bf16 steps of `name` in its
+    training config with the world as its data group, each beside the same
+    step without a group: their launches, losses and ms, whether the
+    weights stayed bit-equal, and the traffic of the group's steps. Under
+    torch.use_deterministic_algorithms: in the default mode two steps of a
+    CAMixer X-Restormer without a group already differ in the last bits of
+    the gradient, so only the deterministic mode can show that the group
+    adds nothing."""
+    import torch.distributed as dist
+
+    import promptir_tpu_torch as port
+    from promptir_tpu_torch.parallel.mesh import all_reduce_sum
+    from promptir_tpu_torch.train.state import TrainState, make_optimizer
+    from promptir_tpu_torch.train.step import make_train_step
+
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    for tag, group in (("group", dist.group.WORLD), ("alone", None)):
+        torch.manual_seed(0)
+        model = port.create_model(name, device="cuda", dtype=torch.bfloat16,
+                                  train=True, **STOCHASTIC_KW[name])
+        st = TrainState(model, make_optimizer(model.parameters()))
+        runs[tag] = (model, st, make_train_step(model, group=group))
+    out = {t: dict(launches=[], losses=[], ms=[], traffic=[0, 0])
+           for t in runs}
+    for _ in range(DP_STEPS):
+        for tag, (model, st, step) in runs.items():
+            before = rank_counts()
+            calls, nbytes = all_reduce_sum.calls, all_reduce_sum.bytes
+            metrics, ms = timed(lambda: step(st, batch))
+            out[tag]["launches"].append(
+                [a - b for a, b in zip(rank_counts(), before)])
+            out[tag]["losses"].append(metrics["train_loss"].item())
+            out[tag]["ms"].append(ms)
+            out[tag]["traffic"][0] += all_reduce_sum.calls - calls
+            out[tag]["traffic"][1] += all_reduce_sum.bytes - nbytes
+    torch.use_deterministic_algorithms(False)
+    pa = [p.detach() for p in runs["group"][0].parameters()]
+    pb = [p.detach() for p in runs["alone"][0].parameters()]
+    out["bit_equal"] = all(torch.equal(a, b) for a, b in zip(pa, pb))
+    del runs, pa, pb
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_families(g, r):
+    """(c) on the two ranks: each of SPATIAL_FAMILIES' sharded fp32 B1
+    SPATIAL_HW forward (a warm-up, then one timed), its launches, traffic
+    and routing; on rank 0 also the unsharded card forward's error and
+    routing."""
+    import promptir_tpu_torch as port
+    from promptir_tpu_torch.parallel.mesh import all_reduce_sum
+    from promptir_tpu_torch.parallel.spatial import spatial_sharded_apply
+    from promptir_tpu_torch.precision import exact_float32
+    from promptir_tpu_torch.tools.parity import Routes
+
+    x = torch.rand((1, *SPATIAL_HW, 3),
+                   generator=torch.Generator().manual_seed(11)).cuda()
+    out = {}
+    for name, kw in SPATIAL_FAMILIES.items():
+        torch.manual_seed(0)
+        model = seeded_scales(port.create_model(name, device="cuda", **kw), 1)
+        with torch.inference_mode(), exact_float32(torch.float32):
+            spatial_sharded_apply(model, x, g)  # warm-up
+            torch.cuda.synchronize()
+            before = rank_counts()
+            calls, nbytes = all_reduce_sum.calls, all_reduce_sum.bytes
+            with Routes() as routes:
+                y, t = timed(lambda: spatial_sharded_apply(model, x, g))
+            res = dict(
+                ms=t, launches=[a - c for a, c in zip(rank_counts(), before)],
+                traffic=(all_reduce_sum.calls - calls,
+                         all_reduce_sum.bytes - nbytes),
+                finite=bool(torch.isfinite(y).all()), shape=tuple(y.shape),
+                windows=routes.windows, images=routes.images)
+            if r == 0:
+                with Routes() as ref_routes:
+                    ref, ref_ms = timed(lambda: model(
+                        x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1))
+                res.update(err=((y - ref).abs().max()
+                                / ref.abs().max()).item(), ref_ms=ref_ms,
+                           ref_windows=ref_routes.windows,
+                           ref_images=ref_routes.images)
+        out[name] = res
+        del model, y
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_stochastic(g, r, n):
+    """(d) on the two ranks, for each of STOCHASTIC in its training config:
+    the one-process fp32 step on phase 7's whole batch (B6), recording the
+    side of every kink (tools/parity.py:Kinks), then two DP steps on this
+    rank's rows (B3) from the same weights: the first counts the elements
+    that lie on the other side of a kink than in the one-process step
+    ("raw"), the second also takes the one-process step's sides
+    ("forced"). Each step's ms, traffic, routing, and the gradient reaching
+    each mixer's mask and each selector's labels (parity.Routes); the
+    gradients' errors against the one-process step's (parity.grad_errors,
+    tap_errors). Under torch.use_deterministic_algorithms, so that a run
+    repeats the last's errors."""
+    import promptir_tpu_torch as port
+    from promptir_tpu_torch.parallel.mesh import all_reduce_sum
+    from promptir_tpu_torch.tools.parity import (
+        Kinks,
+        Routes,
+        grad_errors,
+        named_grads,
+        tap_errors,
+    )
+    from promptir_tpu_torch.train.state import TrainState, make_optimizer
+    from promptir_tpu_torch.train.step import make_train_step
+
+    b = TRAIN_BATCH // n
+    mine, whole = train_batch(slice(r * b, (r + 1) * b)), train_batch()
+    out = {}
+    torch.use_deterministic_algorithms(True)
+
+    def one_step(name, group, batch, kinks):
+        torch.manual_seed(0)
+        model = port.create_model(name, device="cuda", train=True,
+                                  **STOCHASTIC_KW[name])
+        st = TrainState(model, make_optimizer(model.parameters()))
+        grads = grad_capture(st, model)
+        step = make_train_step(model, group=group)
+        calls, nbytes = all_reduce_sum.calls, all_reduce_sum.bytes
+        with Routes() as routes, kinks:
+            metrics, ms = timed(lambda: step(st, batch))
+        flat = grads[0]
+        res = dict(loss=metrics["train_loss"].item(), ms=ms,
+                   traffic=(all_reduce_sum.calls - calls,
+                            all_reduce_sum.bytes - nbytes),
+                   windows=routes.windows, images=routes.images,
+                   mask_grads=routes.mask_grads,
+                   label_grads=routes.label_grads,
+                   flips=sum(kinks.flips),
+                   near=max(kinks.near, default=0.0))
+        named = named_grads(model, flat)
+        del model, st, step
+        return res, flat, named
+
+    for name in STOCHASTIC:
+        rec = Kinks()
+        # the one-process B6 steps one rank after the other: two at once,
+        # beside the smoke's process, do not fit on the card
+        for turn in range(n):
+            if turn == r:
+                ref, ref_flat, ref_named = one_step(name, None, whole, rec)
+                torch.cuda.empty_cache()
+            all_reduce_sum(torch.zeros(1, device="cuda"), g)
+        for tag, apply in (("raw", False), ("forced", True)):
+            res, flat, named = one_step(
+                name, g, mine, Kinks(rec.sides, (r, n), apply=apply))
+            errs = grad_errors(named, ref_named)
+            worst = max(errs, key=errs.get)
+            res.update(
+                whole=((flat - ref_flat).norm() / ref_flat.norm()).item(),
+                err=errs[worst], worst=worst,
+                taps=max(tap_errors(res.pop(k), ref[k], r, n)
+                         for k in ("mask_grads", "label_grads")))
+            out.setdefault(name, {})[tag] = res
+            del flat, named
+        for k in ("mask_grads", "label_grads"):
+            ref.pop(k)
+        out[name]["ref"] = ref
+        del rec, ref_flat, ref_named
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
     return out
 
 
@@ -3296,6 +3515,9 @@ def shared_card_rank(tile_seed):
     from promptir_tpu_torch.train.state import TrainState, make_optimizer
     from promptir_tpu_torch.train.step import make_train_step
 
+    # cuBLAS's deterministic workspace, set before this rank's first product
+    # (dp_stochastic runs under torch.use_deterministic_algorithms)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     g = dist.group.WORLD
     r, n = dist.get_rank(), dist.get_world_size()
     out = {"backend": dist.get_backend(g)}
@@ -3393,6 +3615,10 @@ def shared_card_rank(tile_seed):
             want = mod(xt)
             out["tp"][label] = dict(ms=t, err=((got - want).abs().max()
                                                / want.abs().max()).item())
+    del model
+    torch.cuda.empty_cache()
+    out["families"] = sharded_families(g, r)
+    out["dp_stochastic"] = dp_stochastic(g, r, n)
     return out
 
 
@@ -3407,8 +3633,9 @@ def parallel_phase(card):
     SPATIAL_HW against the unsharded card forward (GOLDEN_TOL of max |ref|;
     the block kernels gated off, the seam on), the tiler with the group
     against the one-process tiler, and TP_CASES against their modules. The
-    kernels are built by this process before the ranks start. Returns the
-    launches of the paths `dp_train` and `spatial`."""
+    kernels are built by this process before the ranks start. Then (c)
+    and (d) (the module's docstring). Returns the launches of the paths
+    `dp_train`, `spatial`, `dp_train_stochastic` and `spatial_families`."""
     from promptir_tpu_torch.parallel.mesh import launch
 
     (a,) = launch(dp_world_of_one_rank, 1, "cuda", timeout_s=RANK_TIMEOUT_S)
@@ -3429,6 +3656,8 @@ def parallel_phase(card):
         if ran != TRAIN_PER_STEP:
             fail(f"a DP step launched {ran} != {TRAIN_PER_STEP}")
 
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' blocks, for the two ranks
     res = launch(shared_card_rank, 2, "cuda", backend="gloo", share_card=True,
                  args=(0,), timeout_s=RANK_TIMEOUT_S)
     b0, dp, sp, tl = res[0], res[0]["dp"], res[0]["spatial"], res[0]["tiled"]
@@ -3480,8 +3709,149 @@ def parallel_phase(card):
             f"- module| / max {worst:.3e} (gate {GOLDEN_TOL})")
         if not worst <= GOLDEN_TOL:
             fail(f"TP {label} is {worst:.3e} from its module")
+    stochastic_launches = world_of_one_stochastic(a["stochastic"], card)
+    family_launches = check_families(res, card)
+    check_dp_stochastic(res, card)
     return {"dp_train": [sum(c) for c in zip(*g["launches"])],
-            "spatial": sp["launches"]}
+            "spatial": sp["launches"],
+            "dp_train_stochastic": stochastic_launches,
+            "spatial_families": family_launches}
+
+
+def world_of_one_stochastic(results, card):
+    """(d)'s NCCL world of one: print and gate each stochastic model's
+    steps; returns the launches of the group's steps."""
+    total = [0] * len(KERNELS)
+    for name, v in results.items():
+        g, al = v["group"], v["alone"]
+        say(f"parallel: a world of one over NCCL: full-depth {name} "
+            f"({STOCHASTIC_KW[name] or 'default'}) bf16 B{TRAIN_BATCH} "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]} DP step (deterministic algorithms) "
+            f"with the group {', '.join(f'{t:.1f}' for t in g['ms'])} ms, without "
+            f"{', '.join(f'{t:.1f}' for t in al['ms'])} ms (CUDA events, the "
+            f"first a warm-up) on {card}; losses {g['losses']} vs "
+            f"{al['losses']}; weights bit-equal {v['bit_equal']}; "
+            f"{g['traffic'][0]} all_reduces, {g['traffic'][1]} bytes in "
+            f"{DP_STEPS} steps; launches {LAUNCH_NAMES} a step "
+            f"{g['launches']}")
+        if not v["bit_equal"] or g["losses"] != al["losses"]:
+            fail(f"{name}'s NCCL world of one is not bit-equal to its steps "
+                 "without a group")
+        for ran in g["launches"] + al["launches"]:
+            if ran != STOCHASTIC_PER_STEP[name]:
+                fail(f"a {name} DP step launched {ran} != "
+                     f"{STOCHASTIC_PER_STEP[name]}")
+        total = [t + sum(c) for t, c in zip(total, zip(*g["launches"]))]
+    return total
+
+
+def check_families(res, card):
+    """(c): print and gate each model's sharded forward over the two ranks;
+    returns the launches of rank 0's sharded forwards."""
+    total = [0] * len(KERNELS)
+    for name, f0 in res[0]["families"].items():
+        f1 = res[1]["families"][name]
+        routing = ""
+        if f0["ref_windows"]:
+            routing = (f"; {len(f0['windows'])} mixer calls keep "
+                       f"{sum(f0['windows'])} windows (unsharded "
+                       f"{sum(f0['ref_windows'])})")
+        if f0["ref_images"]:
+            routing += (f", {len(f0['images'])} selector calls pick "
+                        f"{sum(map(sum, f0['images']))} images (unsharded "
+                        f"{sum(map(sum, f0['ref_images']))})")
+        say(f"parallel: sharded forward of full-depth {name} "
+            f"({SPATIAL_FAMILIES[name] or 'default'}) fp32 B1 "
+            f"{SPATIAL_HW[0]}x{SPATIAL_HW[1]} over two ranks: {f0['ms']:.1f} "
+            f"ms (rank 1 {f1['ms']:.1f}; unsharded {f0['ref_ms']:.1f}, one "
+            f"call each after a warm-up) on {card}; {f0['traffic'][0]} "
+            f"all_reduces, {f0['traffic'][1]} bytes a rank; max |sharded - "
+            f"unsharded| / max {f0['err']:.3e} (gate {GOLDEN_TOL}); launches "
+            f"{LAUNCH_NAMES} {f0['launches']}{routing}")
+        if not f0["err"] <= GOLDEN_TOL or not f0["finite"] or f0["shape"] != (
+                1, *SPATIAL_HW, 3):
+            fail(f"{name}'s sharded forward is {f0['err']:.3e} from the "
+                 "unsharded one")
+        for f in (f0, f1):
+            if f["launches"] != [0] * len(KERNELS):
+                fail(f"{name}'s sharded forward launched {f['launches']}: "
+                     "its blocks run plain under the sharded forward")
+            if (f["windows"], f["images"]) != (f0["ref_windows"],
+                                               f0["ref_images"]):
+                fail(f"{name}'s sharded forward routed windows or images "
+                     "other than the unsharded forward's")
+        total = [t + c for t, c in zip(total, f0["launches"])]
+    return total
+
+
+def check_dp_stochastic(res, card):
+    """(d) over the two ranks: print and gate each stochastic model's fp32
+    DP steps against the one-process step. The forced step (the
+    one-process step's side of every kink, tools/parity.py:Kinks): each
+    tensor's gradient error (parity.grad_errors: of its own max, of 1% of
+    the median tensor's below that) and the whole gradient's relative
+    error within GRAD_TOL, and the gradient at each mask and each
+    selector's labels (parity.tap_errors) within GRAD_TOL. Both steps:
+    every element whose side of a kink differs from the one-process step's
+    within KINK_NEAR of it, the loss, the windows each mixer call keeps and
+    the images each selector call picks, one image a CATA selector over
+    the two ranks. The raw step's errors are printed beside the forced
+    step's, and a raw tensor past GRAD_TOL with no element on another side
+    of a kink fails: a summation order that moves an input within rounding
+    of a kink across it moves a weight's gradient by that element's term,
+    which is the gradient's discontinuity, not an error of the DP step."""
+    from promptir_tpu_torch.tools.parity import KINK_NEAR
+
+    for name, v0 in res[0]["dp_stochastic"].items():
+        v1, ref = res[1]["dp_stochastic"][name], v0["ref"]
+        for tag in ("raw", "forced"):
+            d0, d1 = v0[tag], v1[tag]
+            flips = d0["flips"] + d1["flips"]
+            near = max(d0["near"], d1["near"])
+            windows = [a + b for a, b in zip(d0["windows"], d1["windows"])]
+            images = [a + b for a, b in zip(d0["images"], d1["images"])]
+            taps = max(d0["taps"], d1["taps"])
+            say(f"parallel: two ranks on cuda:0 over gloo: full-depth {name} "
+                f"fp32 (TF32 off) DP step ({tag}) B{TRAIN_BATCH // 2} a rank "
+                f"{d0['ms']:.1f} ms (rank 1 {d1['ms']:.1f}), the one-process "
+                f"B{TRAIN_BATCH} step {ref['ms']:.1f} ms (one each; "
+                f"deterministic algorithms) on {card}; loss {d0['loss']:.6f} "
+                f"vs {ref['loss']:.6f}; ||grad - one-process grad|| / "
+                f"||one-process grad|| {d0['whole']:.3e}, max over tensors of "
+                f"max |difference| / max(its max, 1% of the median tensor's) "
+                f"{d0['err']:.3e} at {d0['worst']}, at the masks and labels "
+                f"{taps:.3e} (gate {GRAD_TOL} on the forced step); "
+                f"{flips} elements on another side of a kink than one "
+                f"process, the farthest {near:.3e} from it (gate "
+                f"{KINK_NEAR}); {d0['traffic'][0]} all_reduces, "
+                f"{d0['traffic'][1]} bytes a rank; windows kept a mixer call "
+                f"equal {windows == ref['windows']}"
+                + (f"; images a selector call over both ranks "
+                   f"{[sum(p) for p in images]}" if ref["images"] else ""))
+            if not np.isfinite([d0["loss"], ref["loss"]]).all() or abs(
+                    d0["loss"] - ref["loss"]) > GRAD_TOL * ref["loss"]:
+                fail(f"{name}'s two-rank loss {d0['loss']} is not the "
+                     f"one-process loss {ref['loss']}")
+            if not near <= KINK_NEAR:
+                fail(f"{name}'s two-rank step put an element {near:.3e} from "
+                     "its kink on another side than one process")
+            if windows != ref["windows"] or images != ref["images"]:
+                fail(f"{name}'s two-rank step routed windows or images other "
+                     "than the one-process step's")
+            if ref["images"] and not all(sum(p) == 1 for p in images):
+                fail(f"{name}'s selectors picked {images} over the two ranks, "
+                     "not one image of the global batch each")
+        raw, forced = v0["raw"], v0["forced"]
+        if not raw["err"] <= GRAD_TOL and not (
+                raw["flips"] + v1["raw"]["flips"]):
+            fail(f"{name}'s two-rank DP gradient is {raw['err']:.3e} from the "
+                 f"one-process step's at {raw['worst']}, with no kink crossed")
+        if not (forced["err"] <= GRAD_TOL and forced["whole"] <= GRAD_TOL
+                and max(forced["taps"], v1["forced"]["taps"]) <= GRAD_TOL):
+            fail(f"{name}'s two-rank DP gradient on the one-process step's "
+                 f"kink sides is {forced['err']:.3e} from its own at "
+                 f"{forced['worst']} ({forced['whole']:.3e} whole, the masks "
+                 f"and labels {forced['taps']:.3e})")
 
 
 # ------------------------------------------------------------------ main

@@ -15,10 +15,9 @@ on the CPU), each rank reading every image and rank 0 writing it:
   * `--tile --mesh` shards each chunk of tiles over the ranks
     (eval/tiling.py, `group`);
   * `--spatial` pads each image to `pad_bases(model, n)` and runs the exact
-    H-sharded forward (parallel/spatial.py:spatial_sharded_apply). It
-    excludes `--tile` and `--fused`, with the JAX messages, and runs the
-    models of `SPATIAL_MODELS` only: any other exits non-zero naming its
-    ROADMAP.md item, and is never run unsharded instead.
+    H-sharded forward (parallel/spatial.py:spatial_sharded_apply) of any
+    registered model. It excludes `--tile` and `--fused`, with the JAX
+    messages.
 
   python -m promptir_tpu_torch.cli.demo --test_path photo.png \
       --output_path output/demo/ --ckpt_name model.ckpt --tile
@@ -54,11 +53,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_args(args) -> None:
     """Exit non-zero on the flag combinations the demo does not run."""
-    from promptir_tpu_torch.parallel.spatial import (
-        ROADMAP_ITEM,
-        SPATIAL_MODELS,
-    )
-
     if args.tile and args.spatial:
         raise SystemExit(
             "--tile and --spatial are mutually exclusive: tiled "
@@ -69,10 +63,6 @@ def check_args(args) -> None:
     if args.spatial and args.fused:
         raise SystemExit("--spatial needs the unfused op path (drop --fused): "
                          "the kernels are single-card")
-    if args.spatial and args.model not in SPATIAL_MODELS:
-        raise SystemExit(
-            f"--spatial runs {sorted(SPATIAL_MODELS)}; {args.model!r} waits "
-            f"for {ROADMAP_ITEM} (use --tile --mesh)")
 
 
 def main(argv=None):

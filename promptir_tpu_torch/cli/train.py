@@ -23,29 +23,14 @@ X-Restormer families), `--remat` checkpoints PromptIR's blocks, and
 one a card over NCCL, or N gloo ranks on the CPU with `--device cpu`; the
 default, every visible card (one process on the CPU). `--batch_size` is a
 rank's, as the JAX CLI's ("per DP shard"), so the global batch is
-batch_size * N. A stochastic CAMixer model with N > 1 exits non-zero
-naming its ROADMAP.md item (REFUSED), and is never run otherwise.
+batch_size * N. Every model trains over N ranks; a stochastic CAMixer
+model's step over them is the one-process step on the global batch
+(train/step.py, parallel/data.py).
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
-
-# the models whose training forward samples (train/step.py:STOCHASTIC)
-STOCHASTIC_MODELS = frozenset({
-    "capromptuformerir", "capromptxrestormereff", "capromptxrestormereffv2",
-    "catapromptxrestormer"})
-
-# flag -> (whether the arguments ask what the port does not run, why),
-# with the ROADMAP.md item that ports it
-REFUSED = {
-    "n_data": (lambda args: args.model in STOCHASTIC_MODELS
-               and n_ranks(args) > 1,
-               "data-parallel training of the stochastic CAMixer models is "
-               "not ported yet (ROADMAP.md Queue 1 item 5: DP for the "
-               "stochastic models)"),
-}
 
 
 def n_ranks(args) -> int:
@@ -115,20 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refused(args) -> list:
-    """The messages of the flags whose values ask what the port does not
-    run."""
-    return [f"--{k}: {why}" for k, (asks, why) in REFUSED.items() if asks(args)]
-
-
 def main(argv=None):
     """Train; returns the Trainer after its last epoch (None when the run
     went to N > 1 ranks)."""
     args = build_parser().parse_args(argv)
-    bad = refused(args)
-    if bad:
-        print("\n".join(bad), file=sys.stderr)
-        raise SystemExit(2)
     n = n_ranks(args)
     if n > 1:
         from promptir_tpu_torch.parallel.mesh import launch

@@ -12,10 +12,13 @@ the JAX loader, so the same seed gives the same batches in both packages.
 
 Data parallelism: with `world` ranks, a global batch is `batch_size *
 world` samples of the epoch's order and rank `rank` yields (and decodes)
-only its rows [rank b, (rank + 1) b). A sample's draws depend on its index
-alone, so those rows are exactly the rows the one-process loader yields
-there at the global batch size, as the JAX loader's sharded batch
-(loader.py:64) holds them.
+only its rows (`rank_rows`): [rank b, (rank + 1) b), or, when the step
+splits each batch into `microbatches` (train/step.py's grad_accum), its
+share of each global microbatch, so that every rank's microbatch i holds
+its rows of the global batch's i-th slice, the JAX step's microbatch i. A
+sample's draws depend on its index alone, so those rows are exactly the
+rows the one-process loader yields there at the global batch size, as the
+JAX loader's sharded batch (loader.py:64) holds them.
 """
 
 from __future__ import annotations
@@ -30,6 +33,21 @@ import torch
 
 PREFETCH = 2  # batches made ahead of the training loop
 
+
+def rank_rows(batch_size: int, rank: int = 0, world: int = 1,
+              microbatches: int = 1) -> np.ndarray:
+    """The positions in a global batch of `batch_size * world` rows of rank
+    `rank`'s `batch_size` rows, in its order: its `batch_size //
+    microbatches` rows of each global microbatch, microbatch after
+    microbatch."""
+    if batch_size % microbatches:
+        raise ValueError(f"batch {batch_size} is not divisible by "
+                         f"{microbatches} microbatches")
+    m = batch_size // microbatches
+    return np.concatenate([i * m * world + rank * m + np.arange(m)
+                           for i in range(microbatches)])
+
+
 class TrainLoader:
     def __init__(
         self,
@@ -41,10 +59,13 @@ class TrainLoader:
         pin_memory: bool = False,
         rank: int = 0,
         world: int = 1,
+        microbatches: int = 1,
     ):
-        """`batch_size` is a rank's; the global batch is batch_size * world."""
+        """`batch_size` is a rank's; the global batch is batch_size * world,
+        split by the step into `microbatches` (rank_rows)."""
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} is not in a world of {world}")
+        self.rows = rank_rows(batch_size, rank, world, microbatches)
         self.dataset = dataset
         self.batch_size = batch_size
         self.rank = rank
@@ -72,8 +93,7 @@ class TrainLoader:
         nb = len(self)
 
         def make_batch(b: int) -> dict:
-            start = (b * self.world + self.rank) * self.batch_size
-            idxs = order[start : start + self.batch_size]
+            idxs = order[b * self.world * self.batch_size + self.rows]
             de, deg, cln = [], [], []
             for i in idxs:
                 rng = np.random.default_rng((self.seed, epoch, int(i)))

@@ -17,7 +17,10 @@ the chunk is rounded up to a multiple of n and each rank forwards its n-th
 of every chunk; each blends its tiles' outputs and counts into its own
 accumulators, the accumulators are summed over the group (two
 all_reduces), and every rank returns the same image. Sums in another order
-than one process's, so within float32 rounding of it.
+than one process's, so within float32 rounding of it. The forwards run
+under `data_sharding(group)` (parallel/data.py): a chunk is one batch to
+the models that couple its images (CATA's selector keeps the chunk's top
+images), as the JAX tiler's jitted chunk is.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from promptir_tpu_torch.eval.padding import pad_to_multiple_reflect
+from promptir_tpu_torch.parallel.data import data_sharding
 from promptir_tpu_torch.parallel.mesh import all_reduce_sum, group_rank, group_size
 
 
@@ -57,7 +61,9 @@ def _tiled_forward(model, x, tile: int, overlap: int, chunk: int, group=None):
     for s in range(rank * per_rank, n_pad, chunk):
         part = coords[s:s + per_rank]
         tiles = torch.cat([x[:, i:i + tile, j:j + tile] for i, j in part])
-        out = forward_nhwc(model, tiles).reshape(len(part), b, tile, tile, c)
+        with data_sharding(group):
+            out = forward_nhwc(model, tiles)
+        out = out.reshape(len(part), b, tile, tile, c)
         for k, (i, j) in enumerate(part):
             if s + k < n:
                 acc[:, i:i + tile, j:j + tile] += out[k]

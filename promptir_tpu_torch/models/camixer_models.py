@@ -41,6 +41,13 @@ before the mixer) and the forward returns (output, mean decision) for v1,
 (output, ratio loss) for v2 and (output, ratio loss, hard-ratio loss) for
 CATA, each loss 2 * r * (mean - 0.5)^2. It is never keyed on
 `self.training`. H and W must be multiples of 8 windows (64).
+
+Under the H-sharded forward (`spatial_hooks`, parallel/spatial.py) the
+mixers gather their level (ops/camixer.py), the selector pools the whole
+image, and the condition pyramid is resized at global rows
+(`conditions`); H need only be a multiple of 64 and of 8 n
+(eval/padding.py:pad_bases). Under a data group (parallel/data.py) the
+training terms' batch means are the global batch's (`batch_mean`).
 """
 
 from __future__ import annotations
@@ -81,6 +88,12 @@ from promptir_tpu_torch.ops.prompt import PromptGenBlock
 from promptir_tpu_torch.ops.resample import Downsample, FewChannelConv3, Upsample
 from promptir_tpu_torch.ops.resize import resize_bilinear
 from promptir_tpu_torch.ops.window_attention import conv_nhwc
+from promptir_tpu_torch.parallel.data import batch_mean
+from promptir_tpu_torch.parallel.spatial import (
+    current_spatial_group,
+    global_rows,
+    sharded_resize_bilinear,
+)
 from promptir_tpu_torch.precision import compute_dtype
 
 COND_DIM = 2  # the global predictor's channels
@@ -178,6 +191,7 @@ class CAPromptXRestormer(nn.Module):
     """The CA family's skeleton; subclasses set `variant`."""
 
     variant = "v2"  # "v1" | "v2" | "cata": the train step reads it
+    spatial_hooks = True  # parallel/spatial.py:spatial_sharded_apply runs it
 
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
@@ -262,14 +276,21 @@ class CAPromptXRestormer(nn.Module):
         return getattr(self, f"reduce_noise_level{level}")(x)
 
     def conditions(self, xh, h: int, w: int):
-        """The global predictor's NHWC condition at each level's size: its
-        pyramid is resized in float32 and rounded once, as JAX's."""
+        """The global predictor's NHWC condition at each level's size (`h`
+        the whole image's rows): its pyramid is resized in float32 and
+        rounded once, as JAX's; under the sharded forward at global rows,
+        each level's stripe kept (JAX models/camixer_models.py:292-306)."""
         gp = self.global_predictor
         g = F.leaky_relu(pointwise(xh, gp[0]), 0.1)
         cond = F.leaky_relu(conv_nhwc(g, gp[2]), 0.1)
+        group = current_spatial_group()
         conds = [cond]
         for s in (2, 4, 8):
-            c = resize_bilinear(nchw(cond).float(), (h // s, w // s))
+            c = nchw(cond).float()
+            if group is None:
+                c = resize_bilinear(c, (h // s, w // s))
+            else:
+                c = sharded_resize_bilinear(c, (h // s, w // s), group)
             conds.append(nhwc(c.to(cond.dtype)))
         return conds
 
@@ -277,7 +298,7 @@ class CAPromptXRestormer(nn.Module):
         """inp_img: (B, 3, H, W) float, H and W multiples of 8 windows (64).
         Returns the restored image in float32 (with the training terms
         when not `deterministic`, see the module's docstring)."""
-        h, w = inp_img.shape[-2:]
+        h, w = global_rows(inp_img.shape[-2]), inp_img.shape[-1]
         m = 8 * self.window_size
         if h % m or w % m:
             raise ValueError(f"{type(self).__name__}: H and W must be multiples "
@@ -313,13 +334,13 @@ class CAPromptXRestormer(nn.Module):
         out = self.output(x).float() + inp.float()
         if deterministic:
             return out
-        decision = torch.stack(decisions).mean()
+        decision = batch_mean(torch.stack(decisions).mean())
         if self.variant == "v1":
             return out, decision
         ratio_loss = 2.0 * self.ratio * (decision - 0.5).square()
         if self.variant == "v2":
             return out, ratio_loss
-        hard = torch.stack(labels).mean()
+        hard = batch_mean(torch.stack(labels).mean())
         return out, ratio_loss, 2.0 * self.hard_ratio * (hard - 0.5).square()
 
 

@@ -16,7 +16,8 @@ returns (output, the mean of the stages' mean decisions), whose ratio loss
 the train step adds (train/step.py). It is never keyed on `self.training`:
 the engine, the runner and the eval step call `model(x)` and get the
 deterministic path, as the JAX eval step does. H and W must be multiples of
-128, as for PromptUformerIR.
+128, as for PromptUformerIR. Under a data group (parallel/data.py) the
+mean decision is the global batch's (`batch_mean`).
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from promptir_tpu_torch.models.prompt_uformer import (
 )
 from promptir_tpu_torch.ops.camixer import CAMixerV1
 from promptir_tpu_torch.ops.window_attention import LeFF, TorchLayerNorm
+from promptir_tpu_torch.parallel.data import batch_mean
 
 
 class CAUformerBlock(nn.Module):
@@ -101,7 +103,7 @@ class CAPromptUformerIR(UformerUNet):
         out = self.unet_forward(x, run)
         if deterministic:
             return out
-        return out, torch.stack(decisions).mean()
+        return out, batch_mean(torch.stack(decisions).mean())
 
 
 @register_model("capromptuformerir")

@@ -14,7 +14,8 @@ class: the reference's literals equal them only at d = 48. Registered as
 No kernel of the port runs on this path (ops/easy.py). The forward
 computes in the model's compute dtype (precision.py) and returns float32.
 Not ported: the JAX class's `use_bias` (the reference's all-in-one config
-has no conv biases there), as for `xrestormerir`.
+has no conv biases there), as for `xrestormerir`. It runs under the
+H-sharded forward (`spatial_hooks`; ops/easy.py's hooks and the prompts').
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ class EasyLayer(nn.Module):
 
 
 class EasyPromptXRestormer(nn.Module):
+    spatial_hooks = True  # parallel/spatial.py:spatial_sharded_apply runs it
+
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_refinement_blocks: int = 4,

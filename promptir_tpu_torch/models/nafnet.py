@@ -18,6 +18,15 @@ residual stream is float32 from the first block on, as in the JAX model,
 and every convolution computes in the model's compute dtype: the blocks
 are handed that dtype, and the downs, ups and ending cast their input to
 it. The forward returns float32.
+
+Under the H-sharded forward (`spatial_hooks`, parallel/spatial.py) the
+2x2/s2 downs and the 1x1 + pixel-shuffle ups are row-local, the 3x3s take
+their halo, the SCA pool is the whole image's and the TLC pool gathers its
+level (ops/easy.py). The model's zero pad to a multiple of
+2^len(enc_blk_nums) is at the image's bottom, so a stripe that is not such
+a multiple (whose pad would land inside the image) runs the model whole:
+the input's rows gathered, the unsharded forward, the stripe's output rows
+kept; exact, and as slow as one card.
 """
 
 from __future__ import annotations
@@ -31,10 +40,13 @@ from torch import nn
 from promptir_tpu_torch.models import register_model
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.easy import NAFBlock
+from promptir_tpu_torch.parallel.spatial import current_spatial_group, run_gathered
 from promptir_tpu_torch.precision import compute_dtype
 
 
 class NAFNet(nn.Module):
+    spatial_hooks = True  # parallel/spatial.py:spatial_sharded_apply runs it
+
     def __init__(self, img_channel: int = 3, width: int = 16,
                  middle_blk_num: int = 1, enc_blk_nums: Sequence[int] = (),
                  dec_blk_nums: Sequence[int] = (),
@@ -74,6 +86,8 @@ class NAFNet(nn.Module):
         dt = compute_dtype(self)
         h, w = inp_img.shape[-2:]
         m = self.pad_multiple
+        if current_spatial_group() is not None and h % m:
+            return run_gathered(self.forward, inp_img, dim=2)
         inp = F.pad(inp_img, (0, (m - w % m) % m, 0, (m - h % m) % m))
         inp = inp.to(dt).contiguous(memory_format=torch.channels_last)
 

@@ -28,6 +28,13 @@ the decoder, none in the prompt blocks; sampled only by `forward(x,
 deterministic=False, generator=...)` (the trainers apply this model
 deterministically, as promptir_tpu/train/trainer.py:71 does).
 `cross_modulator` is accepted and read by nothing, as in the JAX body.
+
+Both Uformers run under the H-sharded forward (`spatial_hooks`,
+parallel/spatial.py): the LeWin blocks' sharded shifts and gathered deep
+levels (ops/window_attention.py), the 4x4/s2 downsamples' strided halo
+(ops/conv.py), the row-local transposed 2x2/s2 upsamples, the prompts' GAP
+and resize at global rows (ops/prompt.py); H a multiple of 128 and of
+16 n (eval/padding.py:pad_bases).
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from promptir_tpu_torch.ops.window_attention import (
     UformerUpsample,
     conv_nhwc,
 )
+from promptir_tpu_torch.parallel.spatial import global_rows
 from promptir_tpu_torch.precision import compute_dtype
 
 # (prompt_dim, prompt_size, heads) of promptlayer_0..3; the block's width
@@ -105,6 +113,8 @@ class UformerUNet(nn.Module):
     the bottleneck, 5-8 the decoders) and `prompt(i, lin_dim)` prompt
     block i. `unet_forward(x, run)` calls `run(stage, y)` for every stage."""
 
+    spatial_hooks = True  # parallel/spatial.py:spatial_sharded_apply runs it
+
     def __init__(self, stage: Callable, prompt: Callable, in_chans: int,
                  dd_in: int, embed_dim: int, win_size: int, use_prompt: bool):
         super().__init__()
@@ -131,7 +141,7 @@ class UformerUNet(nn.Module):
     def unet_forward(self, x, run):
         """x: (B, C, H, W). Returns the restored image, float32 NCHW."""
         win = self.win_size
-        h, w = x.shape[-2:]
+        h, w = global_rows(x.shape[-2]), x.shape[-1]
         if h % (16 * win) or w % (16 * win):
             raise ValueError(
                 f"{type(self).__name__}: H and W must be multiples of "

@@ -17,10 +17,15 @@ LnMdta then LnGdfn. The skip concatenations are `torch.cat`, as in the JAX model
 kernel does not run here. `use_bias` gives the convs that the JAX model
 builds with it a bias; its blocks then run their plain composition
 (blocks.plain_branch) and launch no kernel. `scale > 1` upscales the input
-bilinearly (align_corners=False) before the network, as
-promptir_tpu/parallel/spatial.py:146 upscale_input does on one device; the
-window check applies to the upscaled image, and the global residual adds
-it.
+bilinearly (align_corners=False) before the network
+(parallel/spatial.py:upscale_input, at global rows under the sharded
+forward, as promptir_tpu/parallel/spatial.py:146 does); the window check
+applies to the upscaled image, and the global residual adds it.
+
+The model runs under the H-sharded forward (`spatial_hooks`): its blocks'
+plain composition, OCAB's neighbour rows (ops/ocab.py), the prompts' GAP
+and resize at global rows (ops/prompt.py); each stripe a multiple of 8
+windows (eval/padding.py:pad_bases, H % 64 n).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from promptir_tpu_torch.ops.gdfn import GDFN
 from promptir_tpu_torch.ops.norm import LayerNorm, layernorm_nhwc
 from promptir_tpu_torch.ops.ocab import OCAB
 from promptir_tpu_torch.ops.resample import Downsample, FewChannelConv3, Upsample
-from promptir_tpu_torch.ops.resize import resize_bilinear
+from promptir_tpu_torch.parallel.spatial import global_rows, upscale_input
 from promptir_tpu_torch.precision import compute_dtype
 
 
@@ -81,6 +86,8 @@ class XTransformerBlock(nn.Module):
 
 
 class XRestormer(nn.Module):
+    spatial_hooks = True  # parallel/spatial.py:spatial_sharded_apply runs it
+
     def __init__(self, inp_channels: int = 3, out_channels: int = 3,
                  dim: int = 48, num_blocks: Sequence[int] = (4, 6, 6, 8),
                  num_refinement_blocks: int = 4,
@@ -140,10 +147,8 @@ class XRestormer(nn.Module):
         """inp_img: (B, 3, H, W) float; H and W times `scale` multiples of 8
         windows (64): the window must tile the 1/8 level. Returns the
         restored image in float32, `scale` times the input's size."""
-        if self.scale > 1:
-            h, w = inp_img.shape[-2:]
-            inp_img = resize_bilinear(inp_img, (h * self.scale, w * self.scale))
-        h, w = inp_img.shape[-2:]
+        inp_img = upscale_input(inp_img, self.scale)
+        h, w = global_rows(inp_img.shape[-2]), inp_img.shape[-1]
         m = 8 * self.window_size
         if h % m or w % m:
             raise ValueError(f"{type(self).__name__}: H and W must be multiples "

@@ -29,10 +29,16 @@ effv2.py:325-551, ca_ta_promptxrestormer.py:317-357), channels-last:
     max(1, round(B * hard_ratio)) images of the batch by label (ties keep
     more), in training the straight-through Gumbel sample over the batch
     axis (one image of the batch is hard).
-The spatially sharded gather (promptir_tpu/ops/camixer.py:168-185) waits
-for the other families' spatial hooks (ROADMAP.md Queue 1 item 5; the
-port's sharded forward, parallel/spatial.py, runs PromptIR). No kernel of
-the port runs here; the rounding points are the JAX module's (float32
+Under the H-sharded forward (parallel/spatial.py) a mixer gathers the
+level's rows and its condition, runs whole and keeps its stripe
+(`run_gathered`, JAX ops/camixer.py:161-185): its top-k routing is over
+every window of the image and flow_warp's offsets are unbounded; its mean
+decision, taken on the gathered windows, is the same on every rank. The
+selector's pool is the whole image's (`global_mean_hw`). Under a data
+group (parallel/data.py) the Gumbel uniforms are the global batch's draw,
+this rank's rows kept, and the selector decides on the global batch's
+labels (gathered) and keeps this rank's images. No kernel of the port runs
+here; the rounding points are the JAX module's (float32
 logits, bias and softmax, the probabilities rounded to the compute dtype
 before a float32 PV, the result in x's dtype).
 """
@@ -52,6 +58,12 @@ from promptir_tpu_torch.ops.flow_warp import flow_warp
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
 from promptir_tpu_torch.ops.ocab import RelPosEmb, extract_overlapping_windows
 from promptir_tpu_torch.ops.window_attention import conv_nhwc, linear
+from promptir_tpu_torch.parallel.data import (
+    gather_batch,
+    global_batch_shape,
+    keep_rows,
+)
+from promptir_tpu_torch.parallel.spatial import global_mean_hw, run_gathered
 
 # the uniform draw's range, the JAX module's (jax.random.uniform's minval
 # and maxval): -log(-log(u)) stays finite
@@ -63,6 +75,13 @@ def gumbel_uniform(shape, generator, device):
     torch.Generator on `device`), over the JAX module's range."""
     u = torch.rand(shape, generator=generator, device=device)
     return (u * (GUMBEL_HI - GUMBEL_LO) + GUMBEL_LO).clamp_(min=GUMBEL_LO)
+
+
+def batch_uniform(shape, generator, device):
+    """gumbel_uniform for this rank's rows of a batch: the global batch's
+    draw (parallel/data.py), its rows kept; `shape` itself alone."""
+    return keep_rows(gumbel_uniform(global_batch_shape(shape), generator,
+                                    device))
 
 
 def gumbel_softmax_hard(logits, u, dim: int = -1):
@@ -201,7 +220,7 @@ class CAMixerV1(nn.Module):
         self.project_k = nn.Linear(dim, dim, bias=bias)
         self.conv_sptial = nn.Sequential(
             Conv(dim, dim, 3, bias=True, groups=dim),
-            nn.Conv2d(dim, dim, 3, padding=2, dilation=2, groups=dim))
+            Conv(dim, dim, 3, bias=True, groups=dim, padding=2, dilation=2))
         self.project_out = Conv(dim, dim, bias=bias)
         self.route = PredictorLG(dim, dim + cond_dim + 2, window_size)
 
@@ -209,7 +228,12 @@ class CAMixerV1(nn.Module):
                 generator=None):
         """x: (B, H, W, C), H and W multiples of the window. In training
         (`deterministic=False`) the routing samples from `generator`.
-        Returns (out, decision)."""
+        Returns (out, decision); under the sharded forward, gathered."""
+        return run_gathered(
+            lambda xg, cg: self._mix(xg, cg, deterministic, generator), x,
+            condition_global)
+
+    def _mix(self, x, condition_global, deterministic, generator):
         b, h, w, c = x.shape
         win = self.window_size
         if h % win or w % win:
@@ -221,8 +245,8 @@ class CAMixerV1(nn.Module):
             cond.insert(1, condition_global.to(v.dtype))
         route = self.route(torch.cat(cond, -1))
         scores = route["scores"]
-        u = None if deterministic else gumbel_uniform(scores.shape, generator,
-                                                      scores.device)
+        u = None if deterministic else batch_uniform(scores.shape, generator,
+                                                     scores.device)
         mask = route_mask(scores, self.ratio, deterministic, u)
 
         k_feat = x + flow_warp(x, route["offsets"])
@@ -267,7 +291,12 @@ class CAMixerV2(nn.Module):
                 generator=None):
         """x: (B, H, W, C), H and W multiples of the window. In training
         (`deterministic=False`) the routing samples from `generator`.
-        Returns (out, decision)."""
+        Returns (out, decision); under the sharded forward, gathered."""
+        return run_gathered(
+            lambda xg, cg: self._mix(xg, cg, deterministic, generator), x,
+            condition_global)
+
+    def _mix(self, x, condition_global, deterministic, generator):
         b, h, w, _ = x.shape
         win, ow = self.window_size, self.overlap_win
         if h % win or w % win:
@@ -282,8 +311,8 @@ class CAMixerV2(nn.Module):
             cond.insert(1, condition_global.to(vs.dtype))
         route = self.route(torch.cat(cond, -1))
         scores = route["scores"]
-        u = None if deterministic else gumbel_uniform(scores.shape, generator,
-                                                      scores.device)
+        u = None if deterministic else batch_uniform(scores.shape, generator,
+                                                     scores.device)
         mask = route_mask(scores, self.ratio, deterministic, u)
 
         dt = qs.dtype
@@ -325,17 +354,19 @@ class BranchSelector(nn.Module):
 
     def forward(self, x, deterministic: bool = True, generator=None):
         """x: (B, H, W, C). Returns the (B,) float32 {0, 1} label of each
-        image, 1 for the hard branch (straight through in training)."""
-        b = x.shape[0]
+        image, 1 for the hard branch (straight through in training). Under
+        a data group the choice is over the global batch's labels, and
+        this rank's images keep theirs."""
         ln = self.in_conv[1]
         y = layernorm_nhwc(pointwise(x, self.in_conv[0]), ln.weight, ln.bias,
                            bias_free=False, eps=ln.eps)
-        z = F.leaky_relu(pointwise(mean_last(F.leaky_relu(y, 0.1), (1, 2)),
-                                   self.se[1]), 0.1)
+        pooled = global_mean_hw(F.leaky_relu(y, 0.1)).to(y.dtype)
+        z = F.leaky_relu(pointwise(pooled, self.se[1]), 0.1)
         z = pointwise(z, self.se[3])[:, 0, 0]  # the mean over one pixel
         label = torch.sigmoid(linear(z, self.classifier[0])).float()  # (B, 1)
+        label = gather_batch(label)
         if deterministic:
-            k = max(1, int(round(b * self.hard_ratio)))
-            return topk_window_mask(label.T, k).T[:, 0]
+            k = max(1, int(round(label.shape[0] * self.hard_ratio)))
+            return keep_rows(topk_window_mask(label.T, k).T[:, 0])
         u = gumbel_uniform(label.shape, generator, label.device)
-        return gumbel_softmax_hard(label, u, dim=0)[:, 0]
+        return keep_rows(gumbel_softmax_hard(label, u, dim=0)[:, 0])

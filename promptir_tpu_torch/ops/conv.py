@@ -5,15 +5,20 @@ Counterpart of promptir_tpu/ops/conv.py. `Conv` is `nn.Conv2d` with
 bias by default, so its `weight` (and `bias`) load the reference's keys
 verbatim; torch's default initialization is the reference's. NAFNet's 2x2
 stride-2 downsampling is `Conv(c, 2 * c, 2, stride=2, padding=0,
-bias=True)`. The plain convolutions of the model stay `F.conv2d`.
+bias=True)`; CAMixer v1's dilated depthwise 3x3 is `Conv(c, c, 3,
+padding=2, dilation=2, groups=c, bias=True)`. Every convolution of the
+models is a `Conv` called as a module (channels-last ones through
+ops/window_attention.py:conv_nhwc), so each takes the sharded plans below.
 
 `Conv` is also the hook of the exact H-sharded forward
 (parallel/spatial.py): under `spatial_sharding(group)` each conv takes the
 first plan that applies, as the JAX Conv does (promptir_tpu/ops/conv.py:
 66-162):
-  * stride 1, odd kernel height kh > 1, row padding kh // 2: exchange
-    kh // 2 rows with the neighbours and crop the rows recomputed at each
-    end (zeros at the global borders: the unsharded conv's padding);
+  * stride 1, odd kernel height kh > 1, dilation d, row padding
+    d (kh // 2): exchange that many rows with the neighbours and crop the
+    rows recomputed at each end (zeros at the global borders: the
+    unsharded conv's padding). The JAX Conv gathers a dilated conv's rows
+    instead; both are exact;
   * stride == kernel, no padding, the stripe a multiple of the stride:
     every window lies inside one stripe, so the conv is local;
   * kh == s + 2 p with 0 < p <= s (a strided overlap, the Uformer 4x4/s2/p1
@@ -22,6 +27,8 @@ first plan that applies, as the JAX Conv does (promptir_tpu/ops/conv.py:
   * kh == 1 otherwise: local;
   * anything else: gather the rows, convolve the whole, keep the local
     output rows (NotImplementedError when they do not partition).
+The transposed 2x2/s2 convolutions of the Uformer (a `ConvTranspose2d`)
+are row-local and are not hooked.
 """
 
 from __future__ import annotations
@@ -41,10 +48,11 @@ from promptir_tpu_torch.parallel.spatial import (
 
 class Conv(nn.Conv2d):
     def __init__(self, cin: int, cout: int, k: int = 1, *, bias: bool = False,
-                 groups: int = 1, stride: int = 1, padding: int | None = None):
+                 groups: int = 1, stride: int = 1, padding: int | None = None,
+                 dilation: int = 1):
         super().__init__(cin, cout, k, stride=stride,
                          padding=k // 2 if padding is None else padding,
-                         bias=bias, groups=groups)
+                         dilation=dilation, bias=bias, groups=groups)
 
     def forward(self, x):
         """The convolution in x's dtype: the float32 weights of a model that
@@ -62,11 +70,13 @@ class Conv(nn.Conv2d):
     def _sharded(self, x, group):
         """The conv of an NCHW stripe under the sharded forward's plan."""
         kh, sh, h = self.kernel_size[0], self.stride[0], x.shape[2]
-        plain_rows = self.dilation[0] == 1 and not isinstance(self.padding, str)
-        ph = self.padding[0] if plain_rows else -1
-        if plain_rows and sh == 1 and kh > 1 and kh % 2 and ph == kh // 2:
+        dh = self.dilation[0]
+        explicit = not isinstance(self.padding, str)
+        ph = self.padding[0] if explicit else -1
+        if explicit and sh == 1 and kh > 1 and kh % 2 and ph == dh * (kh // 2):
             y = self._plain(exchange_rows(x, ph, group, dim=2))
             return y[:, :, ph:y.shape[2] - ph]
+        plain_rows = explicit and dh == 1
         if plain_rows and sh == kh and ph == 0 and h % sh == 0:
             return self._plain(x)
         if plain_rows and kh == sh + 2 * ph and 0 < ph <= sh and h % sh == 0:

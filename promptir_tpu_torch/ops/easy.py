@@ -20,8 +20,9 @@ The projections carry the reference's all-in-one biases (`use_bias=False`:
 none on `project_out` and `proj_v`); `bias=True` gives those a bias too, as
 the JAX modules' `use_bias` does.
 
-No kernel of the port runs here: the convolutions are `F.conv2d`, the rest
-plain PyTorch, as the JAX module leaves all of it to XLA. The rounding
+No kernel of the port runs here: the convolutions are `Conv` modules
+(cuDNN), the rest plain PyTorch, as the JAX module leaves all of it to
+XLA. The rounding
 points are the JAX module's. The Easy blocks keep their stream in the
 compute dtype. NAFBlock's `x * beta` multiplies a compute-dtype tensor by a
 float32 parameter, which JAX promotes to float32, so its residual stream is
@@ -30,6 +31,12 @@ to the compute dtype, as a flax `Conv(dtype=...)` does: NAFBlock takes that
 dtype as an argument. `beta` and `gamma` are stored as the model stores its
 weights (rounded to bfloat16 in a served bf16 model, as its LayerNorm
 weights are) and multiplied in float32.
+
+Under the H-sharded forward (parallel/spatial.py) the convolutions take
+`Conv`'s plans, the channel attention's pool (`mean_hw`: EasyChannel
+Attention's and NAFBlock's SCA) is the whole image's mean, and the TLC
+pool gathers the rows, pools the whole and keeps the stripe's (JAX
+ops/easy.py:89-91, 233-252).
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ from torch import nn
 
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.norm import LayerNorm, layernorm_nhwc
+from promptir_tpu_torch.parallel.spatial import (
+    global_mean_hw,
+    global_rows,
+    run_gathered,
+)
 
 
 def round_to_nearest_power_of_2(x: int) -> int:
@@ -57,9 +69,10 @@ def simple_gate(x):
 
 
 def mean_hw(x):
-    """The mean over H and W, kept as (B, C, 1, 1): summed in float32 and
-    rounded to x's dtype, as `jnp.mean` computes a bf16 mean."""
-    return x.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+    """The mean over H and W of NCHW `x` (the whole image's under the
+    sharded forward), kept as (B, C, 1, 1): summed in float32 and rounded
+    to x's dtype, as `jnp.mean` computes a bf16 mean."""
+    return global_mean_hw(x, dims=(2, 3)).to(x.dtype)
 
 
 class ChannelsLN(nn.Module):
@@ -205,14 +218,23 @@ class NAFBlock(nn.Module):
         self.conv5 = Conv(ffn // 2, c, bias=True)
         self.gamma = nn.Parameter(torch.zeros(1, c, 1, 1))
 
+    def tlc_pool(self, x):
+        """local_avg_pool of NCHW `x`; under the sharded forward the whole
+        image's: its mean where the window covers the image, else the
+        pool of the gathered rows, this stripe's rows kept."""
+        k1, k2 = self.tlc_kernel
+        if k1 >= global_rows(x.shape[2]) and k2 >= x.shape[3]:
+            return mean_hw(x)
+        return run_gathered(lambda xg: local_avg_pool(xg, self.tlc_kernel),
+                            x, dim=2)
+
     def forward(self, inp, dtype: "torch.dtype | None" = None):
         """`dtype`: the compute dtype of the convolutions (default inp's).
         Returns float32 when `dtype` is narrower, as the JAX block does."""
         dt = dtype or inp.dtype
         x = self.conv2(self.conv1(self.norm1(inp).to(dt)))
         x = simple_gate(x)
-        pooled = (mean_hw(x) if self.tlc_kernel is None
-                  else local_avg_pool(x, self.tlc_kernel))
+        pooled = mean_hw(x) if self.tlc_kernel is None else self.tlc_pool(x)
         x = self.conv3(x * self.sca[1](pooled))
         y = inp + x * self.beta.float()
         x = self.conv4(self.norm2(y).to(dt))

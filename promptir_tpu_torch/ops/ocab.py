@@ -10,6 +10,12 @@ The JAX package has no Pallas kernel here (XTransformerBlock leaves OCAB to
 XLA), so this is plain PyTorch on NHWC tensors with the JAX rounding
 points: q scaled in the compute dtype, logits, bias and softmax in fp32,
 the probabilities cast to the compute dtype before the product with v.
+
+Under the H-sharded forward (parallel/spatial.py) the query windows lie
+inside the stripe (its height a multiple of the window) and the key and
+value windows take their (ow - win) // 2 overlap rows from the
+neighbours' stripes, zeros at the global top and bottom: the zero padding
+of the whole image (promptir_tpu/ops/ocab.py:137-153).
 """
 
 from __future__ import annotations
@@ -19,16 +25,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from promptir_tpu_torch.ops.conv import Conv
+from promptir_tpu_torch.parallel.spatial import current_spatial_group, exchange_rows
 
 
 def extract_overlapping_windows(x, win: int, ow: int):
     """(B, H, W, C) -> (B, nh * nw, ow * ow, C): zero-padded halo windows.
 
     Window i covers rows [i win - pad, i win - pad + ow) with pad =
-    (ow - win) // 2, as torch Unfold(kernel=ow, stride=win, padding=pad)."""
+    (ow - win) // 2, as torch Unfold(kernel=ow, stride=win, padding=pad).
+    Under the sharded forward `x` is a stripe, a multiple of `win` rows,
+    and the pad rows above and below come from its neighbours."""
     b, h, w, c = x.shape
     pad = (ow - win) // 2
-    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    group = current_spatial_group()
+    if group is None:
+        xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    else:
+        if h % win:
+            raise ValueError(f"sharded OCAB needs a stripe height {h} that "
+                             f"is a multiple of the window {win}")
+        xp = F.pad(exchange_rows(x, pad, group), (0, 0, pad, pad))
     xw = xp.unfold(1, ow, win).unfold(2, ow, win)  # (B, nh, nw, C, ow, ow)
     nh, nw = xw.shape[1], xw.shape[2]
     return xw.permute(0, 1, 2, 4, 5, 3).reshape(b, nh * nw, ow * ow, c)

@@ -11,16 +11,26 @@ projections. The state-dict names are the reference's (the integer buffer
 
 The features stay channels-last (B, H, W, C), as in the JAX modules: the
 LayerNorms and Linears act on the last axis, and a 3x3 convolution sees an
-NCHW view of the same memory (`conv_nhwc`). No kernel of the port runs
-here: the products are `torch.matmul`, the convolutions `F.conv2d`, as the
-JAX package leaves all of this to XLA. The rounding points are the JAX
+NCHW view of the same memory (`conv_nhwc`, through the `Conv` module and
+so through its sharded plans). No kernel of the port runs here: the
+products are `torch.matmul`, the convolutions cuDNN's, as the JAX package
+leaves all of this to XLA. The rounding points are the JAX
 module's: q scaled in its dtype, the logits, the bias, the shift mask and
 the softmax in float32, the probabilities rounded to v's dtype before PV
 (a float32 product), the result rounded to x's dtype before `proj`; the
 transposed convolution of `UformerUpsample` computes in float32 in any
 model. `DropPath` is the JAX module's stochastic depth: the identity at rate
 0 or when deterministic (how the trainers apply these models), else one
-keep draw an image from an explicit generator.
+keep draw an image from an explicit generator (the global batch's draw
+under parallel/data.py's context, this rank's rows kept).
+
+Under the H-sharded forward (parallel/spatial.py) a LeWin block works on
+a stripe, as the JAX block does (promptir_tpu/ops/window_attention.py:
+304-380): its windows lie inside the stripe, the shifted roll crosses the
+seams (`sharded_roll_h` on H, `torch.roll` on W) and the Swin mask is this
+stripe's window rows of the whole image's; a stripe thinner than a window
+(a deep Uformer level) gathers the level and runs the block whole. The
+window attention itself runs unsharded: its tokens are a window's.
 """
 
 from __future__ import annotations
@@ -34,6 +44,14 @@ from torch import nn
 
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
+from promptir_tpu_torch.parallel.data import global_batch_shape, keep_rows
+from promptir_tpu_torch.parallel.mesh import group_rank, group_size
+from promptir_tpu_torch.parallel.spatial import (
+    current_spatial_group,
+    run_gathered,
+    sharded_roll_h,
+    spatial_sharding,
+)
 
 
 def linear(x, lin: nn.Linear):
@@ -43,13 +61,11 @@ def linear(x, lin: nn.Linear):
     return F.linear(x, lin.weight.to(x.dtype), b)
 
 
-def conv_nhwc(x, conv: nn.Conv2d):
-    """NHWC `x` through `conv` (its stride, padding, dilation and groups),
-    in x's dtype; the NCHW view is channels-last memory, as cuDNN takes it."""
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), b,
-                 conv.stride, conv.padding, conv.dilation, conv.groups)
-    return y.permute(0, 2, 3, 1)
+def conv_nhwc(x, conv: Conv):
+    """NHWC `x` through the `Conv` module `conv` (its stride, padding,
+    dilation and groups, and its sharded plans), in x's dtype; the NCHW view
+    is channels-last memory, as cuDNN takes it."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class TorchLayerNorm(nn.Module):
@@ -195,7 +211,13 @@ class WindowAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, mask=None):
-        """x: (B * nW, win^2, C); mask: (nW, win^2, win^2) float32 or None."""
+        """x: (B * nW, win^2, C); mask: (nW, win^2, win^2) float32 or None.
+        The tokens are whole windows: ConvProjection's convolutions on a
+        window's grid run unsharded."""
+        with spatial_sharding(None):
+            return self._attend(x, mask)
+
+    def _attend(self, x, mask):
         bn, n, c = x.shape
         q, k, v = self.qkv(x)
         d = q.shape[-1]
@@ -256,8 +278,9 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or deterministic:
             return x
         keep = 1.0 - self.rate
-        draw = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
-                          generator=generator, device=x.device)
+        draw = keep_rows(torch.rand(
+            global_batch_shape((x.shape[0],) + (1,) * (x.dim() - 1)),
+            generator=generator, device=x.device))
         return torch.where(draw < keep, x / keep, torch.zeros_like(x))
 
 
@@ -283,23 +306,39 @@ class LeWinTransformerBlock(nn.Module):
             else LeFF(dim, hidden)
 
     def forward(self, x, deterministic: bool = True, generator=None):
-        """x: (B, H, W, C), H and W multiples of the window."""
+        """x: (B, H, W, C), H and W multiples of the window (the whole
+        image's H under the sharded forward)."""
+        b, h, w, c = x.shape
+        win = self.win_size
+        group = current_spatial_group()
+        n = group_size(group)
+        if (h * n) % win or w % win:
+            raise ValueError(f"LeWinTransformerBlock: H and W must be "
+                             f"multiples of the window {win}, got "
+                             f"{h * n}x{w}")
+        if n > 1 and h % win:
+            return run_gathered(
+                lambda xg: self.forward(xg, deterministic, generator), x)
+        return self._body(x, deterministic, generator, group)
+
+    def _body(self, x, deterministic, generator, group):
         b, h, w, c = x.shape
         win, shift = self.win_size, self.shift_size
-        if h % win or w % win:
-            raise ValueError(f"LeWinTransformerBlock: H and W must be "
-                             f"multiples of the window {win}, got {h}x{w}")
+        n = group_size(group)
         y = self.norm1(x)
         mask = None
         if shift > 0:
-            y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
-            mask = shift_mask(h, w, win, shift, x.device)
+            y = torch.roll(sharded_roll_h(y, -shift, group), -shift, 2)
+            mask = shift_mask(h * n, w, win, shift, x.device)
+            if n > 1:  # this stripe's window rows of the whole image's
+                per_stripe = (h // win) * (w // win)
+                mask = mask[group_rank(group) * per_stripe:][:per_stripe]
         yw = window_partition(y, win)
         if self.modulator is not None:
             yw = yw + self.modulator.weight.to(yw.dtype)
         y = window_reverse(self.attn(yw, mask), win, h, w)
         if shift > 0:
-            y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
+            y = torch.roll(sharded_roll_h(y, shift, group), shift, 2)
         x = x + self.drop_path(y, deterministic, generator)
         return x + self.drop_path(self.mlp(self.norm2(x)), deterministic,
                                   generator)

@@ -22,16 +22,27 @@ unmodified on each rank's stripe of the image, under a context
     stacks never chain (models/blocks.py): the block kernels sum their
     Gram over their whole input and zero-pad its top and bottom rows, which
     on a stripe would be wrong. JAX's sharded forward also runs its unfused
-    ops (spatial.py:37-38).
+    ops (spatial.py:37-38);
+  * OCAB's key and value windows take their overlap rows from the
+    neighbours (ops/ocab.py); a LeWin block rolls its shifted windows
+    across the seams (`sharded_roll_h`) under its rows of the global Swin
+    mask, or, on a stripe thinner than a window, gathers the level and runs
+    whole (ops/window_attention.py);
+  * a CAMixer gathers the level's rows and its condition and runs whole
+    (its top-k routing and deformable offsets are global), the branch
+    selector's pool and the Easy and NAF channel attention's are
+    `global_mean_hw`, NAFNetLocal's TLC pool gathers the rows
+    (ops/camixer.py, ops/easy.py); the X-Restormer SR input is resized at
+    global rows (`upscale_input`), as is the CAMixer condition pyramid
+    (models/camixer_models.py).
 
 Each collective is an `all_reduce` (mesh.all_reduce_sum): the exchanges
 write into zeroed buffers, so that NCCL, gloo on the CPU and gloo on CUDA
 tensors run the same code. Row helpers take the row axis `dim` (1 for NHWC,
 as the JAX functions; the ops pass 2 for their NCHW stripes).
 
-Only PromptIR has its hooks in this slice (`SPATIAL_MODELS`); the other
-families' (OCAB, shifted windows, the CAMixer gather and condition pyramid,
-TLC) are ROADMAP.md Queue 1 item 5's next part.
+Every registered model has its hooks (`SPATIAL_MODELS` is the registry;
+a model class says so with `spatial_hooks = True`).
 """
 
 from __future__ import annotations
@@ -44,13 +55,19 @@ import torch
 from promptir_tpu_torch.parallel.halo import exchange_edges, exchange_halo
 from promptir_tpu_torch.parallel.mesh import all_reduce_sum, group_rank, group_size
 
-# the registered models whose ops all have their spatial hooks in the port
-SPATIAL_MODELS = frozenset({"promptir"})
-ROADMAP_ITEM = ("ROADMAP.md Queue 1 item 5: the spatial hooks of the "
-                "X-Restormer, Uformer, CAMixer, Easy and NAFNetLocal families")
-
 _GROUP: contextvars.ContextVar = contextvars.ContextVar("spatial_group",
                                                         default=None)
+
+
+def __getattr__(name):
+    """`SPATIAL_MODELS`, the models whose ops all have their spatial hooks:
+    the registry's (models/__init__.py), read when asked, since the models
+    import this module."""
+    if name == "SPATIAL_MODELS":
+        from promptir_tpu_torch.models import available_models
+
+        return frozenset(available_models())
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def current_spatial_group():
@@ -138,6 +155,49 @@ def sharded_resize_bilinear(x, out_hw_global, group,
     return slice_local_rows(yg, group, 2)
 
 
+def upscale_input(x, scale: int):
+    """Bilinear x`scale` upscaling of an NCHW input (align_corners=False),
+    the X-Restormer SR entry (promptir_tpu/parallel/spatial.py:146-166);
+    under the context at global rows, since its samples cross the seams.
+    The input itself at scale 1."""
+    from promptir_tpu_torch.ops.resize import resize_bilinear
+
+    if scale <= 1:
+        return x
+    h, w = x.shape[-2:]
+    group = current_spatial_group()
+    if group is not None:
+        return sharded_resize_bilinear(
+            x, (h * group_size(group) * scale, w * scale), group)
+    return resize_bilinear(x, (h * scale, w * scale))
+
+
+def global_rows(h: int) -> int:
+    """The whole image's rows of a tensor `h` rows tall: its own outside
+    the context, times the group's size inside."""
+    return h * group_size(current_spatial_group())
+
+
+def run_gathered(fn, x, *others, dim: int = 1):
+    """`fn(x, *others)` on the whole level: every tensor of (x, *others)
+    (None passes) gathered along the row axis `dim`, `fn` run unsharded
+    (`spatial_sharding(None)`), and the rows of this rank's stripe kept of
+    its first output (of the output itself when it is a tensor; the rest
+    of a tuple as it is). Outside the context, or in a group of one,
+    `fn(x, *others)` as it is. The exact fallback of an op whose local
+    stripe cannot hold its spatial structure."""
+    group = current_spatial_group()
+    if group is None or group_size(group) == 1:
+        return fn(x, *others)
+    args = [None if t is None else gather_rows(t.contiguous(), group, dim)
+            for t in (x, *others)]
+    with spatial_sharding(None):
+        out = fn(*args)
+    if isinstance(out, tuple):
+        return (slice_local_rows(out[0], group, dim),) + out[1:]
+    return slice_local_rows(out, group, dim)
+
+
 def global_mean_hw(x, dims=(1, 2), keepdim: bool = True):
     """Mean of `x` over its spatial `dims` (NHWC's by default), over the
     whole image under the context: equal stripes make it the mean of the
@@ -150,13 +210,16 @@ def global_mean_hw(x, dims=(1, 2), keepdim: bool = True):
 
 
 def spatial_sharded_apply(model, x, group):
-    """PromptIR's exact forward of a global NHWC batch `x`, sharded on H.
+    """A model's exact forward of a global NHWC batch `x`, sharded on H.
 
     Every rank of `group` passes the same global (B, H, W, 3) input, H a
-    multiple of 8 n (even stripes through three downsamples), runs its
+    multiple of 8 n (even stripes through three downsamples) and of the
+    model's own pad base (eval/padding.py:pad_bases(name, n)), runs its
     stripe of it under `spatial_sharding(group)` without autograd, and
-    returns the global (B, H, W, 3) float32 output. The model must not be
-    built with `fused_ffn=True` (the kernels' chain is single-card)."""
+    returns the global float32 output (`scale` times taller and wider for
+    an SR X-Restormer). The model must not be built with `fused_ffn=True`
+    (the kernels' chain is single-card) and must have its hooks
+    (`spatial_hooks`)."""
     n = group_size(group)
     h = x.shape[1]
     if h % (8 * n):
@@ -168,8 +231,8 @@ def spatial_sharded_apply(model, x, group):
                          "--fused / fused_ffn): the kernels are single-card")
     if not getattr(model, "spatial_hooks", False):
         raise NotImplementedError(
-            f"{type(model).__name__} has no spatial hooks; the sharded "
-            f"forward runs {sorted(SPATIAL_MODELS)} ({ROADMAP_ITEM})")
+            f"{type(model).__name__} has no spatial hooks (spatial_hooks = "
+            "True): the sharded forward runs the registered models")
     xs = local_stripe(x, group).permute(0, 3, 1, 2)
     with spatial_sharding(group), torch.no_grad():
         y = model(xs).permute(0, 2, 3, 1)

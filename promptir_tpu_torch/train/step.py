@@ -34,6 +34,17 @@ trainer tells them) is called with `deterministic=False` and a torch.Generator
 seeded from (seed, step * grad_accum + microbatch), the fold of the JAX
 step, so that a resumed run draws what an unbroken run draws; its mean
 routing decision (v1) adds the ratio loss to L1.
+
+Over a data group the microbatches run under `data_sharding(group)`
+(parallel/data.py), so that a stochastic model's step is the one-process
+step on the global batch, as the JAX step under its mesh is: every rank
+draws the global microbatch's uniforms from the same generator and keeps
+its rows, the squared batch means of the training terms are the global
+batch's (a differentiable all_reduce), and CATA's selector chooses over
+the global batch. With `grad_accum > 1` the global microbatch i is every
+rank's microbatch i, in rank order, which is the global batch's i-th
+slice, the JAX step's, when the ranks' rows are dealt by microbatch
+(data/loader.py:rank_rows, as the trainer's loader deals them).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from promptir_tpu_torch.parallel.data import data_sharding
 from promptir_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 from promptir_tpu_torch.precision import compute_dtype, exact_float32
 from promptir_tpu_torch.train.losses import l1_loss, ratio_loss
@@ -56,13 +68,6 @@ def to_nchw(x: torch.Tensor, device) -> torch.Tensor:
 # the CAMixer variants, whose training forward samples (the JAX trainer's
 # list); v1 returns its mean decision, the others their losses
 STOCHASTIC = ("v1", "v2", "cata")
-# why a stochastic model does not train data-parallel yet: every rank would
-# draw the same Gumbel uniforms, v1's ratio loss squares a batch mean (a
-# mean of rank means is not the global value), and CATA's selector couples
-# the images of the whole batch
-STOCHASTIC_DP = ("data-parallel training of the stochastic CAMixer models "
-                 "is not ported yet (ROADMAP.md Queue 1 item 5: DP for the "
-                 "stochastic models)")
 
 
 def average_gradients(grads, group) -> None:
@@ -101,8 +106,6 @@ def make_train_step(model, grad_accum: int = 1, seed: int = 0, group=None):
     device = params[0].device
     stochastic = getattr(model, "variant", None) in STOCHASTIC
     n_ranks = group_size(group)
-    if stochastic and n_ranks > 1:
-        raise NotImplementedError(STOCHASTIC_DP)
 
     def loss_of(x, y, index):
         if not stochastic:
@@ -121,7 +124,7 @@ def make_train_step(model, grad_accum: int = 1, seed: int = 0, group=None):
         m = n // grad_accum
         state.optimizer.zero_grad(set_to_none=True)
         loss = torch.zeros((), device=device)
-        with exact_float32(compute_dtype(model)):
+        with exact_float32(compute_dtype(model)), data_sharding(group):
             for i in range(grad_accum):
                 sl = slice(i * m, (i + 1) * m)
                 with record_function("forward"):

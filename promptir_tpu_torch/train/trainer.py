@@ -141,6 +141,7 @@ class Trainer:
             pin_memory=self.device.type == "cuda",
             rank=self.mesh.data_rank,
             world=self.mesh.n_data,
+            microbatches=cfg.train.grad_accum,
         )
         self.state = TrainState(
             model, make_optimizer(model.parameters(), cfg.train.lr,

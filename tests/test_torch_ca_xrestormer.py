@@ -44,8 +44,9 @@ from promptir_tpu_torch.compat.jax_params import state_dict_from_flax
 from promptir_tpu_torch.compat.torch_ckpt import load_checkpoint
 from promptir_tpu_torch.models.camixer_models import CATransformerBlock
 from promptir_tpu_torch.ops import camixer
+from promptir_tpu_torch.tools.parity import grad_errors
 from promptir_tpu_torch.train.losses import l1_loss, ratio_loss
-from test_torch_camixer import Draws, grad_errors_floored, jax_gumbel, port_draws
+from test_torch_camixer import Draws, jax_gumbel, port_draws
 from test_torch_easy import (  # noqa: F401 (one_torch_thread: a fixture)
     flax_grads,
     forward_np,
@@ -271,8 +272,9 @@ def test_reduced_stochastic_loss_and_grads_match_jax(jax_sides, name,
                                                      monkeypatch):
     """On the same uniforms: the training output within 1e-5 of max |JAX|,
     the aux output (v1's mean decision, v2's ratio loss) within 1e-6, the
-    loss within 1e-6 of JAX's, every gradient within GRAD_TOL (floored at
-    the median tensor, test_torch_camixer.py:grad_errors_floored)."""
+    loss within 1e-6 of JAX's, every gradient within GRAD_TOL of its own
+    max (tools/parity.py:grad_errors: project_k's bias, zero in exact
+    arithmetic, of the median tensor's)."""
     x, y, sides = jax_sides
     variables, _, (loss_j, out_j, aux_j, ref) = sides[name]
     monkeypatch.setattr(camixer, "gumbel_uniform",
@@ -286,7 +288,7 @@ def test_reduced_stochastic_loss_and_grads_match_jax(jax_sides, name,
                                out_j, rtol=0, atol=1e-5 * np.abs(out_j).max())
     assert abs(aux.item() - aux_j[0]) <= 1e-6
     assert abs(loss.item() - loss_j) <= 1e-6 * loss_j
-    errs = grad_errors_floored(
+    errs = grad_errors(
         {k: p.grad.numpy() for k, p in model.named_parameters()}, ref)
     worst = max(errs, key=errs.get)
     assert errs[worst] <= GRAD_TOL, (worst, errs[worst])

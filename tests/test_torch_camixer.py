@@ -40,6 +40,7 @@ from promptir_tpu_torch.ops import camixer
 from promptir_tpu_torch.ops.flow_warp import flow_warp
 from promptir_tpu_torch.train.checkpoints import CheckpointManager
 from promptir_tpu_torch.train.losses import l1_loss, ratio_loss
+from promptir_tpu_torch.tools.parity import grad_errors
 from promptir_tpu_torch.train.state import TrainState, make_optimizer
 from promptir_tpu_torch.train.step import make_train_step
 from test_torch_easy import (  # noqa: F401 (one_torch_thread: a fixture)
@@ -256,19 +257,6 @@ def test_reduced_eval_forward_matches_jax(jax_side, ratio, monkeypatch):
         assert ratio < 1.0 or bool(mask.all())
 
 
-def grad_errors_floored(grads, ref):
-    """{parameter: max |grad - ref| over the larger of max |ref| and the
-    median tensor's max |ref|}. project_k's bias has a zero gradient in
-    exact arithmetic (a constant added to every key of a window shifts each
-    query's logits alike, which the softmax ignores): both packages give
-    ~1e-11 of rounding there (a median tensor's gradient is ~1.6e-5), whose
-    ratio to itself says nothing."""
-    assert grads.keys() == ref.keys()
-    scale = np.median([np.abs(r).max() for r in ref.values()])
-    return {k: np.abs(grads[k] - ref[k]).max()
-            / max(np.abs(ref[k]).max(), scale) for k in ref}
-
-
 def test_reduced_stochastic_loss_and_grads_match_jax(jax_side, monkeypatch):
     """On the same uniforms: the training output within 1e-5 of max |JAX|,
     the mean decision equal, the loss within 1e-6 of JAX's, every gradient
@@ -284,7 +272,7 @@ def test_reduced_stochastic_loss_and_grads_match_jax(jax_side, monkeypatch):
                                out_j, rtol=0, atol=1e-5 * np.abs(out_j).max())
     assert decision.item() == decision_j and 0.0 < decision_j < 1.0
     assert abs(loss.item() - loss_j) <= 1e-6 * loss_j
-    errs = grad_errors_floored(
+    errs = grad_errors(
         {k: p.grad.numpy() for k, p in model.named_parameters()}, ref)
     worst = max(errs, key=errs.get)
     assert errs[worst] <= GRAD_TOL, (worst, errs[worst])

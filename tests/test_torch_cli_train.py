@@ -153,13 +153,3 @@ def test_train_cli_remat_levels_checkpoint_levels_1_and_2(tmp_path,
     assert np.isfinite(records(tmp_path)[-1]["train_loss"])
 
 
-@pytest.mark.parametrize("flag", [["--n_data", "2", "--model",
-                                   "capromptxrestormereff"]],
-                         ids=lambda f: f[0])
-def test_refused_flags_exit_with_their_roadmap_item(flag, capsys, tmp_path):
-    with pytest.raises(SystemExit) as e:
-        train.main(["--synthetic", "--ckpt_dir", str(tmp_path), *flag, *TINY])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP.md" in err and "item 5" in err
-    assert not os.listdir(tmp_path)

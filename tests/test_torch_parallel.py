@@ -19,8 +19,8 @@ hung collective fails its case and never reaches the tier-1 cap.
     the global batch size;
   * `cli/train.py --device cpu --synthetic --n_data 2`: its checkpoint
     equals a `--n_data 1` run's at twice the batch size within the step
-    test's bounds, a second run resumes it for one more epoch, and a
-    stochastic model with `--n_data 2` exits non-zero;
+    test's bounds, and a second run resumes it for one more epoch
+    (tests/test_torch_dp_stochastic.py runs a stochastic model so);
   * `tiled_inference(group=...)` over 2 ranks against the one-process tiler
     (within 1e-5: the blend sums in another order);
   * the demo's `--tile --mesh` and `--spatial` over 2 ranks against the
@@ -195,20 +195,6 @@ def test_cli_train_n_data_2_matches_twice_the_batch(tmp_path, monkeypatch):
                       "--resume", "latest")
     assert (again["epoch"], again["step"]) == (1, 2)
     assert all(torch.isfinite(v).all() for v in again["model"].values())
-
-
-@pytest.mark.parametrize("model", ["capromptuformerir",
-                                   "catapromptxrestormer"])
-def test_cli_train_refuses_a_stochastic_model_over_ranks(model, tmp_path,
-                                                        capsys):
-    from promptir_tpu_torch.cli import train
-
-    with pytest.raises(SystemExit) as e:
-        train.main(["--synthetic", "--model", model, "--n_data", "2",
-                    "--device", "cpu", "--ckpt_dir", str(tmp_path)])
-    assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 item 5" in capsys.readouterr().err
-    assert not os.listdir(tmp_path)
 
 
 TILED = dict(tile=32, overlap=8, chunk=3, bucket=8)

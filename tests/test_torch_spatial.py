@@ -18,8 +18,9 @@ store under tmp_path, one intra-op thread a rank, a deadline of its own).
   * ops/conv.py's plans (stride-1 halo at k 3 and 5, stride == kernel,
     the strided k == s + 2p halo, the gather) against the unsharded conv,
     and the gather's NotImplementedError when its rows do not partition;
-  * the refusals: a height off 8 n, a `fused_ffn=True` model, a model with
-    no hooks, and the demo's `--spatial` on a model outside SPATIAL_MODELS;
+  * the refusals: a height off 8 n, a `fused_ffn=True` model and a module
+    with no hooks (tests/test_torch_spatial_families.py runs the other
+    eleven models sharded);
   * eval/padding.py:pad_bases against the JAX package's for all 12 models
     at 1, 2, 4 and 8 shards.
 """
@@ -149,22 +150,11 @@ def test_sharded_forward_refuses_fused_ffn():
 
 
 def test_sharded_forward_refuses_a_model_without_hooks():
-    model = create_model("nafnet", device="cpu", width=8,
-                         enc_blk_nums=(1, 1, 1, 1), middle_blk_num=1,
-                         dec_blk_nums=(1, 1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """A module that does not say `spatial_hooks = True` (here a bare
+    conv, whose stripe seams nothing would exchange) is refused."""
+    model = torch.nn.Conv2d(3, 3, 3, padding=1)
+    with pytest.raises(NotImplementedError, match="no spatial hooks"):
         spatial_sharded_apply(model, torch.zeros(1, 64, 64, 3), None)
-
-
-@pytest.mark.parametrize("model", ["nafnet", "promptxrestormerir"])
-def test_demo_spatial_refuses_a_model_outside_spatial_models(model, tmp_path,
-                                                             capsys):
-    from promptir_tpu_torch.cli import demo
-
-    with pytest.raises(SystemExit) as e:
-        demo.main(["--test_path", str(tmp_path), "--spatial", "--model", model,
-                   "--device", "cpu"])
-    assert "ROADMAP.md Queue 1 item 5" in str(e.value.code)
 
 
 @pytest.mark.parametrize("flags,message", [

@@ -14,7 +14,9 @@ import torch.distributed as dist
 
 from promptir_tpu_torch import create_model
 from promptir_tpu_torch.ops.conv import Conv
-from promptir_tpu_torch.parallel import halo, mesh, spatial, tp
+from promptir_tpu_torch.data.loader import rank_rows
+from promptir_tpu_torch.parallel import data, halo, mesh, spatial, tp
+from promptir_tpu_torch.tools.parity import Kinks, Routes
 
 REDUCED = dict(num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
 
@@ -206,3 +208,227 @@ def hang_rank():
     if dist.get_rank() == 1:
         time.sleep(3600)
     return dist.get_rank()
+
+
+# ------------------------------------------------- the other eleven models
+
+def load_case(path, label, train=False):
+    """The model of case `label` from the states file `path` ({label:
+    (name, kwargs, state dict)}), on the CPU."""
+    name, kwargs, state = torch.load(path, weights_only=False)[label]
+    model = create_model(name, device="cpu", train=train, **kwargs)
+    model.load_state_dict(state)
+    return model if train else model.eval()
+
+
+def families_rank(states_path, inputs, labels, seed):
+    """The sharded forward of each case of `labels` on its global NHWC
+    input, with its traffic and routing ({label: (output, (all_reduce
+    calls, bytes), windows kept a mixer call, images a selector call)}),
+    and each op-level hook's max |sharded - global| (`ops`)."""
+    g = world()
+    out = {}
+    for label in labels:
+        model = load_case(states_path, label)
+        calls, nbytes = mesh.all_reduce_sum.calls, mesh.all_reduce_sum.bytes
+        with Routes() as routes:
+            y = spatial.spatial_sharded_apply(
+                model, torch.from_numpy(inputs[label]), g).numpy()
+        out[label] = (y, (mesh.all_reduce_sum.calls - calls,
+                          mesh.all_reduce_sum.bytes - nbytes),
+                      routes.windows, routes.images)
+    return out, family_ops(g, seed)
+
+
+# the conv plans the families add: (label, Conv arguments)
+FAMILY_CONV_PLANS = {
+    "dilated halo": dict(k=3, padding=2, dilation=2),
+    "dilated depthwise halo": dict(k=3, padding=2, dilation=2, groups=4),
+    "dilated k5 halo": dict(k=5, padding=4, dilation=2),
+}
+
+
+def family_ops(g, seed):
+    """{name: max |sharded - global|} of the families' op-level hooks on
+    seeded data, each whole-image result computed in this rank."""
+    from promptir_tpu_torch.ops.easy import NAFBlock
+    from promptir_tpu_torch.ops.ocab import OCAB
+    from promptir_tpu_torch.ops.window_attention import LeWinTransformerBlock
+
+    n = mesh.group_size(g)
+    torch.manual_seed(seed)
+    err = {}
+
+    def check(name, fn, xg, dim):
+        """fn on the whole xg against fn on this rank's stripe, sharded."""
+        with torch.no_grad():
+            want = spatial.local_stripe(fn(xg), g, dim)
+            with spatial.spatial_sharding(g):
+                got = fn(spatial.local_stripe(xg, g, dim))
+        err[name] = float((got - want).abs().max())
+
+    for label, kw in FAMILY_CONV_PLANS.items():
+        kw = dict(kw)
+        conv = Conv(4, 8 if kw.get("groups") else 6, kw.pop("k"), bias=True,
+                    **kw)
+        check(f"conv {label}", conv, torch.randn(1, 4, 16 * n, 9), 2)
+    ocab = OCAB(16, window_size=8, overlap_ratio=0.5, num_heads=2)
+    check("ocab", ocab, torch.randn(1, 16 * n, 24, 16), 1)
+    lewin = LeWinTransformerBlock(8, 2, win_size=4, shift_size=2)
+    with torch.no_grad():  # a per-window modulator-free block, bias nonzero
+        lewin.attn.relative_position_bias_table.normal_()
+    check("lewin shift across a seam", lewin, torch.randn(1, 8 * n, 8, 8), 1)
+    check("lewin gathered (a stripe thinner than a window)", lewin,
+          torch.randn(1, 2 * n, 8, 8), 1)
+    naf = NAFBlock(8, tlc_kernel=(8, 8))
+    with torch.no_grad():  # beta and gamma 0 would make it the identity
+        naf.beta.normal_()
+        naf.gamma.normal_()
+    check("tlc pool (NAFBlock, window 8 on 16 n rows)", naf,
+          torch.randn(1, 8, 16 * n, 16), 2)
+    naf.tlc_kernel = (16 * n, 16)
+    check("tlc pool (NAFBlock, a window covering the image)", naf,
+          torch.randn(1, 8, 16 * n, 16), 2)
+    ca = create_model("capromptxrestormereff", device="cpu", dim=8,
+                      num_blocks=(1, 1, 1, 1), num_refinement_blocks=1)
+    xg = torch.randn(1, 16 * n, 24, 8)
+    for level in range(4):
+        check(f"condition pyramid level {level + 1}",
+              lambda x, level=level: ca.conditions(
+                  x, spatial.global_rows(x.shape[1]), x.shape[2])[level],
+              xg, 1)
+    check("upscale_input x2", lambda x: spatial.upscale_input(x, 2),
+          torch.rand(1, 3, 8 * n, 6), 2)
+    return err
+
+
+class Draws:
+    """Records, while entered, every Gumbel draw (`gumbel_uniform`'s
+    output, the global batch's) and the rows each mixer keeps of one
+    (`batch_uniform`'s output)."""
+
+    def __enter__(self):
+        from promptir_tpu_torch.ops import camixer
+
+        self.drawn, self.kept = [], []
+        self._draw, self._keep = camixer.gumbel_uniform, camixer.batch_uniform
+
+        def draw(*a, **kw):
+            u = self._draw(*a, **kw)
+            self.drawn.append(u.numpy().copy())
+            return u
+
+        def keep(*a, **kw):
+            u = self._keep(*a, **kw)
+            self.kept.append(u.numpy().copy())
+            return u
+
+        camixer.gumbel_uniform, camixer.batch_uniform = draw, keep
+        return self
+
+    def __exit__(self, *exc):
+        from promptir_tpu_torch.ops import camixer
+
+        camixer.gumbel_uniform, camixer.batch_uniform = self._draw, self._keep
+
+
+def stochastic_step(model, batch, seed, group=None, grad_accum=1,
+                    force=None, rows=(0, 1)):
+    """One train step of `model` on `batch` ({"degraded", "clean"} numpy,
+    this rank's rows, dealt by `grad_accum` microbatches) over `group`,
+    under `Kinks(force, rows)` (tools/parity.py). Returns {"grad": the flat
+    gradient the update used, "loss": the logged loss, "drawn": the Gumbel
+    draws, "kept": the rows kept of them, "images": the images each
+    selector call picked, "windows": the windows each mixer call kept,
+    "mask_grads" and "label_grads": the gradient at each mask and each
+    selector's labels, "sides": each kink op's sides (numpy), "flips" and
+    "near": the elements whose side the forcing changed, call by call, and
+    the largest distance from its kink among them}."""
+    from promptir_tpu_torch.train.state import TrainState, make_optimizer
+    from promptir_tpu_torch.train.step import make_train_step
+
+    st = TrainState(model, make_optimizer(model.parameters(), 1e-3))
+    grads = []
+    hook = st.optimizer.register_step_pre_hook(lambda *a: grads.append(
+        torch.cat([p.grad.reshape(-1) for p in model.parameters()]).clone()))
+    step = make_train_step(model, grad_accum=grad_accum, seed=seed,
+                           group=group)
+    if force is not None:
+        force = [tuple(torch.from_numpy(a) for a in call) for call in force]
+    with Draws() as draws, Routes() as routes, Kinks(force, rows) as kinks:
+        metrics = step(st, {k: torch.from_numpy(v) for k, v in batch.items()})
+    hook.remove()
+    return dict(grad=grads[0].numpy(), loss=float(metrics["train_loss"]),
+                drawn=draws.drawn, kept=draws.kept, images=routes.images,
+                windows=routes.windows, mask_grads=routes.mask_grads,
+                label_grads=routes.label_grads,
+                sides=[tuple(t.numpy() for t in call) for call in kinks.sides],
+                flips=kinks.flips, near=kinks.near)
+
+
+def data_ops(g, seed):
+    """{name: error} of parallel/data.py's collectives on seeded data, each
+    whole-batch result computed in this rank: the values of `batch_mean`
+    and `gather_batch` against the global batch's mean and rows, and the
+    gradient of the square of a batch mean (the ratio losses') and of a
+    softmax over the gathered batch plus a mean over the rank's rows
+    (CATA's selector and its L1 term), a rank's divided by n against the
+    one-process gradient's rows, over the latter's max: the ranks' losses
+    sum to n times the one-process loss, and the train step averages their
+    gradients."""
+    n, r = mesh.group_size(g), mesh.group_rank(g)
+    gen = torch.Generator().manual_seed(seed)
+    xg = torch.rand((3 * n, 5, 2), generator=gen)
+    w = torch.rand((3 * n, 1), generator=gen)
+    rows = slice(3 * r, 3 * r + 3)
+
+    def mean_sq(x, wx):
+        return (data.batch_mean(x.mean()) - 0.25) ** 2
+
+    def softmax_over_batch(x, wx):
+        lab = data.gather_batch(x.mean((1, 2))[:, None])
+        return (lab.softmax(0) * w).sum() + (data.keep_rows(lab) * wx).mean()
+
+    err = {}
+    for name, f in (("batch_mean", mean_sq),
+                    ("gather_batch", softmax_over_batch)):
+        xa = xg.clone().requires_grad_()
+        f(xa, w).backward()
+        xl = xg[rows].clone().requires_grad_()
+        with data.data_sharding(g):
+            f(xl, w[rows]).backward()
+        err[f"{name} gradient"] = float((xl.grad / n - xa.grad[rows]).abs().max()
+                                        / xa.grad.abs().max())
+    with data.data_sharding(g):
+        err["batch_mean value"] = float(
+            (data.batch_mean(xg[rows].mean()) - xg.mean()).abs())
+        err["gather_batch value"] = float(
+            (data.gather_batch(xg[rows]) - xg).abs().max())
+    return err
+
+
+def dp_stochastic_rank(states_path, batches, cases, seed, tiled):
+    """The DP step of each case ({label: (grad_accum, the one-process
+    step's kink sides)}) on this rank's rows of its global batch
+    ({label: stochastic_step's dict}), data_ops' errors, and with `tiled`
+    ((label, image, tiler arguments)) the sharded tiler's output."""
+    from promptir_tpu_torch.eval.tiling import tiled_inference
+
+    g = world()
+    n, r = mesh.group_size(g), mesh.group_rank(g)
+    out = {}
+    for label, (accum, sides) in cases.items():
+        batch = batches[label]
+        mine = rank_rows(batch["degraded"].shape[0] // n, r, n, accum)
+        out[label] = stochastic_step(
+            load_case(states_path, label, train=True),
+            {k: v[mine] for k, v in batch.items()}, seed, g, accum, sides,
+            (r, n))
+    tiles = None
+    if tiled is not None:
+        label, img, kw = tiled
+        model = load_case(states_path, label)
+        with torch.inference_mode(), Routes() as routes:
+            y = tiled_inference(model, torch.from_numpy(img), group=g, **kw)
+        tiles = (y.numpy(), routes.images)
+    return out, tiles, data_ops(g, seed)
