@@ -33,7 +33,7 @@ Phases, each printed with the seconds since start:
      together), with ptxas register and shared memory use, and the
      tensor-core instructions (HMMA/HGMMA) of each kernel in the built
      library (cuobjdump): the bf16 tail, stats, Gram, LN+GDFN and apply
-     kernels must hold some;
+     kernels must hold some, the Gram kernel HGMMA (wgmma, WGMMA_KERNELS);
   3. each kernel against its plain PyTorch version on the card, in float32
      (TF32 off) and bfloat16: at every shape a batch-4 forward of either
      model at the serving run's 256x256 and 256x192 buckets gives it, at
@@ -42,10 +42,11 @@ Phases, each printed with the seconds since start:
      padded sizes for promptir and the default promptxrestormerir, the
      demo's B1 and B8 tiles, the server's B4); mdta_stats
      twice at each (the two launches bit-identical), the Gram kernel at
-     every wide-route shape; ln_gdfn and the apply (ln_mdta) launched twice
-     at each in bf16 (the two outputs bit-identical), and also at ragged
-     shapes (B2 37x53: ln_gdfn at C = 96 and 704, the apply at C = 192 with
-     4 heads); the seam bit-exact; the stats pass's scratch at
+     every wide-route shape (in bf16 launched twice, bit-identical);
+     ln_gdfn and the apply (ln_mdta) launched twice at each in bf16 (the
+     two outputs bit-identical), and also at ragged shapes (B2 37x53:
+     ln_gdfn at C = 96 and 704, the apply at C = 192 with 4 heads, the Gram
+     at C = 160 with one head and 704 with 4); the seam bit-exact; the stats pass's scratch at
      four sizes; and the merged tail + stats kernel (tail_stats) at every
      block pair of the promptir stacks at both serving buckets and at the
      tiler's B8 128x128, against its plain version and against the
@@ -106,7 +107,13 @@ Phases, each printed with the seconds since start:
      promptxrestormerir with fused_ffn, bf16, exact launches a step, each
      second step's loss held to its default route's (GRAD_TOL; a stale
      bf16 copy of a weight would leave it at the first step's), step ms and
-     peak memory beside the default's;
+     peak memory beside the default's; then CAMixer v1
+     (capromptxrestormereff, check_ca_v1): the bf16 weight gradient of its
+     dilated depthwise conv_sptial.1 against the fp32 one at each level's
+     B6 size (DILATED_TOL), and its bf16 step twice from one seed under the
+     default algorithms and twice under torch.use_deterministic_algorithms
+     (warn_only): whether each pair is bit-equal, which gradients differ,
+     and the ops PyTorch warns about;
   8. the training demo (promptir_tpu_torch/cli/train_demo.py) at reduced
      depth for 3 epochs on 48 images: the held-out PSNR must rise;
   9. each kernel timed with CUDA events beside its plain version, the one
@@ -119,7 +126,10 @@ Phases, each printed with the seconds since start:
      time, their device time from a short torch.profiler window over the
      same launches; mdta_stats per
      shape with its route and tile, block_tail per shape with its tile, the
-     Gram kernel at the wide shapes; tail_stats at every block pair of the
+     Gram kernel at the wide shapes beside one torch.matmul of the same q
+     and k, each also as a profiler window's device time, its tiles,
+     slices and clusters, and whether its time a forward of each path is
+     at most the matmul's; tail_stats at every block pair of the
      promptir stacks at B4 256x256 and B8 128x128, with its tile, beside
      the two-kernel sequence it replaces, and the chained route's decision
      (CHAIN_RATIO, CHAIN_FORWARD_MS); block_tail also at the --fused
@@ -234,6 +244,7 @@ Imports torch, numpy, the standard library and promptir_tpu_torch only.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import math
@@ -481,10 +492,15 @@ FORWARD_TOL_BF16 = 1.5625e-2
 TENSOR_CORE_KERNELS = ("tail_a_tc_kernel", "tail_stats_tc_kernel",
                        "gdfn_out_tc_kernel", "stats_tc_kernel", "gram_tc_kernel",
                        "ln_gdfn_tc_kernel", "mdta_apply_tc_kernel")
+# the kernels whose tensor-core instructions must include wgmma's (HGMMA):
+# the wide route's bf16 Gram (csrc/mdta_gram.cu)
+WGMMA_KERNELS = ("gram_tc_kernel",)
 # phase 3's ragged shapes (H and W multiples of no tile), batch 2: (shape,
-# kernel checked beside mdta_stats)
+# kernel checked beside mdta_stats); the Gram's at the one-head C = 160
+# (d = 160) and at C = 704 over 4 heads (d = 176)
 RAGGED = [((37, 53, 96, 1), "ln_gdfn"), ((37, 53, 704, 1), "ln_gdfn"),
-          ((37, 53, 192, 4), "ln_mdta")]
+          ((37, 53, 192, 4), "ln_mdta"), ((37, 53, 160, 1), "mdta_gram"),
+          ((37, 53, 704, 4), "mdta_gram")]
 # kernels launched twice at every bf16 check, the two outputs bit-identical
 TWICE = ("ln_gdfn", "ln_mdta")
 # the chained route (PromptIR's fused_ffn) stays off by default unless
@@ -679,9 +695,9 @@ def kernel_id(mangled: str) -> str:
 
 
 def tensor_core_sass(so) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) of each kernel of the built
-    library, summed over its instantiations and source files, from
-    `cuobjdump --dump-sass`: {kernel name: count}."""
+    """Tensor-core instructions of each kernel of the built library, summed
+    over its instantiations and source files, from `cuobjdump --dump-sass`:
+    {kernel name: {"HMMA": count, "HGMMA": count}} (mma.sync and wgmma)."""
     cu = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cu, "--dump-sass", str(so)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -690,9 +706,11 @@ def tensor_core_sass(so) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = kernel_id(m.group(1))
-            counts.setdefault(name, 0)
-        elif name and re.search(r"\bH(G)?MMA\b", line):
-            counts[name] += 1
+            counts.setdefault(name, {"HMMA": 0, "HGMMA": 0})
+            continue
+        m = re.search(r"\b(HG?MMA)\b", line) if name else None
+        if m:
+            counts[name][m.group(1)] += 1
     return counts
 
 
@@ -738,7 +756,8 @@ def check_kernels(mdta, block, gdfn, seam, megablock):
                    f"{ev:.2e} (rel {rv:.2e}) stats {es:.2e} (rel {rs:.2e}), "
                    "two launches bit-identical")
             if plan.route == "wide":
-                # the Gram kernel alone on the stats pass's q and k
+                # the Gram kernel alone on the stats pass's q and k (bf16:
+                # launched twice, the two outputs bit-identical)
                 _, q, k, _ = mdta.stats_pass_plain(
                     a["x"], a["ln1w"], a["ln1b"], a["wqkv"], a["wdw"], a["heads"])
                 g = mdta.mdta_gram(q, k, a["heads"])
@@ -747,6 +766,15 @@ def check_kernels(mdta, block, gdfn, seam, megablock):
                 e, r = rel_err(g, g0)
                 record("mdta_gram", dtype, shape, e, r)
                 msg += f"; mdta_gram {e:.2e} (rel {r:.2e})"
+                if dtype == torch.bfloat16:
+                    g1 = mdta.mdta_gram(q, k, a["heads"])
+                    torch.cuda.synchronize()
+                    if not torch.equal(g, g1):
+                        fail(f"two mdta_gram launches differ at {shape} {dtype}")
+                    p = mdta.gram_plan(batch, *shape)
+                    msg += (f" ({p.tiles_m}x{p.tiles_n} tiles of {mdta.GRAM_ROWS}"
+                            f"x{p.cols}, {p.slices} slices of {p.span} px, "
+                            f"{p.clusters} clusters), two launches bit-identical")
             attn = mdta.attn_from_stats(st0, a["temp"])
             outs = [v]
             pairs = {  # (kernel, plain version)
@@ -758,6 +786,8 @@ def check_kernels(mdta, block, gdfn, seam, megablock):
                             lambda: run_ln_gdfn(gdfn.ln_gdfn_plain, a)),
             }
             for k in kinds[1:]:
+                if k == "mdta_gram":  # checked above, on the wide route
+                    continue
                 out, out0 = pairs[k][0](), pairs[k][1]()
                 torch.cuda.synchronize()
                 e, r = rel_err(out, out0)
@@ -1636,6 +1666,101 @@ def train(port, counters, reset, card):
     return total
 
 
+# CAMixer v1's dilated depthwise conv (conv_sptial.1): its bf16 weight
+# gradient against its float32 one (TF32 off), over max |fp32 grad|; the CPU
+# test's bound (tests/test_torch_faults.py:DILATED_TOL)
+DILATED_TOL = 2e-2
+# (stage of CAPromptXRestormerEff, level) whose first block's conv_sptial.1
+# phase 7's B6 128x128 step runs at each width and size
+CA_V1_CONVS = (("encoder_level1", 0), ("encoder_level2", 1),
+               ("encoder_level3", 2), ("latent", 3), ("decoder_level1", 0))
+
+
+def check_ca_v1(port, card):
+    """ROADMAP Queue 3 items 2 and 3 on the card, CAMixer v1
+    (capromptxrestormereff, training config, bf16 compute). (a) Each
+    CA_V1_CONVS conv_sptial.1 on a B6 input of its level's size through
+    conv_nhwc (channels-last memory, cuDNN): the bf16 weight gradient within
+    DILATED_TOL of the fp32 one (the CPU's was 1.3-1.5 off before
+    ops/conv.py's contiguous copy, which the card does not take). (b) Phase
+    7's step twice from the same seed under PyTorch's default algorithms,
+    then twice under torch.use_deterministic_algorithms(True,
+    warn_only=True): whether the two give the same bits, which gradients
+    differ, and the ops PyTorch warns about."""
+    import warnings
+
+    from promptir_tpu_torch.ops.window_attention import conv_nhwc
+    from promptir_tpu_torch.precision import exact_float32
+    from promptir_tpu_torch.tools.parity import named_grads
+    from promptir_tpu_torch.train.state import TrainState, make_optimizer
+    from promptir_tpu_torch.train.step import make_train_step
+
+    name = "capromptxrestormereff"
+    torch.manual_seed(0)
+    model = port.create_model(name, device="cuda", dtype=torch.bfloat16,
+                              train=True, **XR_TRAIN)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for stage, level in CA_V1_CONVS:
+        conv = getattr(model, stage).layer[0].spatial_attn.conv_sptial[1]
+        c, h, w = conv.in_channels, TRAIN_HW[0] >> level, TRAIN_HW[1] >> level
+        x = torch.randn(TRAIN_BATCH, h, w, c, generator=gen, device="cuda")
+        go = torch.randn(TRAIN_BATCH, h, w, c, generator=gen, device="cuda")
+        grads = {}
+        for dt in (torch.float32, torch.bfloat16):
+            conv.zero_grad(set_to_none=True)
+            with exact_float32(dt):
+                conv_nhwc(x.to(dt), conv).backward(go.to(dt))
+            grads[dt] = (conv.weight.grad.clone(), conv.bias.grad.clone())
+        torch.cuda.synchronize()
+        (ew, rw), (eb, rb) = (rel_err(g16, g32) for g16, g32 in
+                              zip(grads[torch.bfloat16], grads[torch.float32]))
+        say(f"{name} {stage}.layer.0.spatial_attn.conv_sptial.1 (dilation 2, "
+            f"depthwise, C {c}) at B{TRAIN_BATCH} {h}x{w}, channels-last: bf16 "
+            f"weight gradient {rw:.3e} of max |fp32 grad| (bias {rb:.3e}; "
+            f"gate {DILATED_TOL}) on {card}")
+        if not max(rw, rb) <= DILATED_TOL:
+            fail(f"{stage}'s conv_sptial.1 bf16 gradient is {max(rw, rb):.3e} "
+                 f"from its fp32 gradient")
+    del model
+    batch = train_batch()
+
+    def step():
+        torch.manual_seed(0)
+        m = port.create_model(name, device="cuda", dtype=torch.bfloat16,
+                              train=True, **XR_TRAIN)
+        st = TrainState(m, make_optimizer(m.parameters()))
+        grads = grad_capture(st, m)
+        loss = make_train_step(m)(st, batch)["train_loss"].item()
+        torch.cuda.synchronize()
+        return loss, named_grads(m, grads[0])
+
+    def compare(label):
+        (l0, g0), (l1, g1) = step(), step()
+        apart = [k for k in g0 if not np.array_equal(g0[k], g1[k])]
+        say(f"{name} bf16 B{TRAIN_BATCH} step twice from seed 0, {label}: "
+            f"losses {l0!r} and {l1!r}; {len(apart)} of {len(g0)} gradients "
+            f"differ in some bit" + (f", the last in the model's order: "
+                                     f"{', '.join(apart[-3:])}" if apart else ""))
+        return l0 == l1 and not apart
+
+    same_default = compare("PyTorch's default algorithms")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            same_det = compare("torch.use_deterministic_algorithms(True, "
+                               "warn_only=True)")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).splitlines()[0][:240] for w in caught
+                  if "determinis" in str(w.message)})
+    say(f"{name}: ops PyTorch warns about under deterministic algorithms "
+        f"(warn_only): {len(ops)}" + "".join(f"\n    {o}" for o in ops))
+    say(f"{name}: two steps bit-equal under the default algorithms: "
+        f"{same_default}; under the deterministic ones: {same_det}")
+    torch.cuda.empty_cache()
+
+
 def serve_trained(model, counters, card):
     """The bf16-computing model with float32 weights that train() stepped,
     served through the engine (under torch.inference_mode) for eight
@@ -1817,9 +1942,12 @@ def time_tail_stats(mdta, block, megablock, gen, tot):
 
 def time_gram(mdta, q, k, heads, batch, shape, dtype):
     """The Gram kernel at one wide shape: (ms, plain ms, library ms, ops,
-    bytes); the library call is one cuBLAS batched product of the same q and
-    k (torch.matmul, output in their dtype)."""
-    from promptir_tpu_torch.tools.trace import time_ms
+    bytes, device ms, library device ms); the library call is one cuBLAS
+    batched product of the same q and k (torch.matmul, output in their
+    dtype), the work tools/kbench.py:gram_work's, each device ms a profiler
+    window's (the kernels alone, without the callers' host time)."""
+    from promptir_tpu_torch.tools.kbench import gram_work
+    from promptir_tpu_torch.tools.trace import profiled_ms, time_ms
     h, w, c, _ = shape
     d, px = c // heads, h * w
     qh = q.reshape(batch, px, heads, d).permute(0, 2, 3, 1)
@@ -1827,8 +1955,10 @@ def time_gram(mdta, q, k, heads, batch, shape, dtype):
     ms = time_ms(lambda: mdta.mdta_gram(q, k, heads))
     pms = time_ms(lambda: mdta.mdta_gram_plain(q, k, heads))
     lib = time_ms(lambda: torch.matmul(qh, kh))
-    ops = 2 * batch * heads * d * d * px
-    return ms, pms, lib, ops, 2 * q.numel() * 2 + 4 * batch * heads * d * d
+    dev = max(profiled_ms(lambda: mdta.mdta_gram(q, k, heads)) for _ in range(2))
+    lib_dev = max(profiled_ms(lambda: torch.matmul(qh, kh)) for _ in range(2))
+    ops, nbytes = gram_work(shape, 2 if dtype == torch.bfloat16 else 4, batch)
+    return ms, pms, lib, ops, nbytes, dev, lib_dev
 
 
 def time_kernels(mdta, block, gdfn, seam, megablock, reset):
@@ -1940,15 +2070,25 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                         a["x"], a["ln1w"], a["ln1b"], a["wqkv"], a["wdw"], heads)
                     timed["mdta_gram", shape, batch] = time_gram(
                         mdta, q, k, heads, batch, shape, dtype)
-                ms, pms, lib, ops, nbytes = timed["mdta_gram", shape, batch]
+                ms, pms, lib, ops, nbytes, dms, ldms = timed[
+                    "mdta_gram", shape, batch]
                 b, by = bound_ms(ops, nbytes, dtype)
-                say(f"time mdta_gram  B{batch} {shape} bf16: {ms:.3f} ms (plain "
-                    f"{pms:.3f} ms, library {lib:.3f} ms, bound {b:.4f} ms by "
-                    f"{by}) x{n} per {path} forward"
+                p = mdta.gram_plan(batch, *shape)
+                say(f"time mdta_gram  B{batch} {shape} bf16: {ms:.4f} ms "
+                    f"(device {dms:.4f} ms; torch.matmul {lib:.4f} ms, device "
+                    f"{ldms:.4f} ms: {'at most' if ms <= lib else 'ABOVE'} "
+                    f"it, device {'at most' if dms <= ldms else 'ABOVE'}; plain "
+                    f"{pms:.3f} ms, bound {b:.4f} ms by {by}; {p.tiles_m}x"
+                    f"{p.tiles_n} tiles of {mdta.GRAM_ROWS}x{p.cols}, "
+                    f"{p.slices} slices of {p.span} px, {p.clusters} "
+                    f"clusters) x{n} per {path} forward"
                     + (" (timed above)" if again else ""))
                 t = tot[path].setdefault("mdta_gram", dict(
-                    ms=0.0, plain_ms=0.0, ops=0, bytes=0, library_ms=0.0))
+                    ms=0.0, plain_ms=0.0, ops=0, bytes=0, library_ms=0.0,
+                    device_ms=0.0, library_device_ms=0.0))
                 t["ms"] += n * ms
+                t["device_ms"] += n * dms
+                t["library_device_ms"] += n * ldms
                 t["plain_ms"] += n * pms
                 t["library_ms"] += n * lib
                 t["ops"] += n * ops
@@ -2016,6 +2156,16 @@ def time_kernels(mdta, block, gdfn, seam, megablock, reset):
                 f"{t['ms']:.3f} ms{dev}, plain {t['plain_ms']:.3f} ms, library "
                 f"{'n/a' if lib is None else f'{lib:.3f} ms'}, bound {b:.4f} "
                 f"ms by {by}")
+            if k == "mdta_gram":
+                # the Gram stage's goal: its launches a forward take no
+                # longer than one torch.matmul each of the same q and k
+                ld = t["library_device_ms"]
+                by_path[path]["library_device_ms"] = ld
+                say(f"mdta_gram per {path} forward: {t['ms']:.4f} ms against "
+                    f"torch.matmul's {lib:.4f} ms: "
+                    + ("at most" if t["ms"] <= lib else "ABOVE") + " it; "
+                    f"device {t['device_ms']:.4f} ms against {ld:.4f} ms: "
+                    + ("at most" if t["device_ms"] <= ld else "ABOVE") + " it")
         ops = sum(tot[p][k]["ops"] for p in by_path)
         nbytes = sum(tot[p][k]["bytes"] for p in by_path)
         b, by = bound_ms(ops, nbytes, dtype)
@@ -3898,10 +4048,21 @@ def main() -> None:
             fail(f"tests/goldens/{file} is missing")
     sass = tensor_core_sass(so)
     say("tensor-core instructions (HMMA/HGMMA) per kernel in the SASS: "
-        + ", ".join(f"{k} {n}" for k, n in sorted(sass.items())))
+        + ", ".join(f"{k} {n['HMMA']}/{n['HGMMA']}"
+                    for k, n in sorted(sass.items())))
     for k in TENSOR_CORE_KERNELS:
-        if not sass.get(k):
+        if not sum(sass.get(k, {}).values()):
             fail(f"{k} holds no tensor-core instruction")
+    for k in WGMMA_KERNELS:
+        if not sass.get(k, {}).get("HGMMA"):
+            fail(f"{k} holds no HGMMA (wgmma) instruction")
+    # the bf16 Gram's plan assumes the clusters an H100 SXM holds at once
+    held = {n: build.function("mdta_gram_tc_max_clusters", [ctypes.c_int])(n)
+            for n in mdta.GRAM_CLUSTERS}
+    say(f"Gram clusters of 1/2/4/8/16 blocks this card holds at once: "
+        f"{held} (gram_plan assumes {mdta.GRAM_CLUSTERS}"
+        + ("" if all(held[n] >= v for n, v in mdta.GRAM_CLUSTERS.items())
+           else "; fewer here: a Gram grid can run in two waves") + ")")
 
     with exact_float32(torch.float32):
         worst = check_kernels(mdta, block, gdfn, seam, megablock)
@@ -3926,6 +4087,7 @@ def main() -> None:
     launches["tiled"] = serve_tiled(port, counters, reset, card)
     check_grads(port, counters, reset)
     launches["train"] = train(port, counters, reset, card)
+    check_ca_v1(port, card)
     demo()
     reset()
     recs = time_kernels(mdta, block, gdfn, seam, megablock, reset)
@@ -3953,8 +4115,10 @@ def main() -> None:
                     "promptir_tpu/ops/pallas/mdta.py:252"),
         "tail_stats": ("promptir_tpu_torch/csrc/tail_stats.cu",
                        "promptir_tpu/ops/pallas/megablock.py:165"),
-        # the Gram of the wide route, a stage of the same TPU kernel
-        "mdta_gram": ("promptir_tpu_torch/csrc/mdta_stats.cu",
+        # the Gram of the wide route, a stage of the same TPU kernel (its
+        # body's Gram, mdta.py:102-116); bf16 on wgmma, float32
+        # mdta_stats.cu:gram_kernel
+        "mdta_gram": ("promptir_tpu_torch/csrc/mdta_gram.cu",
                       "promptir_tpu/ops/pallas/mdta.py:317"),
     }
     out = []

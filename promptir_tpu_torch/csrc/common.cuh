@@ -19,7 +19,10 @@
 // 256 rows split over the block's 8 warps without padding to wgmma's
 // 64-row warpgroup tile; and the W2 products of block_tail and tail_stats
 // must sum every output in the same instruction sequence (x3 bit-exact
-// between them, gdfn.cuh:gdfn_w2). wgmma is later work.
+// between them, gdfn.cuh:gdfn_w2). The one wgmma kernel is the wide route's
+// bf16 Gram (mdta_gram.cu): a d x d output of up to 192 x 192 over long
+// pixel spans fills whole 64-row warpgroup tiles, its operands come by TMA,
+// and it launches 384 threads (three warpgroups), not kThreads.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -23,9 +23,11 @@
 //   wide (d = 80 at C = 320, d = 176 at C = 704 and every one-head width
 //     from 160): the pass writes q and k of every pixel to device memory, in
 //     the dtype that enters the Gram (bf16, or fp32), and sums only the
-//     norms; gram_tc_kernel / gram_kernel then take q^T k over all pixels of
-//     each head in a few pixel slices, each slice's output tile held in
-//     registers across its pixels, and slot_sum_kernel sums the slices. This
+//     norms; the Gram stage then takes q^T k over all pixels of each head:
+//     in bf16 mdta_gram.cu's gram_tc_kernel (wgmma, TMA, the slices summed
+//     inside its one launch), in float32 gram_kernel here over a few pixel
+//     slices, each slice's output tile held in registers across its pixels,
+//     and slot_sum_kernel sums the slices. This
 //     departs from the Pallas kernel, where q and k never reach memory: at B4
 //     (32, 32, 704, 1) they are 11.5 MB in bf16, written and read once,
 //     where a per-tile partial Gram of d^2 fp32 through device memory moved
@@ -487,9 +489,11 @@ __global__ void __launch_bounds__(kThreads) stats_tc_kernel(StatsArgs a) {
 
 // ---------------------------------------------------------------- the Gram
 
-// The wide route's Gram: part[b, h, slice] = q_h^T k_h over the slice's
-// pixels, q and k pixel-major (B, P, C). One block a 64 x 64 output tile of
-// one slice of one (image, head); grid (tiles^2, slices, B * heads).
+// The wide route's float32 Gram: part[b, h, slice] = q_h^T k_h over the
+// slice's pixels, q and k pixel-major (B, P, C). One block a 64 x 64 output
+// tile of one slice of one (image, head); grid (tiles^2, slices, B * heads).
+// The bf16 Gram is mdta_gram.cu's gram_tc_kernel (one launch, no slices
+// through device memory).
 struct GramArgs {
   const void* q;
   const void* k;
@@ -498,59 +502,7 @@ struct GramArgs {
 };
 
 constexpr int kGT = 64;          // output tile
-constexpr int kGK = 64;          // pixels a chunk
-constexpr int kGS = 3;           // chunks in the ring
-constexpr int kGLd = tc_ld(kGT);  // row stride of a staged chunk
-constexpr int kGramSmem = kGS * 2 * kGK * kGLd * 2;  // bytes of gram_tc_kernel's ring
-
-// bf16 on the tensor cores: each chunk's 64 pixels of the tile's 64 q and 64
-// k channels come through a kGS-stage cp.async ring, one barrier a chunk
-// (four k16 steps); 8 warps of 32 x 16 outputs, their fp32 sums in
-// registers over the whole slice, read through ldmatrix.trans
-// (common.cuh:warp_mma_t_k16).
-__global__ void __launch_bounds__(kThreads) gram_tc_kernel(GramArgs a) {
-  extern __shared__ float4 smem4[];
-  bf16(*buf)[2][kGK * kGLd] = reinterpret_cast<bf16(*)[2][kGK * kGLd]>(smem4);
-  const int d = a.C / a.heads, bh = blockIdx.z, b = bh / a.heads, h = bh % a.heads;
-  const int i0 = (blockIdx.x / a.tiles) * kGT, j0 = (blockIdx.x % a.tiles) * kGT;
-  const int p0 = blockIdx.y * a.span, p1 = min(a.P, p0 + a.span);
-  const int nk = p1 > p0 ? (p1 - p0 + kGK - 1) / kGK : 0;
-  const bf16* q = static_cast<const bf16*>(a.q);
-  const bf16* k = static_cast<const bf16*>(a.k);
-  const int tid = threadIdx.x, c8 = (tid & 7) * 8;
-  const auto issue = [&](int kc) {
-    if (kc < nk) {
-#pragma unroll
-      for (int r = tid >> 3; r < kGK; r += kThreads / 8) {
-        const int px = p0 + kc * kGK + r;
-        const bool okq = px < p1 && i0 + c8 < d, okk = px < p1 && j0 + c8 < d;
-        const long long base = ((long long)b * a.P + px) * a.C + h * d;
-        cp_async16(buf[kc % kGS][0] + r * kGLd + c8, okq ? q + base + i0 + c8 : q, okq);
-        cp_async16(buf[kc % kGS][1] + r * kGLd + c8, okk ? k + base + j0 + c8 : k, okk);
-      }
-    }
-    cp_async_commit();
-  };
-  const int warp = tid >> 5, wm = warp & 1, wn = warp >> 1;
-  float acc[2][2][4];
-  zero_acc(acc);
-  for (int kc = 0; kc < kGS - 1; ++kc) issue(kc);
-  for (int kc = 0; kc < nk; ++kc) {
-    cp_async_wait<kGS - 2>();
-    __syncthreads();  // chunk kc landed for all; chunk kc - 1's stage is free
-    issue(kc + kGS - 1);
-    const bf16* Q = buf[kc % kGS][0] + wm * 32;
-    const bf16* K = buf[kc % kGS][1] + wn * 16;
-#pragma unroll
-    for (int k16 = 0; k16 < kGK; k16 += 16)
-      warp_mma_t_k16<2, 2>(Q + k16 * kGLd, kGLd, K + k16 * kGLd, kGLd, acc);
-  }
-  float* out = a.part + ((long long)bh * a.slices + blockIdx.y) * d * d;
-  for_each_acc(acc, [&](int r, int c, float v0, float v1) {
-    const int i = i0 + wm * 32 + r, j = j0 + wn * 16 + c;
-    if (i < d && j < d) *reinterpret_cast<float2*>(out + i * d + j) = make_float2(v0, v1);
-  });
-}
+constexpr int kGK = 64;          // pixels a slice comes in multiples of
 
 // float32 on SIMT: the same tiles through gemm_tile, the pixels its k.
 __global__ void __launch_bounds__(kThreads) gram_kernel(GramArgs a) {
@@ -633,29 +585,21 @@ extern "C" int mdta_stats_launch(int dtype, const void* x, const void* lnw, cons
   return launch_slot_sum(part, stats, B * heads, nslots, n, d * d + 2 * d, wide ? d * d : 0, s);
 }
 
-// The wide route's Gram q^T k of each head over `slices` pixel slices into
-// part (B, heads, slices, d*d), then their sum into stats[..., :d*d].
+// The wide route's float32 Gram q^T k of each head over `slices` pixel
+// slices into part (B, heads, slices, d*d), then their sum into
+// stats[..., :d*d]. (bf16: mdta_gram.cu:mdta_gram_tc_launch.)
 extern "C" int mdta_gram_launch(int dtype, const void* q, const void* k, float* part,
                                 float* stats, int B, int P, int C, int heads, int slices,
                                 void* stream) {
+  if (dtype != kF32) return cudaErrorInvalidValue;
   GramArgs a;
   const int d = C / heads;
   a.q = q; a.k = k; a.part = part; a.P = P; a.C = C; a.heads = heads; a.slices = slices;
   a.tiles = (d + kGT - 1) / kGT;
   a.span = ((P + slices - 1) / slices + kGK - 1) / kGK * kGK;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(a.tiles * a.tiles, slices, B * heads);
-  cudaError_t err = cudaSuccess;
-  if (dtype == kBF16) {
-    err = allow_smem(gram_tc_kernel, kGramSmem);
-    if (err != cudaSuccess) return err;
-    gram_tc_kernel<<<grid, kThreads, kGramSmem, s>>>(a);
-  } else if (dtype == kF32) {
-    gram_kernel<<<grid, kThreads, 0, s>>>(a);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  err = cudaGetLastError();
+  gram_kernel<<<dim3(a.tiles * a.tiles, slices, B * heads), kThreads, 0, s>>>(a);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_slot_sum(part, stats, B * heads, slices, d * d, d * d + 2 * d, 0, s);
 }

@@ -33,6 +33,7 @@ are row-local and are not hooked.
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -65,6 +66,14 @@ class Conv(nn.Conv2d):
 
     def _plain(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if (x.device.type == "cpu" and x.dtype == torch.bfloat16
+                and self.dilation != (1, 1) and self.groups == self.in_channels):
+            # PyTorch's CPU bf16 weight gradient of a dilated depthwise conv
+            # of channels-last memory (conv_nhwc's NCHW view) is wrong by
+            # more than its largest element (1.3-1.5 of max |fp32 grad| at
+            # B6 32x32 C 48 and 64x64 C 96, torch 2.13): convolve a
+            # contiguous copy, whose gradient is right
+            x = x.contiguous()
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
     def _sharded(self, x, group):

@@ -56,9 +56,33 @@ TILE_OVERHEAD_ROWS = 64
 # mdta_stats' narrow route: every head's running Gram and norms, heads *
 # (d^2 + 2d) fp32, within this many bytes of the block's shared memory
 STATS_SUMS_BUDGET = 80 << 10
+# the float32 Gram (csrc/mdta_stats.cu:gram_kernel): 64 x 64 output tiles
+# over pixel slices, summed by slot_sum_kernel
 GRAM_TILE = 64  # output rows and columns of one Gram block (kGT)
 GRAM_MAX_SLICES = 32  # pixel slices of one head's Gram, at most
 GRAM_MIN_SPAN = 512  # pixels of one slice, at least (but for the last)
+# the bf16 Gram (csrc/mdta_gram.cu:gram_tc_kernel)
+GRAM_ROWS = 192  # output rows of a tile: three consumer warpgroups (kGRows)
+GRAM_MAX_COLS = 192  # output columns of a tile, at most (kGMaxCols)
+GRAM_CHUNK = 64  # pixels of a ring stage; a slice's span is a multiple (kGChunk)
+GRAM_STAGES = 4  # stages of the ring (kGStages)
+GRAM_MAX_CLUSTER = 16  # blocks of a cluster, one pixel slice each (kGMaxSlices)
+# clusters of n Gram blocks (one block an SM) that an H100 SXM holds at once,
+# cudaOccupancyMaxActiveClusters on the card (csrc/mdta_gram.cu:
+# mdta_gram_tc_max_clusters): its SMs sit in GPCs of 16 to 18, so 8 of the
+# 132 SMs idle at n = 8 and 12 at n = 4
+GRAM_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# a slice takes at least this many chunks: the cluster's reduction costs
+# ~5 us whatever the slices (the kernel's timeline on the card), a chunk ~1
+GRAM_MIN_CHUNKS = 4
+# past this many tiles a head, one block a tile: each tile reads its rows'
+# q and its columns' k, so a head of 4 x 4 tiles (d = 704) reads q and k 4
+# times over L2, and splitting its pixels too (128 blocks) made the launch
+# slower (21.5 against 17.6 us at B4 32x32, H100)
+GRAM_SPLIT_TILES = 4
+# bytes a block (kGSmem): the ring of q and k boxes (three of each, 64
+# channels by GRAM_CHUNK pixels), 1024 to align it, two barriers a stage
+GRAM_SMEM = GRAM_STAGES * 2 * 3 * GRAM_CHUNK * 128 + 1024 + 2 * GRAM_STAGES * 8
 # tail_stats' slots (ops/cuda/megablock.py:tail_stats_slots): at least
 # STATS_BLOCKS blocks over all images, and more, up to one a tile, while
 # their partial Grams fit STATS_BUDGET bytes.
@@ -111,7 +135,9 @@ class StatsPlan(NamedTuple):
     the stats pass; "wide": q and k out, then the Gram kernel), the tile,
     the stats blocks of one image (each a slot of the slot buffer), the
     block's shared-memory bytes, and the Gram kernel's pixel slices (0 on
-    the narrow route)."""
+    the narrow route; in bf16 the blocks of a cluster, gram_plan, whose
+    partial tiles stay in shared memory; in float32 slices through device
+    memory, gram_slices)."""
     route: str
     tile: tuple
     nslots: int
@@ -217,13 +243,86 @@ def _slots(b: int, tiles: int) -> int:
 
 
 def gram_slices(b: int, h: int, w: int, c: int, num_heads: int) -> int:
-    """Pixel slices of the wide route's Gram: enough for about 2 NUM_SMS
+    """Pixel slices of the wide route's float32 Gram: enough for about 2 NUM_SMS
     blocks over the batch's heads and output tiles, at most
     GRAM_MAX_SLICES and at least GRAM_MIN_SPAN pixels each."""
     d = c // num_heads
     blocks = b * num_heads * -(-d // GRAM_TILE) ** 2
     return max(1, min(GRAM_MAX_SLICES, -(-2 * NUM_SMS // blocks),
                       -(-h * w // GRAM_MIN_SPAN)))
+
+
+def up_to(n: int, m: int) -> int:
+    """n rounded up to a multiple of m."""
+    return -(-n // m) * m
+
+
+class GramPlan(NamedTuple):
+    """How the bf16 Gram kernel splits the wide route's Gram at one input:
+    output tiles of GRAM_ROWS rows by `cols` columns (`tiles_m` x `tiles_n`
+    a head), `items` = B * heads * tiles (image, head, tile), each taken by
+    a cluster of `slices` blocks, block r of a cluster the pixels [r span,
+    (r + 1) span) of the image; `clusters` persistent clusters walk the
+    items (cluster c the items c, c + clusters, ...)."""
+    cols: int
+    tiles_m: int
+    tiles_n: int
+    items: int
+    slices: int
+    span: int
+    clusters: int
+
+
+@functools.lru_cache(maxsize=None)
+def gram_plan(b: int, h: int, w: int, c: int, num_heads: int) -> GramPlan:
+    """The bf16 Gram kernel's work split: the fewest column tiles of at most
+    GRAM_MAX_COLS (each a multiple of 16 columns: wgmma's N), row tiles of
+    GRAM_ROWS; the most pixel slices a tile (clusters of 16, 8, 4, 2 or 1
+    blocks, spans of whole GRAM_CHUNKs, at least GRAM_MIN_CHUNKS each)
+    whose clusters, one an item, the card holds at once (GRAM_CLUSTERS),
+    one where a head has more than GRAM_SPLIT_TILES tiles; past 132 items,
+    132 persistent clusters of one block."""
+    d, px = c // num_heads, h * w
+    tiles_m = -(-d // GRAM_ROWS)
+    tiles_n = -(-d // GRAM_MAX_COLS)
+    cols = up_to(-(-d // tiles_n), 16)
+    items = b * num_heads * tiles_m * tiles_n
+    want = 1 if tiles_m * tiles_n > GRAM_SPLIT_TILES else next(
+        n for n in (16, 8, 4, 2, 1) if n == 1 or (
+            items <= GRAM_CLUSTERS[n] and px >= n * GRAM_MIN_CHUNKS * GRAM_CHUNK))
+    span = up_to(-(-px // want), GRAM_CHUNK)
+    slices = -(-px // span)
+    return GramPlan(cols, tiles_m, tiles_n, items, slices, span,
+                    min(items, GRAM_CLUSTERS.get(slices, NUM_SMS // slices)))
+
+
+@functools.lru_cache(maxsize=None)
+def gram_launch_args(b: int, h: int, w: int, c: int, num_heads: int, ld: int):
+    """gram_plan's launch as the kernel library takes it, one int array
+    made once a shape (csrc/mdta_gram.cu:mdta_gram_tc_launch): [ld, B, P,
+    C, heads, cols, slices, span, clusters, GRAM_SMEM], ld the floats
+    between two (image, head) rows of the output."""
+    p = gram_plan(b, h, w, c, num_heads)
+    return (ctypes.c_int * 10)(ld, b, h * w, c, num_heads, p.cols, p.slices,
+                               p.span, p.clusters, GRAM_SMEM)
+
+
+def gram_items(plan: GramPlan, d: int, num_heads: int, px: int):
+    """What each block of the bf16 Gram kernel takes, in the order the
+    kernel's loops take it: (cluster, rank, image-head, rows (i0, i1),
+    columns (j0, j1), pixels (p0, p1)) for each item a cluster walks and
+    each rank of the cluster. The item's output sums the ranks' partial
+    tiles over rank 0, 1, ..., slices - 1, in that order."""
+    per = plan.tiles_m * plan.tiles_n
+    for cl in range(plan.clusters):
+        for item in range(cl, plan.items, plan.clusters):
+            bh, t = divmod(item, per)
+            i0 = (t // plan.tiles_n) * GRAM_ROWS
+            j0 = (t % plan.tiles_n) * plan.cols
+            for r in range(plan.slices):
+                yield (cl, r, bh, (i0, min(d, i0 + GRAM_ROWS)),
+                       (j0, min(d, j0 + plan.cols)),
+                       (r * plan.span, min(px, (r + 1) * plan.span)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,20 +334,27 @@ def stats_plan(b: int, h: int, w: int, c: int, num_heads: int,
     route = stats_route(c, num_heads)
     tile = stats_tile(c, num_heads, dtype, b, h, w)
     nslots = _slots(b, _tiles(h, w, tile))
+    slices = 0
+    if route == "wide":
+        slices = (gram_plan(b, h, w, c, num_heads).slices
+                  if dtype == torch.bfloat16
+                  else gram_slices(b, h, w, c, num_heads))
     return StatsPlan(route, tile, nslots, stats_smem(c, num_heads, dtype, tile),
-                     gram_slices(b, h, w, c, num_heads) if route == "wide" else 0)
+                     slices)
 
 
 def stats_partial_bytes(b: int, h: int, w: int, c: int, num_heads: int,
                         dtype=torch.float32) -> int:
     """Bytes of the stats pass's slot buffer (B, heads, nslots, sld) fp32,
-    sld = d^2 + 2d (narrow) or 2d (wide), plus the wide route's Gram slices
-    (B, heads, slices, d^2) fp32, at an input of (b, h, w, c). Neither grows
-    with the image."""
+    sld = d^2 + 2d (narrow) or 2d (wide), plus the wide float32 route's Gram
+    slices (B, heads, slices, d^2) fp32 (the bf16 Gram sums its slices in
+    shared memory), at an input of (b, h, w, c). Neither grows with the
+    image."""
     d = c // num_heads
     plan = stats_plan(b, h, w, c, num_heads, dtype)
     sld = d * d + 2 * d if plan.route == "narrow" else 2 * d
-    return 4 * b * num_heads * (plan.nslots * sld + plan.slices * d * d)
+    slices = plan.slices if dtype == torch.float32 else 0
+    return 4 * b * num_heads * (plan.nslots * sld + slices * d * d)
 
 
 def _launch(x, lnw, lnb, wqkv, wdw, num_heads, bias_free, eps):
@@ -278,7 +384,7 @@ def _launch(x, lnw, lnb, wqkv, wdw, num_heads, bias_free, eps):
     build.check(code, "mdta_stats")
     mdta_stats.launches += 1
     if wide:
-        _gram_into(q, k, num_heads, plan.slices, stats)
+        _gram_into(q, k, num_heads, stats, d * d + 2 * d)
     return v, stats
 
 
@@ -326,16 +432,28 @@ def mdta_stats(x, ln_w, ln_b, w_qkv, w_dw, num_heads: int, *,
 mdta_stats.launches = 0
 
 
-def _gram_into(q, k, num_heads, slices, stats):
+def _gram_into(q, k, num_heads, stats, ld):
+    """The Gram kernel's launch into stats, rows of ld floats a (image,
+    head), the Gram at [:d*d] of each: in bf16 one launch by gram_plan, in
+    float32 (ld = d*d + 2d) the slices of gram_slices and their sum."""
     b, h, w, c = q.shape
     d = c // num_heads
-    part = torch.empty((b, num_heads, slices, d * d), device=q.device,
-                       dtype=torch.float32)
-    fn = build.function("mdta_gram_launch", [_I] + [_P] * 4 + [_I] * 5 + [_P])
     with build.on_card_of(q):
-        code = fn(build.dtype_code(q), q.data_ptr(), k.data_ptr(),
-                  part.data_ptr(), stats.data_ptr(), b, h * w, c, num_heads,
-                  slices, build.stream_of(q))
+        if q.dtype == torch.bfloat16:
+            fn = build.function("mdta_gram_tc_launch",
+                                [_P] * 3 + [ctypes.POINTER(_I), _P])
+            code = fn(q.data_ptr(), k.data_ptr(), stats.data_ptr(),
+                      gram_launch_args(b, h, w, c, num_heads, ld),
+                      build.stream_of(q))
+        else:
+            slices = gram_slices(b, h, w, c, num_heads)
+            part = torch.empty((b, num_heads, slices, d * d), device=q.device,
+                               dtype=torch.float32)
+            fn = build.function("mdta_gram_launch",
+                                [_I] + [_P] * 4 + [_I] * 5 + [_P])
+            code = fn(build.dtype_code(q), q.data_ptr(), k.data_ptr(),
+                      part.data_ptr(), stats.data_ptr(), b, h * w, c,
+                      num_heads, slices, build.stream_of(q))
     build.check(code, "mdta_gram")
     mdta_gram.launches += 1
 
@@ -355,9 +473,14 @@ def mdta_gram(q, k, num_heads: int):
                          "multiple of 4")
     check_tc_width(q, c, num_heads, "mdta_gram")
     q, k = q.contiguous(), k.contiguous()
+    if q.dtype == torch.bfloat16:  # the kernel writes d*d a row
+        stats = torch.empty((b, num_heads, d, d), device=q.device,
+                            dtype=torch.float32)
+        _gram_into(q, k, num_heads, stats, d * d)
+        return stats
     stats = torch.empty((b, num_heads, d * d + 2 * d), device=q.device,
                         dtype=torch.float32)
-    _gram_into(q, k, num_heads, gram_slices(b, h, w, c, num_heads), stats)
+    _gram_into(q, k, num_heads, stats, d * d + 2 * d)
     return stats[..., : d * d].reshape(b, num_heads, d, d)
 
 

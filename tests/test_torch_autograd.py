@@ -135,19 +135,24 @@ def test_apply_smem_fits_every_served_width():
 def test_stats_buffer_does_not_grow_with_the_image():
     """mdta_stats' scratch: one slot of d^2 + 2d fp32 (narrow) or 2d (wide)
     a stats block and head, about one block an SM over the batch, plus the
-    wide route's Gram slices (d^2 fp32 each, at most GRAM_MAX_SLICES). The
+    wide float32 route's Gram slices (d^2 fp32 each, at most
+    GRAM_MAX_SLICES; the bf16 Gram sums its slices in shared memory). The
     partial-Gram buffer with one slot a tile was 381 MB at one head, d = 704
     and a 256 px input; the wide route now writes q and k (each x's size)
     and keeps a few d^2 slices instead. Neither buffer grows with the image:
     the same bytes at 256 and 4096 px."""
     d = 704
     per_slice = 4 * d * d
-    # one head, d = 704, B4 256 px (32 x 32 at the latent): one Gram slice
-    # an image, 33 slots of 2d norms
-    plan = mdta.stats_plan(4, 32, 32, 704, 1, torch.bfloat16)
-    assert plan.route == "wide" and plan.nslots == 33 and plan.slices == 1
-    assert mdta.stats_partial_bytes(4, 32, 32, 704, 1, torch.bfloat16) == (
-        4 * (33 * 4 * 2 * d + per_slice))
+    # one head, d = 704, B4 256 px (32 x 32 at the latent): 33 slots of 2d
+    # norms; one Gram slice an image, in float32 through device memory, in
+    # bf16 a block's own (its partial tiles never leave shared memory)
+    for dtype, slices, gram_bytes in ((torch.float32, 1, per_slice),
+                                      (torch.bfloat16, 1, 0)):
+        plan = mdta.stats_plan(4, 32, 32, 704, 1, dtype)
+        assert plan.route == "wide" and plan.nslots == 33
+        assert plan.slices == slices
+        assert mdta.stats_partial_bytes(4, 32, 32, 704, 1, dtype) == (
+            4 * (33 * 4 * 2 * d + gram_bytes))
     for dtype in (torch.float32, torch.bfloat16):
         for b, c, heads in [(1, 48, 1), (4, 96, 2), (6, 384, 8), (4, 704, 4),
                             (8, 160, 1), (4, 704, 1)]:
@@ -159,8 +164,9 @@ def test_stats_buffer_does_not_grow_with_the_image():
             assert small == big, (b, c, heads, dtype)
             assert b * plan.nslots <= mdta.NUM_SMS
             assert plan.slices <= mdta.GRAM_MAX_SLICES
+            slices = plan.slices if dtype == torch.float32 else 0
             assert big == 4 * b * heads * (plan.nslots * sld
-                                           + plan.slices * dh * dh)
+                                           + slices * dh * dh)
     # a block's running sums fit its budget on the narrow route: the slot
     # buffer is at most NUM_SMS of them
     assert mdta.stats_partial_bytes(1, 4096, 4096, 384, 8) <= (

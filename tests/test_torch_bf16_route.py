@@ -297,9 +297,9 @@ def test_trained_bf16_model_serves_through_the_packed_weights(monkeypatch):
         assert y.shape == (1, 3, 64, 64) and y.dtype == torch.float32
     assert len(packs) == n_blocks == 19
     # every block alone (the default route): 19 stats passes and tails a
-    # forward, the Gram kernel at the two wide noise_level widths
+    # forward, the bf16 Gram kernel at the two wide noise_level widths
     assert [log.count(n) for n in ("mdta_stats_launch", "block_tail_launch",
-                                   "tail_stats_launch", "mdta_gram_launch")] == [
+                                   "tail_stats_launch", "mdta_gram_tc_launch")] == [
         3 * 19, 3 * 19, 0, 3 * 2]
 
 SOLO = [(48, 1), (96, 2), (192, 4), (384, 8), (96, 1), (704, 4), (320, 4),

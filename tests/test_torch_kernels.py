@@ -303,7 +303,8 @@ def test_stats_wrapper_launches_by_the_plan(monkeypatch, b, h, w, c, heads,
     """With storage-less tensors and a recording library, mdta_stats passes
     the stats kernel the route, tile, slots and shared memory of
     stats_plan, and on the wide route launches the Gram kernel with its
-    slices; each launch counts once."""
+    slices (bf16: gram_plan's tiles, slices, span and clusters, one launch
+    and no slot sum); each launch counts once."""
     from promptir_tpu_torch.ops.cuda import build
 
     calls = []
@@ -315,7 +316,13 @@ def test_stats_wrapper_launches_by_the_plan(monkeypatch, b, h, w, c, heads,
         if name == "mdta_stats_smem":
             return lambda dt, th, tw, cc, hh, wide: mdta.stats_smem(
                 cc, hh, dtype, (th, tw))
-        return lambda *args: calls.append((name, args)) or 0
+
+        def call(*args):  # ctypes refuses a call that misses an argtype
+            assert len(args) == len(argtypes), (name, len(args), len(argtypes))
+            calls.append((name, args))
+            return 0
+
+        return call
 
     monkeypatch.setattr(build, "function", function)
 
@@ -328,8 +335,9 @@ def test_stats_wrapper_launches_by_the_plan(monkeypatch, b, h, w, c, heads,
     plan = mdta.stats_plan(b, h, w, c, heads, dtype)
     wide = plan.route == "wide"
     d = c // heads
-    assert [n for n, _ in calls] == (["mdta_stats_launch"]
-                                     + ["mdta_gram_launch"] * wide)
+    gram_fn = ("mdta_gram_tc_launch" if dtype == torch.bfloat16
+               else "mdta_gram_launch")
+    assert [n for n, _ in calls] == ["mdta_stats_launch"] + [gram_fn] * wide
     args = calls[0][1]
     assert args[0] == (1 if dtype == torch.bfloat16 else 0)
     assert args[11:21] == (b, h, w, c, heads, *plan.tile, plan.nslots, 0,
@@ -337,7 +345,16 @@ def test_stats_wrapper_launches_by_the_plan(monkeypatch, b, h, w, c, heads,
     assert args[22] == plan.smem and args[23] == 9
     if wide:
         gram = calls[1][1]
-        assert gram[5:10] == (b, h * w, c, heads, plan.slices) and gram[-1] == 9
+        if dtype == torch.bfloat16:
+            # q, k, stats, then one array: stats' row length, the shape and
+            # gram_plan's split
+            p = mdta.gram_plan(b, h, w, c, heads)
+            assert p.slices == plan.slices
+            assert list(gram[3]) == [d * d + 2 * d, b, h * w, c, heads, p.cols,
+                                     p.slices, p.span, p.clusters,
+                                     mdta.GRAM_SMEM] and gram[4] == 9
+        else:
+            assert gram[5:10] == (b, h * w, c, heads, plan.slices) and gram[-1] == 9
     assert (mdta.mdta_stats.launches, mdta.mdta_gram.launches) == (
         before[0] + 1, before[1] + wide)
     assert v.shape == x.shape and stats.shape == (b, heads, d * d + 2 * d)
