@@ -4032,13 +4032,17 @@ def main() -> None:
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    so = build.build()
-    say(f"build: {so.name} in {build.build_seconds or 0.0:.1f} s (one nvcc "
-        "per csrc/*.cu, side by side, then one link)")
+    from promptir_tpu_torch.utils import tracing
+
+    build.lib()
+    so = build.library_path()
+    loaded = tracing.spans("setup.library")[-1]
+    say(f"build: {so.name} {'built' if loaded.attrs['built'] else 'loaded'} "
+        f"in {loaded.seconds:.1f} s (one nvcc per csrc/*.cu, side by side, "
+        "then one link)")
     for line in (build.build_log or "").splitlines():
         if re.search(r"Compiling entry|registers|spill", line):
             print("    " + line.strip(), flush=True)
-    build.lib()
     if only_forward:
         check_bf16_forward(port, counters, reset)
         say(f"done in {time.perf_counter() - T0:.1f} s")

@@ -15,6 +15,8 @@ from typing import Callable, Dict
 
 import torch
 
+from promptir_tpu_torch.utils import tracing
+
 _REGISTRY: Dict[str, Callable[..., torch.nn.Module]] = {}
 
 
@@ -32,7 +34,8 @@ def available_models():
 
 def create_model(name: str, *, device="cuda", dtype=torch.float32,
                  train: bool = False, **kwargs):
-    """Build model `name` on `device` (default the card) computing in `dtype`.
+    """Build model `name` on `device` (default the card) computing in `dtype`
+    (inside a `setup.model` span, utils/tracing.py).
 
     For serving (`train=False`) the weights are stored in `dtype` and the
     model is in eval mode. For training the weights stay float32 (the
@@ -53,21 +56,22 @@ def create_model(name: str, *, device="cuda", dtype=torch.float32,
         raise RuntimeError(
             "no CUDA device: pass device='cpu' to run the plain versions"
         )
-    try:
-        model = _REGISTRY[name](**kwargs)
-    except TypeError as e:
-        if "fused_ffn" in str(e) and kwargs.get("fused_ffn"):
-            raise ValueError(
-                f"model {name!r} has no fused Pallas path (fused_ffn/"
-                "--fused is supported by the PromptIR and X-Restormer "
-                "families)"
-            ) from e
-        raise
-    if not train:
-        return model.to(device=device, dtype=dtype).eval()
-    model = model.to(device=device, dtype=torch.float32).train()
-    model.compute_dtype = dtype
-    return model
+    with tracing.setup_span("setup.model", model=name):
+        try:
+            model = _REGISTRY[name](**kwargs)
+        except TypeError as e:
+            if "fused_ffn" in str(e) and kwargs.get("fused_ffn"):
+                raise ValueError(
+                    f"model {name!r} has no fused Pallas path (fused_ffn/"
+                    "--fused is supported by the PromptIR and X-Restormer "
+                    "families)"
+                ) from e
+            raise
+        if not train:
+            return model.to(device=device, dtype=dtype).eval()
+        model = model.to(device=device, dtype=torch.float32).train()
+        model.compute_dtype = dtype
+        return model
 
 
 from promptir_tpu_torch.models import promptir as _promptir  # noqa: E402,F401

@@ -27,7 +27,8 @@ passes over the hidden tensor (autodiff.py:56-76).
 
 Mixed precision: a weight that arrives in float32 while x is bfloat16 is
 cast to x's dtype inside the forward and inside the recomputed composition,
-so its gradient returns in float32.
+so its gradient returns in float32; the casts count as weight copies at
+"autodiff" and "recompute" (precision.py:weight_as).
 
 The JAX package ties each block's saved inputs to the incoming cotangent
 with an optimization barrier (`_serialize_on`), so that XLA does not hoist
@@ -47,10 +48,11 @@ from promptir_tpu_torch.ops.cuda.gdfn import ln_gdfn
 from promptir_tpu_torch.ops.cuda.mdta import attn_from_stats, ln_mdta, mdta_stats
 from promptir_tpu_torch.ops.cuda.seam import seam, seam_plain
 from promptir_tpu_torch.ops.norm import layernorm_nhwc
+from promptir_tpu_torch.precision import weight_as
 
 
-def _cast(t, dtype):
-    return None if t is None else t.to(dtype)
+def _as(dt, site, *ws):
+    return [weight_as(w, dt, site) for w in ws]
 
 
 def plain_ln_mdta(x, lnw, lnb, wqkv, wdw, wproj, temp, num_heads: int,
@@ -62,8 +64,9 @@ def plain_ln_mdta(x, lnw, lnb, wqkv, wdw, wproj, temp, num_heads: int,
     d = c // num_heads
     dt = x.dtype
     y = layernorm_nhwc(x, lnw, lnb, bias_free=bias_free, eps=eps)
-    qkv = y @ wqkv.to(dt).reshape(3 * c, c).t()
-    qkv = dwconv3x3_nhwc(qkv, wdw.to(dt))
+    wqkv, wdw, wproj = _as(dt, "recompute", wqkv, wdw, wproj)
+    qkv = y @ wqkv.reshape(3 * c, c).t()
+    qkv = dwconv3x3_nhwc(qkv, wdw)
     q, k, v = (t.reshape(b, h * w, num_heads, d) for t in qkv.split(c, dim=-1))
 
     def l2norm(t):
@@ -74,7 +77,7 @@ def plain_ln_mdta(x, lnw, lnb, wqkv, wdw, wproj, temp, num_heads: int,
     attn = attn * temp.float().reshape(1, num_heads, 1, 1)
     attn = attn.softmax(dim=-1).to(dt)
     o = torch.einsum("bhij,bshj->bshi", attn.float(), v.float()).to(dt)
-    return x + o.reshape(b, h, w, c) @ wproj.to(dt).reshape(c, c).t()
+    return x + o.reshape(b, h, w, c) @ wproj.reshape(c, c).t()
 
 
 def plain_ln_gdfn(x, lnw, lnb, w1, wdw, w2, bias_free: bool = False,
@@ -84,9 +87,10 @@ def plain_ln_gdfn(x, lnw, lnb, w1, wdw, w2, bias_free: bool = False,
     f = w2.reshape(c, -1).shape[1]
     dt = x.dtype
     y = layernorm_nhwc(x, lnw, lnb, bias_free=bias_free, eps=eps)
-    hid = y @ w1.to(dt).reshape(2 * f, c).t()
-    g1, g2 = dwconv3x3_nhwc(hid, wdw.to(dt)).split(f, dim=-1)
-    return x + (F.gelu(g1) * g2) @ w2.to(dt).reshape(c, f).t()
+    w1, wdw, w2 = _as(dt, "recompute", w1, wdw, w2)
+    hid = y @ w1.reshape(2 * f, c).t()
+    g1, g2 = dwconv3x3_nhwc(hid, wdw).split(f, dim=-1)
+    return x + (F.gelu(g1) * g2) @ w2.reshape(c, f).t()
 
 
 def plain_ln_block(x, ln1w, ln1b, wqkv, wdwa, wproj, temp, ln2w, ln2b, w1,
@@ -122,9 +126,8 @@ class LnMdta(torch.autograd.Function):
         ctx.config = (num_heads, bias_free, eps)
         ctx.save_for_backward(x, lnw, lnb, wqkv, wdw, wproj, temp)
         dt = x.dtype
-        return ln_mdta(x, lnw.to(dt), _cast(lnb, dt), wqkv.to(dt), wdw.to(dt),
-                       wproj.to(dt), temp, num_heads, bias_free=bias_free,
-                       eps=eps)
+        return ln_mdta(x, *_as(dt, "autodiff", lnw, lnb, wqkv, wdw, wproj),
+                       temp, num_heads, bias_free=bias_free, eps=eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -141,8 +144,8 @@ class LnGdfn(torch.autograd.Function):
         ctx.config = (bias_free, eps)
         ctx.save_for_backward(x, lnw, lnb, w1, wdw, w2)
         dt = x.dtype
-        return ln_gdfn(x, lnw.to(dt), _cast(lnb, dt), w1.to(dt), wdw.to(dt),
-                       w2.to(dt), bias_free=bias_free, eps=eps)
+        return ln_gdfn(x, *_as(dt, "autodiff", lnw, lnb, w1, wdw, w2),
+                       bias_free=bias_free, eps=eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -163,12 +166,11 @@ class LnBlock(torch.autograd.Function):
         ctx.save_for_backward(x, ln1w, ln1b, wqkv, wdwa, wproj, temp, ln2w,
                               ln2b, w1, wdwf, w2)
         dt = x.dtype
-        v, stats = mdta_stats(x, ln1w.to(dt), _cast(ln1b, dt), wqkv.to(dt),
-                              wdwa.to(dt), num_heads, bias_free=bias_free,
-                              eps=eps)
+        v, stats = mdta_stats(x, *_as(dt, "autodiff", ln1w, ln1b, wqkv, wdwa),
+                              num_heads, bias_free=bias_free, eps=eps)
         attn = attn_from_stats(stats, temp)
-        return block_tail(v, x, attn, wproj.to(dt), ln2w.to(dt),
-                          _cast(ln2b, dt), w1.to(dt), wdwf.to(dt), w2.to(dt),
+        return block_tail(v, x, attn, *_as(dt, "autodiff", wproj, ln2w, ln2b,
+                                           w1, wdwf, w2),
                           bias_free=bias_free, eps=eps)
 
     @staticmethod

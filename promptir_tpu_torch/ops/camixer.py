@@ -64,6 +64,7 @@ from promptir_tpu_torch.parallel.data import (
     keep_rows,
 )
 from promptir_tpu_torch.parallel.spatial import global_mean_hw, run_gathered
+from promptir_tpu_torch.precision import weight_as
 
 # the uniform draw's range, the JAX module's (jax.random.uniform's minval
 # and maxval): -log(-log(u)) stays finite
@@ -138,8 +139,9 @@ def mean_last(x, dims):
 
 def pointwise(x, conv: nn.Conv2d):
     """A 1x1 `conv` on the last axis of `x`, in x's dtype."""
-    b = None if conv.bias is None else conv.bias.to(x.dtype)
-    return F.linear(x, conv.weight.reshape(conv.out_channels, -1).to(x.dtype), b)
+    w = conv.weight.reshape(conv.out_channels, -1)
+    return F.linear(x, weight_as(w, x.dtype, "linear"),
+                    weight_as(conv.bias, x.dtype, "linear"))
 
 
 def to_windows(x, win: int):

@@ -45,6 +45,7 @@ from promptir_tpu_torch.parallel.spatial import (
     slice_local_rows,
     spatial_sharding,
 )
+from promptir_tpu_torch.precision import weight_as
 
 
 class Conv(nn.Conv2d):
@@ -65,7 +66,7 @@ class Conv(nn.Conv2d):
         return self._plain(x)
 
     def _plain(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
+        b = weight_as(self.bias, x.dtype, "conv")
         if (x.device.type == "cpu" and x.dtype == torch.bfloat16
                 and self.dilation != (1, 1) and self.groups == self.in_channels):
             # PyTorch's CPU bf16 weight gradient of a dilated depthwise conv
@@ -74,7 +75,7 @@ class Conv(nn.Conv2d):
             # B6 32x32 C 48 and 64x64 C 96, torch 2.13): convolve a
             # contiguous copy, whose gradient is right
             x = x.contiguous()
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        return self._conv_forward(x, weight_as(self.weight, x.dtype, "conv"), b)
 
     def _sharded(self, x, group):
         """The conv of an NCHW stripe under the sharded forward's plan."""

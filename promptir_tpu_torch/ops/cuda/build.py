@@ -8,6 +8,10 @@ flags, so a changed source rebuilds and an unchanged one loads at once. No
 PyTorch header is compiled: the build takes seconds, where
 ``torch.utils.cpp_extension.load`` takes minutes.
 
+:func:`lib` builds or loads the library inside a ``setup.library`` span
+(``utils/tracing.py``; its ``built`` attribute says whether nvcc ran), which
+is how long the library took to become usable.
+
 Every C entry point returns ``cudaGetLastError()`` after its launches;
 :func:`check` raises on a non-zero code, because a refused launch never runs
 and ``torch.cuda.synchronize()`` would not report it.
@@ -23,9 +27,10 @@ import pathlib
 import shutil
 import subprocess
 import threading
-import time
 
 import torch
+
+from promptir_tpu_torch.utils import tracing
 
 _PKG = pathlib.Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -39,10 +44,9 @@ BUILD_TIMEOUT_S = 600
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _functions: dict = {}  # (library, name) -> the declared function
-# what the last build printed (ptxas register and shared-memory use) and
-# how long it took; None when the library was already built
+# what the last build printed (ptxas register and shared-memory use); None
+# when the library was already built
 build_log: str | None = None
-build_seconds: float | None = None
 
 
 def _nvcc() -> str:
@@ -87,7 +91,7 @@ def _run(cmds: list) -> list:
 
 def build() -> pathlib.Path:
     """Compile the kernels unless the current library exists; return its path."""
-    global build_log, build_seconds
+    global build_log
     so = library_path()
     if so.exists():
         return so
@@ -96,12 +100,10 @@ def build() -> pathlib.Path:
     srcs = sorted(CSRC.glob("*.cu"))
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
     logs = _run([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
                  for src, o in zip(srcs, objs)])
     logs += _run([[_nvcc(), "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                    "-o", str(tmp), *map(str, objs)]])
-    build_seconds = time.perf_counter() - t0
     build_log = "".join(logs)
     for o in objs:
         o.unlink()
@@ -114,7 +116,9 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = ctypes.CDLL(str(build()))
+            with tracing.setup_span("setup.library") as s:
+                s.attrs["built"] = not library_path().exists()
+                _lib = ctypes.CDLL(str(build()))
             _lib.pk_error_string.argtypes = [ctypes.c_int]
             _lib.pk_error_string.restype = ctypes.c_char_p
         return _lib

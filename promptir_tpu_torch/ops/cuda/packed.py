@@ -19,12 +19,18 @@ a model whose float32 weights compute in bfloat16 hands the kernels one
 bf16 copy of each weight, kept beside it, so the packed copy above is made
 once for it too, and serving such a model under torch.inference_mode makes
 no inference tensors of its weights.
+
+Each copy either function makes (a miss, or any call on inference
+tensors) counts as a weight copy at "gdfn_weights" or "cast_weight"
+(utils/tracing.py).
 """
 
 from __future__ import annotations
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
+
+from promptir_tpu_torch.utils import tracing
 
 GATE_CHUNK = 32  # gate channels of one W2 chunk (csrc/gdfn.cuh: kGC)
 
@@ -47,6 +53,7 @@ def hidden_order(f: int) -> torch.Tensor:
 
 
 def _pack(w1, wdw, w2):
+    tracing.count("weight_copies", "gdfn_weights")
     c, f = w2.shape
     order = hidden_order(f).to(w1.device)
     keep = (order >= 0)[:, None]
@@ -87,10 +94,12 @@ def cast_weight(t, dtype):
     if t is None or t.dtype == dtype:
         return t
     if t.is_inference():
+        tracing.count("weight_copies", "cast_weight")
         return t.to(dtype)
     hit = _casts.get(t)
     if hit is not None and hit[0] == t._version:
         return hit[1]
+    tracing.count("weight_copies", "cast_weight")
     with torch.inference_mode(False), torch.no_grad():
         copy = t.to(dtype)
     _casts[t] = (t._version, copy)

@@ -26,6 +26,7 @@ from torch import nn
 
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.parallel.spatial import current_spatial_group, exchange_rows
+from promptir_tpu_torch.precision import weight_as
 
 
 def extract_overlapping_windows(x, win: int, ow: int):
@@ -81,10 +82,6 @@ class RelPosEmb(nn.Module):
         return bias.reshape(n, win * win, rs * rs)
 
 
-def _at(bias, dt):
-    return None if bias is None else bias.to(dt)
-
-
 class OCAB(nn.Module):
     def __init__(self, dim: int, window_size: int = 8,
                  overlap_ratio: float = 0.5, num_heads: int = 2,
@@ -113,8 +110,9 @@ class OCAB(nn.Module):
         nwin = nh * nw
         dt = x.dtype
 
-        qkv = F.linear(x, self.qkv.weight.reshape(3 * inner, c).to(dt),
-                       _at(self.qkv.bias, dt))
+        qkv = F.linear(x, weight_as(self.qkv.weight.reshape(3 * inner, c), dt,
+                                    "ocab"),
+                       weight_as(self.qkv.bias, dt, "ocab"))
         qs, ks, vs = qkv.split(inner, dim=-1)
         qs = qs.reshape(b, nh, win, nw, win, inner).permute(0, 1, 3, 2, 4, 5)
         # channel = head * d + c (the reference's '(head c)')
@@ -130,5 +128,6 @@ class OCAB(nn.Module):
         out = torch.einsum("bwhqk,bwkhd->bwqhd", attn.float(), vs.float()).to(dt)
         out = out.reshape(b, nh, nw, win, win, inner).permute(0, 1, 3, 2, 4, 5)
         out = out.reshape(b, h, w, inner)
-        return F.linear(out, self.project_out.weight.reshape(c, inner).to(dt),
-                        _at(self.project_out.bias, dt))
+        return F.linear(out, weight_as(self.project_out.weight.reshape(c, inner),
+                                       dt, "ocab"),
+                        weight_as(self.project_out.bias, dt, "ocab"))

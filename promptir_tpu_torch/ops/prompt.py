@@ -23,6 +23,7 @@ from torch import nn
 
 from promptir_tpu_torch.ops.conv import Conv
 from promptir_tpu_torch.ops.resize import resize_bilinear
+from promptir_tpu_torch.precision import weight_as
 from promptir_tpu_torch.parallel.mesh import group_size
 from promptir_tpu_torch.parallel.spatial import (
     current_spatial_group,
@@ -48,7 +49,8 @@ class PromptGenBlock(nn.Module):
         dt = x.dtype
         emb = global_mean_hw(x, dims=(-2, -1), keepdim=False).to(dt)
         lin = self.linear_layer
-        logits = F.linear(emb, lin.weight.to(dt), lin.bias.to(dt))
+        logits = F.linear(emb, weight_as(lin.weight, dt, "prompt"),
+                          weight_as(lin.bias, dt, "prompt"))
         weights = logits.float().softmax(-1)
         prompt = torch.einsum("bl,lchw->bchw", weights,
                               self.prompt_param[0].float()).to(dt)

@@ -52,13 +52,14 @@ from promptir_tpu_torch.parallel.spatial import (
     sharded_roll_h,
     spatial_sharding,
 )
+from promptir_tpu_torch.precision import weight_as
 
 
 def linear(x, lin: nn.Linear):
     """`lin` in x's dtype (float32 weights cast at use, as a flax Dense
     with `dtype` casts its params)."""
-    b = None if lin.bias is None else lin.bias.to(x.dtype)
-    return F.linear(x, lin.weight.to(x.dtype), b)
+    return F.linear(x, weight_as(lin.weight, x.dtype, "linear"),
+                    weight_as(lin.bias, x.dtype, "linear"))
 
 
 def conv_nhwc(x, conv: Conv):
@@ -335,7 +336,7 @@ class LeWinTransformerBlock(nn.Module):
                 mask = mask[group_rank(group) * per_stripe:][:per_stripe]
         yw = window_partition(y, win)
         if self.modulator is not None:
-            yw = yw + self.modulator.weight.to(yw.dtype)
+            yw = yw + weight_as(self.modulator.weight, yw.dtype, "modulator")
         y = window_reverse(self.attn(yw, mask), win, h, w)
         if shift > 0:
             y = torch.roll(sharded_roll_h(y, shift, group), shift, 2)

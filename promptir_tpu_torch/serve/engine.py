@@ -22,11 +22,24 @@ group:
     batch whatever the image's size. The tiler clips once after blending,
     so the engine's own clip is skipped for it; `stats()` counts
     `tiled_requests`.
+  * `stats()` reports each request's queue wait, from its submit to the
+    start of its batch, as `mean_queue_wait_s` and `max_queue_wait_s`.
+
+While a torch.profiler session runs, the engine records spans
+(utils/tracing.py): `engine.request` from a request's submit to its
+result (its id), and on the worker `engine.collect` (the wait for a head
+and the batch timeout), `engine.batch` (the batch call: its request ids,
+bucket and fill) holding `engine.pad`, `engine.h2d`, `engine.model` and
+`engine.d2h` (the copy out, with its wait for the card), then
+`engine.resolve` (the counters, crops and results). The first batch of a
+new bucket runs inside a `setup.first_call` span, recorded always.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import itertools
 import queue
 import threading
 import time
@@ -39,6 +52,7 @@ import torch
 from promptir_tpu_torch.eval.padding import target_size
 from promptir_tpu_torch.eval.tiling import tiled_inference
 from promptir_tpu_torch.precision import compute_dtype, exact_float32
+from promptir_tpu_torch.utils import tracing
 
 
 class EngineOverloaded(RuntimeError):
@@ -64,14 +78,22 @@ def pad_image_np(img: np.ndarray, base: int) -> np.ndarray:
     return np.pad(img, ((0, th - h), (0, tw - w), (0, 0)), mode=mode)
 
 
+_request_ids = itertools.count()
+
+
 class _Request:
-    __slots__ = ("img", "future", "t_submit", "shape")
+    __slots__ = ("id", "img", "future", "t_submit", "t_batch", "shape")
 
     def __init__(self, img: np.ndarray):
+        self.id = next(_request_ids)
         self.img = img
         self.future: Future = Future()
-        self.t_submit = time.perf_counter()
+        self.t_submit = tracing.now_ns()  # the profiler's clock, ns
+        self.t_batch = None  # set when its batch starts
         self.shape = img.shape
+
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class InferenceEngine:
@@ -122,6 +144,8 @@ class InferenceEngine:
             "batch_fill_sum": 0.0,
             "latency_sum_s": 0.0,
             "latency_max_s": 0.0,
+            "queue_wait_sum_s": 0.0,
+            "queue_wait_max_s": 0.0,
         }
         self._buckets: set = set()
         self._closed = False
@@ -182,6 +206,8 @@ class InferenceEngine:
             "mean_batch_fill": s["batch_fill_sum"] / b,
             "mean_latency_s": s["latency_sum_s"] / n,
             "max_latency_s": s["latency_max_s"],
+            "mean_queue_wait_s": s["queue_wait_sum_s"] / n,
+            "max_queue_wait_s": s["queue_wait_max_s"],
             # the JAX engine's key: the padded shapes run so far
             "compiled_shapes": buckets,
             "queue_depth": self._q.qsize() + len(self._pending),
@@ -233,6 +259,8 @@ class InferenceEngine:
             self._inflight -= 1
         f = req.future
         if f.running() or f.set_running_or_notify_cancel():
+            tracing.record("engine.request", req.t_submit, tracing.now_ns(),
+                           request=req.id)
             f.set_exception(exc)
 
     def _bucket(self, req: _Request) -> Tuple[int, int]:
@@ -249,7 +277,7 @@ class InferenceEngine:
         """Fail and drop a request that waited past request_timeout_s."""
         if self.request_timeout_s is None:
             return False
-        waited = time.perf_counter() - req.t_submit
+        waited = (tracing.now_ns() - req.t_submit) / 1e9
         if waited <= self.request_timeout_s:
             return False
         with self._lock:
@@ -313,6 +341,7 @@ class InferenceEngine:
         return group
 
     def _tiled(self, req: _Request) -> np.ndarray:
+        req.t_batch = tracing.now_ns()
         with exact_float32(self.compute_dtype):
             y = tiled_inference(self.model, torch.from_numpy(req.img[None]),
                                 tile=self.tile_size, overlap=self.tile_overlap,
@@ -321,19 +350,33 @@ class InferenceEngine:
 
     def _forward(self, group: list) -> np.ndarray:
         th, tw = self._bucket(group[0])
-        xb = np.zeros((self.max_batch, th, tw, self.channels), np.float32)
-        for i, r in enumerate(group):
-            xb[i] = pad_image_np(r.img, self.pad_base)
-        x = torch.from_numpy(xb).to(self.device).permute(0, 3, 1, 2)
-        with torch.inference_mode(), exact_float32(self.compute_dtype):
-            y = self.model(x)
-            if self.clip:
-                y = y.clamp(0.0, 1.0)
-            return y.permute(0, 2, 3, 1).float().cpu().numpy()
+        with tracing.span("engine.batch", requests=[r.id for r in group],
+                          bucket=(th, tw), fill=len(group)) as batch:
+            # the queue waits end where the span starts
+            t_batch = tracing.now_ns() if batch is None else batch.t0
+            for r in group:
+                r.t_batch = t_batch
+            with tracing.span("engine.pad"):
+                xb = np.zeros((self.max_batch, th, tw, self.channels),
+                              np.float32)
+                for i, r in enumerate(group):
+                    xb[i] = pad_image_np(r.img, self.pad_base)
+            with tracing.span("engine.h2d"):
+                x = torch.from_numpy(xb).to(self.device).permute(0, 3, 1, 2)
+            with torch.inference_mode(), exact_float32(self.compute_dtype):
+                with tracing.span("engine.model"):
+                    y = self.model(x)
+                    if self.clip:
+                        y = y.clamp(0.0, 1.0)
+                with tracing.span("engine.d2h"):
+                    return y.permute(0, 2, 3, 1).float().cpu().numpy()
 
     def _run(self) -> None:
         while True:
-            group = self._collect_group()
+            with tracing.span("engine.collect") as collecting:
+                group = self._collect_group()
+                if collecting is not None and group is not None:
+                    collecting.attrs["size"] = len(group)
             if group is None:
                 self._drain_failed(EngineClosed("engine closed before request ran"))
                 break
@@ -349,28 +392,47 @@ class InferenceEngine:
             if not group:
                 continue
             tiled = self._is_tiled(group[0])
+            bucket = None if tiled else self._bucket(group[0])
+            # the worker alone writes _buckets
+            first = (tracing.setup_span("setup.first_call", bucket=bucket)
+                     if bucket is not None and bucket not in self._buckets
+                     else _NO_SPAN)
             try:
-                y = self._tiled(group[0]) if tiled else self._forward(group)
+                with first:
+                    y = self._tiled(group[0]) if tiled else self._forward(group)
             except Exception as e:  # the worker keeps serving; callers see it
                 for r in group:
                     self._resolve_exc(r, e)
                 continue
-            now = time.perf_counter()
-            with self._lock:
-                if tiled:
-                    self._stats["tiled_requests"] += 1
-                else:
-                    self._buckets.add(self._bucket(group[0]))
-                self._stats["batches"] += 1
-                self._stats["batch_fill_sum"] += len(group)
-                for r in group:
-                    lat = now - r.t_submit
-                    self._stats["requests"] += 1
-                    self._stats["latency_sum_s"] += lat
-                    self._stats["latency_max_s"] = max(
-                        self._stats["latency_max_s"], lat
-                    )
-                    self._inflight -= 1
-            for i, r in enumerate(group):
-                h, w = r.shape[:2]
-                r.future.set_result(y[i, :h, :w, :])
+            with tracing.span("engine.resolve"):
+                self._resolve(group, y, bucket)
+
+    def _resolve(self, group: list, y: np.ndarray, bucket) -> None:
+        """Count the batch (of `bucket`, None for a tiled request), then set
+        each request's cropped result."""
+        now = tracing.now_ns()
+        with self._lock:
+            if bucket is None:
+                self._stats["tiled_requests"] += 1
+            else:
+                self._buckets.add(bucket)
+            self._stats["batches"] += 1
+            self._stats["batch_fill_sum"] += len(group)
+            for r in group:
+                lat = (now - r.t_submit) / 1e9
+                wait = (r.t_batch - r.t_submit) / 1e9
+                self._stats["requests"] += 1
+                self._stats["latency_sum_s"] += lat
+                self._stats["latency_max_s"] = max(
+                    self._stats["latency_max_s"], lat
+                )
+                self._stats["queue_wait_sum_s"] += wait
+                self._stats["queue_wait_max_s"] = max(
+                    self._stats["queue_wait_max_s"], wait
+                )
+                self._inflight -= 1
+        for i, r in enumerate(group):
+            h, w = r.shape[:2]
+            tracing.record("engine.request", r.t_submit, tracing.now_ns(),
+                           request=r.id)
+            r.future.set_result(y[i, :h, :w, :])

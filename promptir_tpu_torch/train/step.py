@@ -24,10 +24,14 @@ update, as the JAX step does with a `lax.scan`: equal microbatches make the
 mean of the microbatch L1 losses the full batch's. A float32 model runs
 with TF32 off (precision.py).
 
-The forward with its loss runs inside a torch.profiler range "forward" and
-the update (the norm, the clip, AdamW) inside "optimizer", so that a trace
-of the step splits into them and autograd's backward
-(tools/profile_train.py); a range costs nothing without a profiler.
+While a torch.profiler session runs, the step records spans
+(utils/tracing.py), each also a profiler range: `train.step` around the
+whole call (its step number and the weight copies made in it, the
+"weight_copies" counter's growth), holding "forward" (the forward with
+its loss), "backward" (autograd's backward) and "optimizer" (the norm,
+the clip, AdamW), so that a trace of the step splits into them
+(tools/profile_train.py); without a profiler a span costs one check. The
+step's first call runs inside a `setup.first_call` span, recorded always.
 
 A stochastic model (the CAMixer family, told by its `variant`, as the JAX
 trainer tells them) is called with `deterministic=False` and a torch.Generator
@@ -49,15 +53,17 @@ slice, the JAX step's, when the ranks' rows are dealt by microbatch
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from promptir_tpu_torch.parallel.data import data_sharding
 from promptir_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 from promptir_tpu_torch.precision import compute_dtype, exact_float32
 from promptir_tpu_torch.train.losses import l1_loss, ratio_loss
 from promptir_tpu_torch.train.state import TrainState, clip_by_global_norm, global_norm
+from promptir_tpu_torch.utils import tracing
 
 
 def to_nchw(x: torch.Tensor, device) -> torch.Tensor:
@@ -116,7 +122,20 @@ def make_train_step(model, grad_accum: int = 1, seed: int = 0, group=None):
             aux = [ratio_loss(aux[0], model.ratio)]
         return l1_loss(out, y) + sum(aux)
 
+    first = [True]
+
     def step(state: TrainState, batch: dict) -> dict:
+        setup = (tracing.setup_span("setup.first_call", step=state.step)
+                 if first[0] else contextlib.nullcontext())
+        first[0] = False
+        with setup, tracing.span("train.step", step=state.step) as s:
+            before = tracing.total("weight_copies") if s is not None else 0
+            out = run(state, batch)
+            if s is not None:
+                s.attrs["weight_copies"] = tracing.total("weight_copies") - before
+        return out
+
+    def run(state: TrainState, batch: dict) -> dict:
         n = batch["degraded"].shape[0]
         if n % grad_accum:
             raise ValueError(f"batch {n} is not divisible by grad_accum "
@@ -127,13 +146,14 @@ def make_train_step(model, grad_accum: int = 1, seed: int = 0, group=None):
         with exact_float32(compute_dtype(model)), data_sharding(group):
             for i in range(grad_accum):
                 sl = slice(i * m, (i + 1) * m)
-                with record_function("forward"):
+                with tracing.span("forward"):
                     mloss = loss_of(to_nchw(batch["degraded"][sl], device),
                                     to_nchw(batch["clean"][sl], device),
                                     state.step * grad_accum + i)
-                (mloss / grad_accum).backward()
+                with tracing.span("backward"):
+                    (mloss / grad_accum).backward()
                 loss = loss + mloss.detach()
-        with record_function("optimizer"):
+        with tracing.span("optimizer"):
             # a parameter the forward never reads (the reference's dead
             # convs) gets a zero gradient, so that AdamW still decays it, as
             # optax does
